@@ -7,6 +7,9 @@ module layout so that each counterpart is found under the same path:
   the hand-written Hopper kernels (CUDA C++ in ``csrc/``) with their wrappers.
 - ``models``     — IFNet-2D (RIFE student/teacher) as ``nn.Module``s.
 - ``bridge``     — flax params → this package's ``state_dict``.
+- ``losses``     — the RIFE training losses.
+- ``training``   — config, schedule, checkpoint and the ``Trainer``.
+- ``cli``        — the 2-D verbs: generate, train, test, inference_img / _video.
 - ``inference``  — ``Interpolator`` and the series / recursive interpolators.
 - ``evalsuite``  — PSNR / SSIM metrics and the linear baseline.
 - ``data``       — numpy generators, pipeline and dataset registry.

@@ -1,0 +1,326 @@
+"""CLI dispatcher: ``python -m opticalflowscivis_tpu_torch.cli <verb> [flags]``.
+
+The 2-D verbs of ``opticalflowscivis_tpu.cli`` with the same flags.  ``--cpu``
+selects ``device="cpu"``; without it every verb runs on the GPU and raises
+when there is none.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+# verbs that wait for a later slice, with the ROADMAP item that brings them
+WAITING_VERBS = {
+    "train_upflow": "UPFlow is ported with its slice (ROADMAP A.9)",
+    "test_upflow": "UPFlow is ported with its slice (ROADMAP A.9)",
+    "select": "time-step selection (evalsuite/selection.py) is ported with the "
+              "remaining tooling (ROADMAP A.11)",
+    "bench": "the port's bench comes with the first benchmark (ROADMAP A.7)",
+}
+
+
+def _add_common(p: argparse.ArgumentParser):
+    p.add_argument("--dataset", default="rectangle2d")
+    p.add_argument("--exp", type=int, default=1, help="interpolate 2**exp x")
+    p.add_argument("--data_dir", default="data_cache")
+    p.add_argument("--results_dir", default="Results")
+    p.add_argument("--log_dir", default="train_log")
+    p.add_argument("--model_name", default="flownet")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
+    p.add_argument("--config_json", default=None,
+                   help="path to a TrainConfig json overriding flags")
+
+
+def _device(args) -> str | None:
+    return "cpu" if args.cpu else None
+
+
+def _spec_2d(dataset: str):
+    """The dataset's spec, or exit for what the ported verbs cannot serve yet."""
+    from opticalflowscivis_tpu_torch.data import get_spec
+
+    spec = get_spec(dataset)
+    if spec.ndim == 3:
+        raise SystemExit(
+            f"dataset {dataset!r} is 3-D: IFNet-3D and its trilinear warp kernel "
+            "are ported with the RIFE-3D slice (ROADMAP A.8)"
+        )
+    if dataset == "vimeo2d":
+        raise SystemExit(
+            "dataset 'vimeo2d' streams Vimeo90K crops through data/vimeo.py, "
+            "which is ported with the remaining data tooling (ROADMAP A.11)"
+        )
+    return spec
+
+
+def _build_cfg(args, epochs=None, batch_size=None):
+    from opticalflowscivis_tpu_torch.losses.rife import RIFELossWeights
+    from opticalflowscivis_tpu_torch.training import ModelConfig, TrainConfig
+
+    if args.config_json:
+        with open(args.config_json) as f:
+            return TrainConfig.from_json(f.read())
+    spec = _spec_2d(args.dataset)
+    loss = RIFELossWeights.preset_2d(flow_supervised=getattr(args, "flow_supervised", False))
+    if getattr(args, "distill", None) is not None:
+        loss = dataclasses.replace(loss, distill=args.distill)
+    return TrainConfig(
+        dataset=args.dataset,
+        exp=args.exp,
+        epochs=epochs if epochs is not None else getattr(args, "epochs", 300),
+        batch_size=batch_size if batch_size is not None else getattr(args, "batch_size", None),
+        data_dir=args.data_dir,
+        results_dir=args.results_dir,
+        log_dir=args.log_dir,
+        model_name=args.model_name,
+        model=ModelConfig.preset_2d(),
+        loss=loss,
+        # On-device flip augmentation whenever the dataset flips: equal to the
+        # host augmentation (tested) with 4x fewer resident bytes.
+        device_flip_aug=spec.flip_aug,
+    )
+
+
+def _restored_trainer(cfg, args):
+    """A ``Trainer`` with the run's checkpoint loaded (fresh weights when
+    there is none, as the reference does)."""
+    from opticalflowscivis_tpu_torch.training import Trainer
+
+    tr = Trainer(cfg, device=_device(args))
+    tr.init_state(total_steps=1)
+    tr.load_checkpoint()
+    return tr
+
+
+def cmd_train(argv):
+    p = argparse.ArgumentParser(prog="train")
+    _add_common(p)
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--flow_supervised", action="store_true")
+    p.add_argument("--distill", type=float, default=None,
+                   help="override the distill lambda (2-D default 0.01)")
+    p.add_argument("--resume", action="store_true")
+    args = p.parse_args(argv)
+
+    from opticalflowscivis_tpu_torch.training import Trainer
+
+    cfg = _build_cfg(args)
+    _spec_2d(cfg.dataset)
+    tr = Trainer(cfg, device=_device(args))
+    train, val = tr.load_datasets()
+    print(f"train tuples {train.shape}, val tuples {val.shape}", flush=True)
+    hist = tr.fit(train, val, resume=args.resume)
+    print(json.dumps({"final_val": hist[-1] if hist else None}), flush=True)
+
+
+def cmd_test(argv):
+    p = argparse.ArgumentParser(prog="test")
+    _add_common(p)
+    p.add_argument("--batch_size", type=int, default=16)
+    args = p.parse_args(argv)
+
+    import torch
+
+    from opticalflowscivis_tpu_torch.data import load_data
+    from opticalflowscivis_tpu_torch.evalsuite import calculate_metrics
+    from opticalflowscivis_tpu_torch.inference import Interpolator, batched_pair_inference
+    from opticalflowscivis_tpu_torch.losses import epe
+
+    cfg = _build_cfg(args)
+    spec = _spec_2d(cfg.dataset)
+    tr = _restored_trainer(cfg, args)
+    test = load_data(cfg.dataset, cfg.exp, "test", cfg.data_dir)
+
+    interp = Interpolator(tr.model, cfg.pad_multiple, device=tr.device)
+    res = batched_pair_inference(interp, test[..., :1], args.batch_size)
+    psnr, ssim_v = calculate_metrics(
+        res["gt"][..., 0] * 255.0, res["pred"][..., 0] * 255.0, factor=2**31
+    )  # factor huge → every frame counts as interpolated
+    report = {"psnr": psnr, "ssim": ssim_v}
+
+    if spec.has_flow:
+        ndim = spec.ndim
+        flow_gt = torch.from_numpy(test[:, 2, ..., 1 : 1 + ndim] * spec.gt_flow_stride)
+        flow = torch.from_numpy(res["flow"])
+        report["epe_ft1"] = float(epe(flow[..., ndim:], flow_gt))
+        report["epe_ft0"] = float(epe(flow[..., :ndim], -flow_gt))
+
+    # the reference also draws a test panel and the loss curve here; the
+    # plotting module is not ported yet (ROADMAP A.11)
+    os.makedirs(tr.results_dir, exist_ok=True)
+    with open(os.path.join(tr.results_dir, "test_report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps(report), flush=True)
+
+
+def cmd_inference_img(argv):
+    p = argparse.ArgumentParser(prog="inference_img")
+    _add_common(p)
+    p.add_argument("--img0", required=True)
+    p.add_argument("--img1", required=True)
+    p.add_argument("--out_dir", default="interp_out")
+    p.add_argument("--n_exp", type=int, default=1, help="insert 2**n_exp - 1 frames")
+    p.add_argument("--ratio", type=float, default=0.0,
+                   help="single frame at this time ratio (0 = use n_exp)")
+    p.add_argument("--zoo_dir", default="",
+                   help="pretrained RIFE checkpoint dir (not ported yet)")
+    args = p.parse_args(argv)
+    _refuse_zoo(args)
+
+    from opticalflowscivis_tpu_torch.cli.io_utils import load_image, save_image
+    from opticalflowscivis_tpu_torch.inference import (
+        Interpolator,
+        interpolate_ratio,
+        interpolate_recursive,
+    )
+
+    img0 = load_image(args.img0)
+    img1 = load_image(args.img1)
+    cfg = _build_cfg(args, epochs=1)
+    tr = _restored_trainer(cfg, args)
+    interp = Interpolator(tr.model, cfg.pad_multiple, device=tr.device)
+    if args.ratio > 0:
+        mids = [interpolate_ratio(interp, img0[None], img1[None], args.ratio)]
+    else:
+        mids = interpolate_recursive(interp, img0[None], img1[None], 2**args.n_exp - 1)
+    os.makedirs(args.out_dir, exist_ok=True)
+    save_image(img0, os.path.join(args.out_dir, "img0.png"))
+    for i, m in enumerate(mids):
+        save_image(m[0], os.path.join(args.out_dir, f"img{i+1}.png"))
+    save_image(img1, os.path.join(args.out_dir, f"img{len(mids)+1}.png"))
+    print(f"wrote {len(mids) + 2} frames to {args.out_dir}", flush=True)
+
+
+def cmd_inference_video(argv):
+    p = argparse.ArgumentParser(prog="inference_video")
+    _add_common(p)
+    p.add_argument("--factors", default="2,4,8,16,32,64,128")
+    p.add_argument("--max_frames", type=int, default=0, help="limit test frames (0 = all)")
+    p.add_argument("--write_mp4", action="store_true")
+    p.add_argument("--tta", action="store_true", help="flip-averaged test-time augmentation")
+    p.add_argument("--zoo_dir", default="",
+                   help="pretrained RIFE checkpoint dir (not ported yet)")
+    args = p.parse_args(argv)
+    _refuse_zoo(args)
+
+    from opticalflowscivis_tpu_torch.cli.io_utils import write_video
+    from opticalflowscivis_tpu_torch.data import load_raw_series
+    from opticalflowscivis_tpu_torch.evalsuite import (
+        calculate_metrics,
+        linear_interpolation_baseline,
+    )
+    from opticalflowscivis_tpu_torch.inference import Interpolator, interpolate_series
+
+    cfg = _build_cfg(args, epochs=1)
+    _spec_2d(cfg.dataset)
+    frames = load_raw_series(cfg.dataset, cfg.data_dir, "test")[..., :1]
+    if args.max_frames:
+        frames = frames[: args.max_frames]
+    tr = _restored_trainer(cfg, args)
+    interp = Interpolator(tr.model, cfg.pad_multiple, tta=args.tta, device=tr.device)
+
+    results = {}
+    for factor in [int(f) for f in args.factors.split(",")]:
+        if frames.shape[0] < factor + 1:
+            break
+        recon, _ = interpolate_series(interp, frames, factor)
+        n = recon.shape[0]
+        psnr, ssim_v = calculate_metrics(
+            frames[:n, ..., 0] * 255.0, recon[..., 0] * 255.0, factor
+        )
+        base = linear_interpolation_baseline(frames[:n], factor)
+        psnr_b, ssim_b = calculate_metrics(
+            frames[:n, ..., 0] * 255.0, base[..., 0] * 255.0, factor
+        )
+        results[factor] = {
+            "psnr": round(psnr, 2), "ssim": round(ssim_v, 4),
+            "psnr_linear_baseline": round(psnr_b, 2),
+            "ssim_linear_baseline": round(ssim_b, 4),
+        }
+        print(f"factor {factor}x: {results[factor]}", flush=True)
+        if args.write_mp4:
+            out = os.path.join(
+                cfg.results_dir, cfg.dataset,
+                f"{cfg.dataset}_10fps_extract{factor}x_{factor}X_{factor*10}fps.mp4",
+            )
+            write_video(recon[..., 0], out, fps=factor * 10)
+    dir_res = os.path.join(cfg.results_dir, cfg.dataset)
+    os.makedirs(dir_res, exist_ok=True)
+    with open(os.path.join(dir_res, "interp_report.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    print(json.dumps(results), flush=True)
+
+
+def _refuse_zoo(args) -> None:
+    if args.zoo_dir:
+        raise SystemExit(
+            "--zoo_dir: the pretrained RIFE zoo models are ported with the "
+            "remaining models (ROADMAP A.10)"
+        )
+
+
+def cmd_generate(argv):
+    import functools
+    import pickle
+
+    from opticalflowscivis_tpu_torch.data import REGISTRY, synthetic
+
+    generable = sorted(n for n, s in REGISTRY.items() if s.generator is not None)
+    p = argparse.ArgumentParser(prog="generate")
+    p.add_argument("--dataset", default="rectangle2d", choices=generable)
+    p.add_argument("--data_dir", default="data_cache")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--frames", type=int, default=0, help="0 = reference default")
+    args = p.parse_args(argv)
+
+    # generators that take a seed and a frame count; the others run with
+    # their registry defaults
+    gens = {
+        "rectangle2d": synthetic.rectangle_2d,
+        "rectangle2d_tex": functools.partial(synthetic.rectangle_2d, background="texture"),
+        "rectangle2d_tex_pan": functools.partial(synthetic.rectangle_2d, background="pan"),
+        "rectangles2d": synthetic.rectangles_2d,
+        "rectangle3d": synthetic.rectangle_3d,
+        "jets3d": synthetic.jets_3d,
+    }
+    os.makedirs(args.data_dir, exist_ok=True)
+    if args.dataset not in gens:
+        arr = REGISTRY[args.dataset].generator()
+    else:
+        kw = {"seed": args.seed}
+        if args.frames:
+            kw["n_frames"] = args.frames
+        arr = gens[args.dataset](**kw)
+    path = os.path.join(args.data_dir, f"{args.dataset}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(arr, f, protocol=4)
+    print(f"wrote {arr.shape} -> {path}", flush=True)
+
+
+VERBS = {
+    "train": cmd_train,
+    "test": cmd_test,
+    "inference_img": cmd_inference_img,
+    "inference_video": cmd_inference_video,
+    "generate": cmd_generate,
+}
+
+
+def main(argv: list[str] | None = None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] in WAITING_VERBS:
+        raise SystemExit(f"{argv[0]}: {WAITING_VERBS[argv[0]]}")
+    if not argv or argv[0] not in VERBS:
+        names = "|".join(list(VERBS) + list(WAITING_VERBS))
+        print(f"usage: python -m opticalflowscivis_tpu_torch.cli <{names}> [flags]")
+        raise SystemExit(2)
+    VERBS[argv[0]](argv[1:])
+
+
+if __name__ == "__main__":
+    main()

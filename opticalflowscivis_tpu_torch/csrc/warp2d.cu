@@ -1,9 +1,13 @@
-// Bilinear backward warp, forward pass, for Hopper (sm_90a).
+// Bilinear backward warp, forward pass and its VJP, for Hopper (sm_90a).
 //
-// Replaces opticalflowscivis_tpu/ops/pallas/warp.py::backward_warp_pallas
-// (forward: _forward / _warp_kernel).  It computes what that kernel computes,
-// not its one-hot MXU form, which exists only because the TPU has no vector
-// gather: the GPU gathers natively.
+// Replaces opticalflowscivis_tpu/ops/pallas/warp.py::backward_warp_pallas:
+// the forward (_forward / _warp_kernel) and the fused backward
+// (_backward_fused / _bwd_kernel, and the zeros-mode composition in _bwd).
+// Both compute what those kernels compute, not their one-hot MXU form, which
+// exists only because the TPU has neither a vector gather nor a scatter: the
+// GPU gathers natively, and an index clamp in the scatter lands out-of-image
+// taps on the border pixels, which is what the TPU's window overlap-add plus
+// edge-pad fold does.
 //
 //   out[b, c, y, x] = sum over the 4 corners of w_corner * img[b, c, iy, ix]
 //   (dy, dx) = flow[b, :, y, x], clipped to +-r when r > 0
@@ -11,18 +15,35 @@
 //           plus window); zeros: out-of-range corners dropped (equal to the
 //           Pallas border x separable in-bounds weight, ops/pallas/warp.py:241-243)
 //
-// Bound: device-memory bytes.  At [32,160,224,1] f32 one launch moves about
-// 1.15 M px x (4 B img + 8 B flow + 4 B out) ~= 18 MB and does ~30 flops per
-// pixel, far below the card's compute rate.  The 4 taps of a pixel stay within
-// +-(r+1) rows of it, so neighbouring threads' gathers hit L1 and L2.
+//   dimg[b, c, iy, ix] += w_corner * g[b, c, y, x]      (f32 atomics)
+//   dflow[b, 0, y, x]   = sum_c g * d out / d dy, 0 where |dy| >= r (r > 0)
+//   dflow[b, 1, y, x]   = sum_c g * d out / d dx, 0 where |dx| >= r (r > 0)
+//   In zeros mode a dropped corner has weight 0 in both outputs; away from
+//   integer coordinates that equals the Pallas composition
+//   border_bwd(g V) + <g, border_out> dV/dflow.
+//
+// Bound: device-memory bytes.  The forward at [32,160,224,1] f32 moves about
+// 1.15 M px x (4 B img + 8 B flow + 4 B out) and does ~30 flops per pixel, far
+// below the card's compute rate; the backward reads image, flow and g, writes
+// dflow, and for dimg adds a zero-fill and a read-modify-write of the image's
+// size.  The 4 taps of a pixel stay within +-(r+1) rows of it, so neighbouring
+// threads' gathers and atomics hit L1 and L2.
 //
 // Design (simple first): one thread per output pixel (b, y, x), consecutive
-// threads on consecutive x so output writes coalesce; a loop over C; f32
-// accumulation, stored in the dtype of image and flow (f32 or bf16).  The flow is read through its
-// four strides, so the model's channel slices of a 4-channel flow need no
-// copy, in NCHW or in the channels-last layout cuDNN may hand back.
+// threads on consecutive x so reads of g and writes of out / dflow coalesce; a
+// loop over C; f32 arithmetic, stored in the dtype of image and flow (f32 or
+// bf16).  Forward and backward share `make_taps`, so the backward recomputes
+// exactly the forward's clip, coordinate clamp, corners and weights.  dflow is
+// written once per pixel with no atomics.  dimg is accumulated with f32
+// atomicAdd into an f32 buffer that the wrapper zero-fills and casts
+// afterwards (bf16 atomics would round every add); the kernel is compiled
+// without that part for calls whose image needs no gradient.  The flow and g
+// are read through their four strides, so the model's channel slices of a
+// 4-channel flow, and a g in the channels-last layout cuDNN may hand back,
+// need no copy.
 //
-// Plain C interface for ctypes; returns cudaGetLastError() after the launch.
+// Plain C interface for ctypes; each entry returns cudaGetLastError() after
+// the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +58,60 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+// The four corners of one output pixel: bilinear fractions, per-corner
+// validity (always 1 in border mode), clamped offsets into one image plane,
+// and whether each flow component passes a gradient through the +-r clip.
+struct Taps {
+  float ay, ax;
+  float m00, m01, m10, m11;
+  int64_t o00, o01, o10, o11;
+  bool live_y, live_x;
+};
+
+__device__ __forceinline__ Taps make_taps(float dy, float dx, int64_t y,
+                                          int64_t x, int64_t H, int64_t W,
+                                          float r, int zeros) {
+  Taps t;
+  // strict <: a flow exactly on +-r is clamped and carries no gradient
+  // (ops/pallas/warp.py:323)
+  t.live_y = !(r > 0.f) || fabsf(dy) < r;
+  t.live_x = !(r > 0.f) || fabsf(dx) < r;
+  if (r > 0.f) {
+    dy = fminf(fmaxf(dy, -r), r);
+    dx = fminf(fmaxf(dx, -r), r);
+  }
+  // Coordinates more than one pixel outside the image sample the same values
+  // (border) or nothing (zeros) wherever they lie; clamping them keeps the
+  // integer conversion below in range for unbounded (r = 0) flows.
+  const float sy = fminf(fmaxf((float)y + dy, -2.f), (float)H + 1.f);
+  const float sx = fminf(fmaxf((float)x + dx, -2.f), (float)W + 1.f);
+  const float fy = floorf(sy);
+  const float fx = floorf(sx);
+  t.ay = sy - fy;
+  t.ax = sx - fx;
+  const int y0 = (int)fy, x0 = (int)fx;
+  const int y1 = y0 + 1, x1 = x0 + 1;
+
+  t.m00 = t.m01 = t.m10 = t.m11 = 1.f;
+  if (zeros) {
+    const bool vy0 = y0 >= 0 && y0 < H, vy1 = y1 >= 0 && y1 < H;
+    const bool vx0 = x0 >= 0 && x0 < W, vx1 = x1 >= 0 && x1 < W;
+    if (!(vy0 && vx0)) t.m00 = 0.f;
+    if (!(vy0 && vx1)) t.m01 = 0.f;
+    if (!(vy1 && vx0)) t.m10 = 0.f;
+    if (!(vy1 && vx1)) t.m11 = 0.f;
+  }
+  const int64_t cy0 = min(max(y0, 0), (int)H - 1);
+  const int64_t cy1 = min(max(y1, 0), (int)H - 1);
+  const int64_t cx0 = min(max(x0, 0), (int)W - 1);
+  const int64_t cx1 = min(max(x1, 0), (int)W - 1);
+  t.o00 = cy0 * W + cx0;
+  t.o01 = cy0 * W + cx1;
+  t.o10 = cy1 * W + cx0;
+  t.o11 = cy1 * W + cx1;
+  return t;
 }
 
 template <typename T>
@@ -54,54 +129,74 @@ __global__ void warp2d_kernel(const T* __restrict__ img,
   const int64_t b = t / H;
 
   const T* f = flow + b * fsb + y * fsh + x * fsw;
-  float dy = load_f32(f);
-  float dx = load_f32(f + fsc);
-  if (r > 0.f) {
-    dy = fminf(fmaxf(dy, -r), r);
-    dx = fminf(fmaxf(dx, -r), r);
-  }
-  // Coordinates more than one pixel outside the image sample the same values
-  // (border) or nothing (zeros) wherever they lie; clamping them keeps the
-  // integer conversion below in range for unbounded (r = 0) flows.
-  const float sy = fminf(fmaxf((float)y + dy, -2.f), (float)H + 1.f);
-  const float sx = fminf(fmaxf((float)x + dx, -2.f), (float)W + 1.f);
-  const float fy = floorf(sy);
-  const float fx = floorf(sx);
-  const float ay = sy - fy;
-  const float ax = sx - fx;
-  const int y0 = (int)fy, x0 = (int)fx;
-  const int y1 = y0 + 1, x1 = x0 + 1;
-
-  float w00 = (1.f - ay) * (1.f - ax);
-  float w01 = (1.f - ay) * ax;
-  float w10 = ay * (1.f - ax);
-  float w11 = ay * ax;
-  if (zeros) {
-    const bool vy0 = y0 >= 0 && y0 < H, vy1 = y1 >= 0 && y1 < H;
-    const bool vx0 = x0 >= 0 && x0 < W, vx1 = x1 >= 0 && x1 < W;
-    if (!(vy0 && vx0)) w00 = 0.f;
-    if (!(vy0 && vx1)) w01 = 0.f;
-    if (!(vy1 && vx0)) w10 = 0.f;
-    if (!(vy1 && vx1)) w11 = 0.f;
-  }
-  const int64_t cy0 = min(max(y0, 0), (int)H - 1);
-  const int64_t cy1 = min(max(y1, 0), (int)H - 1);
-  const int64_t cx0 = min(max(x0, 0), (int)W - 1);
-  const int64_t cx1 = min(max(x1, 0), (int)W - 1);
-  const int64_t o00 = cy0 * W + cx0, o01 = cy0 * W + cx1;
-  const int64_t o10 = cy1 * W + cx0, o11 = cy1 * W + cx1;
+  const Taps k = make_taps(load_f32(f), load_f32(f + fsc), y, x, H, W, r, zeros);
+  const float w00 = (1.f - k.ay) * (1.f - k.ax) * k.m00;
+  const float w01 = (1.f - k.ay) * k.ax * k.m01;
+  const float w10 = k.ay * (1.f - k.ax) * k.m10;
+  const float w11 = k.ay * k.ax * k.m11;
 
   const int64_t plane = H * W;
   const T* src = img + b * C * plane;
   T* dst = out + b * C * plane + y * W + x;
   for (int64_t c = 0; c < C; ++c) {
     const T* p = src + c * plane;
-    float acc = w00 * load_f32(p + o00);
-    acc += w01 * load_f32(p + o01);
-    acc += w10 * load_f32(p + o10);
-    acc += w11 * load_f32(p + o11);
+    float acc = w00 * load_f32(p + k.o00);
+    acc += w01 * load_f32(p + k.o01);
+    acc += w10 * load_f32(p + k.o10);
+    acc += w11 * load_f32(p + k.o11);
     store(dst + c * plane, acc);
   }
+}
+
+// NEED_DIMG = false compiles the image-gradient scatter away: the model's
+// warps sample input frames, which carry no gradient.
+template <typename T, bool NEED_DIMG>
+__global__ void warp2d_bwd_kernel(
+    const T* __restrict__ img, const T* __restrict__ flow,
+    const T* __restrict__ g, T* __restrict__ dflow, float* __restrict__ dimg,
+    int64_t B, int64_t C, int64_t H, int64_t W, int64_t fsb, int64_t fsc,
+    int64_t fsh, int64_t fsw, int64_t gsb, int64_t gsc, int64_t gsh,
+    int64_t gsw, float r, int zeros) {
+  const int64_t n = B * H * W;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t x = i % W;
+  const int64_t t = i / W;
+  const int64_t y = t % H;
+  const int64_t b = t / H;
+
+  const T* f = flow + b * fsb + y * fsh + x * fsw;
+  const Taps k = make_taps(load_f32(f), load_f32(f + fsc), y, x, H, W, r, zeros);
+  const float w00 = (1.f - k.ay) * (1.f - k.ax) * k.m00;
+  const float w01 = (1.f - k.ay) * k.ax * k.m01;
+  const float w10 = k.ay * (1.f - k.ax) * k.m10;
+  const float w11 = k.ay * k.ax * k.m11;
+
+  const int64_t plane = H * W;
+  const T* src = img + b * C * plane;
+  const T* gp = g + b * gsb + y * gsh + x * gsw;
+  float* dst = NEED_DIMG ? dimg + b * C * plane : nullptr;
+  float gy = 0.f, gx = 0.f;
+  for (int64_t c = 0; c < C; ++c) {
+    const T* p = src + c * plane;
+    const float gc = load_f32(gp + c * gsc);
+    const float v00 = k.m00 * load_f32(p + k.o00);
+    const float v01 = k.m01 * load_f32(p + k.o01);
+    const float v10 = k.m10 * load_f32(p + k.o10);
+    const float v11 = k.m11 * load_f32(p + k.o11);
+    gy += gc * ((1.f - k.ax) * (v10 - v00) + k.ax * (v11 - v01));
+    gx += gc * ((1.f - k.ay) * (v01 - v00) + k.ay * (v11 - v10));
+    if (NEED_DIMG) {
+      float* d = dst + c * plane;
+      if (w00 != 0.f) atomicAdd(d + k.o00, w00 * gc);
+      if (w01 != 0.f) atomicAdd(d + k.o01, w01 * gc);
+      if (w10 != 0.f) atomicAdd(d + k.o10, w10 * gc);
+      if (w11 != 0.f) atomicAdd(d + k.o11, w11 * gc);
+    }
+  }
+  T* df = dflow + b * 2 * plane + y * W + x;
+  store(df, k.live_y ? gy : 0.f);
+  store(df + plane, k.live_x ? gx : 0.f);
 }
 
 template <typename T>
@@ -114,6 +209,29 @@ void launch(const void* img, const void* flow, void* out, int64_t B, int64_t C,
   warp2d_kernel<T><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(img), static_cast<const T*>(flow),
       static_cast<T*>(out), B, C, H, W, fsb, fsc, fsh, fsw, (float)r, zeros);
+}
+
+template <typename T>
+void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
+                void* dimg, int64_t B, int64_t C, int64_t H, int64_t W,
+                const int64_t* fs, const int64_t* gs, int64_t r, int zeros,
+                cudaStream_t stream) {
+  const int threads = 256;
+  const int64_t n = B * H * W;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const T* i = static_cast<const T*>(img);
+  const T* f = static_cast<const T*>(flow);
+  const T* gg = static_cast<const T*>(g);
+  T* df = static_cast<T*>(dflow);
+  float* di = static_cast<float*>(dimg);
+  if (dimg)
+    warp2d_bwd_kernel<T, true><<<blocks, threads, 0, stream>>>(
+        i, f, gg, df, di, B, C, H, W, fs[0], fs[1], fs[2], fs[3], gs[0], gs[1],
+        gs[2], gs[3], (float)r, zeros);
+  else
+    warp2d_bwd_kernel<T, false><<<blocks, threads, 0, stream>>>(
+        i, f, gg, df, di, B, C, H, W, fs[0], fs[1], fs[2], fs[3], gs[0], gs[1],
+        gs[2], gs[3], (float)r, zeros);
 }
 
 }  // namespace
@@ -131,5 +249,27 @@ extern "C" int warp2d_forward(const void* img, const void* flow, void* out,
     launch<__nv_bfloat16>(img, flow, out, B, C, H, W, fsb, fsc, fsh, fsw, r, z, s);
   else
     launch<float>(img, flow, out, B, C, H, W, fsb, fsc, fsh, fsw, r, z, s);
+  return (int)cudaGetLastError();
+}
+
+// img [B, C, H, W] contiguous; flow [B, 2, H, W] and g [B, C, H, W] with the
+// given strides; dflow [B, 2, H, W] contiguous, every element written.  img,
+// flow, g and dflow are bf16 (bf16 = 1) or f32 (0).  dimg is null (no image
+// gradient wanted) or a zero-filled contiguous f32 [B, C, H, W] buffer that
+// the kernel adds into.
+extern "C" int warp2d_backward(const void* img, const void* flow, const void* g,
+                               void* dflow, void* dimg, int64_t B, int64_t C,
+                               int64_t H, int64_t W, int64_t fsb, int64_t fsc,
+                               int64_t fsh, int64_t fsw, int64_t gsb,
+                               int64_t gsc, int64_t gsh, int64_t gsw, int64_t r,
+                               int64_t zeros, int64_t bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int z = zeros ? 1 : 0;
+  const int64_t fs[4] = {fsb, fsc, fsh, fsw};
+  const int64_t gs[4] = {gsb, gsc, gsh, gsw};
+  if (bf16)
+    launch_bwd<__nv_bfloat16>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
+  else
+    launch_bwd<float>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
   return (int)cudaGetLastError();
 }

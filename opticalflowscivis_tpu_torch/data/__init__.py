@@ -1,6 +1,8 @@
 """Datasets: numpy generators, host pipeline and dataset registry."""
 
 from opticalflowscivis_tpu_torch.data.pipeline import (
+    TupleDataset,
+    device_flip_augment,
     flip_augment,
     group_tuples,
     minmax_normalize,
@@ -22,7 +24,7 @@ from opticalflowscivis_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
-    "flip_augment", "group_tuples", "minmax_normalize", "pad_to_multiple",
+    "TupleDataset", "device_flip_augment", "flip_augment", "group_tuples", "minmax_normalize", "pad_to_multiple",
     "temporal_resample",
     "REGISTRY", "DatasetSpec", "get_spec", "load_data", "load_raw_series",
     "select_split",

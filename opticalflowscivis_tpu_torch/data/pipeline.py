@@ -11,13 +11,19 @@ channels 1..ndim the optional GT flow.
   5-tuples; exp=3 9-tuples.  Output ``[N, slots, *S, C]``.
 - ``pad_to_multiple``: one static edge-pad of the spatial axes to /32.
 
-The on-device flip augmentation and the batch iterators are ported with the
-training slice (ROADMAP A.6).
+- ``device_flip_augment``: the same flips per sample on a torch batch that
+  already lies on the device.
+- ``TupleDataset``: shuffled minibatches, or index batches for a dataset kept
+  on the device, from one numpy shuffle stream.
+
+The background-thread ``PrefetchSampler`` is ported with the datasets that
+decode per sample (ROADMAP A.9).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def minmax_normalize(data: np.ndarray) -> np.ndarray:
@@ -93,3 +99,65 @@ def pad_to_multiple(
         pads[axis] = (0, target - s)
     padded = np.pad(data, pads, mode="edge")
     return padded, tuple(pads)
+
+
+def device_flip_augment(batch: torch.Tensor, code: torch.Tensor, ndim: int) -> torch.Tensor:
+    """On-device twin of ``flip_augment`` for the device-resident dataset.
+
+    ``batch [B, slots, *S, C]``, ``code [B]`` ∈ {0..3} indexes the host
+    augmentation order [base, flip_ax0, flip_ax1, flip_both]: bit0 mirrors
+    spatial axis 0 (negating flow channel 1), bit1 mirrors spatial axis 1
+    (negating flow channel 2).  Keeping only the unaugmented tuples resident
+    and flipping per sample cuts the resident bytes 4x.
+    """
+    flip0 = (code & 1).bool()
+    flip1 = ((code >> 1) & 1).bool()
+    per_sample = (-1,) + (1,) * (batch.dim() - 1)
+    out = torch.where(flip0.view(per_sample), batch.flip(2), batch)  # spatial axis 0 = dim 2
+    out = torch.where(flip1.view(per_sample), out.flip(3), out)
+    channels = batch.shape[-1]
+    if channels == 1 + ndim:
+        sign = torch.ones((batch.shape[0], channels), dtype=batch.dtype, device=batch.device)
+        sign[:, 1] = 1 - 2 * flip0.to(batch.dtype)
+        sign[:, 2] = 1 - 2 * flip1.to(batch.dtype)
+        out = out * sign.view((-1,) + (1,) * (batch.dim() - 2) + (channels,))
+    return out
+
+
+class TupleDataset:
+    """Shuffled minibatch iterator over grouped tuples held in one numpy array.
+
+    ``epoch`` yields the batches themselves (the streaming path uploads each),
+    ``epoch_indices`` yields index batches from the same shuffle stream for a
+    dataset that already lies on the device.
+    """
+
+    def __init__(self, tuples: np.ndarray, batch_size: int, seed: int = 0,
+                 drop_last: bool = True):
+        self.tuples = tuples
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = drop_last
+
+    def __len__(self) -> int:
+        n = self.tuples.shape[0]
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def epoch(self, shuffle: bool = True):
+        idx = np.arange(self.tuples.shape[0])
+        if shuffle:
+            self.rng.shuffle(idx)
+        for i in range(len(self)):
+            sel = idx[i * self.batch_size : (i + 1) * self.batch_size]
+            yield self.tuples[sel]
+
+    def epoch_indices(self, shuffle: bool = True, n_virtual: int | None = None):
+        """Index batches (same shuffle stream as ``epoch``).  ``n_virtual``
+        extends the index space beyond the stored tuples (4x for on-device
+        flip augmentation: index // n selects the flip)."""
+        n = n_virtual if n_virtual is not None else self.tuples.shape[0]
+        idx = np.arange(n)
+        if shuffle:
+            self.rng.shuffle(idx)
+        for i in range(n // self.batch_size):
+            yield idx[i * self.batch_size : (i + 1) * self.batch_size]

@@ -16,9 +16,11 @@ channels (dy0, dx0, dy1, dx1).  Parameters are float32; ``dtype`` selects the
 compute dtype (``torch.bfloat16`` or float32).
 
 Every warp goes through ``ops.kernels.warp.warp2d``: on a CUDA tensor it
-launches the Hopper kernel, on a CPU tensor it runs the plain version.  Both
-clip the flow to ``±fast_warp_r`` (0 = unbounded), which is the TPU kernel's
-semantics; the reference's CPU path warps unbounded.
+launches the Hopper kernel (and its backward kernel under autograd), on a CPU
+tensor it runs the plain version.  Both clip the flow to ``±fast_warp_r``
+(0 = unbounded), which is the TPU kernel's semantics; the reference's CPU
+path warps unbounded.  A flow component with ``|flow| >= fast_warp_r``
+carries no gradient through the warp.
 """
 
 from __future__ import annotations

@@ -5,12 +5,16 @@ adds one where it launches its kernel and nowhere else, so a run can show that
 the main path went through the kernels (``chip_smoke.py`` zeroes the counts
 with ``reset_launches`` before driving the path and reads them after).
 
-| kernel   | source            | replaces (TPU)                                 |
-| -------- | ----------------- | ---------------------------------------------- |
-| `warp2d` | `csrc/warp2d.cu`  | `ops/pallas/warp.py::backward_warp_pallas` fwd |
+| kernel       | source           | replaces (TPU)                                      |
+| ------------ | ---------------- | --------------------------------------------------- |
+| `warp2d`     | `csrc/warp2d.cu` | `ops/pallas/warp.py::backward_warp_pallas` forward  |
+| `warp2d_bwd` | `csrc/warp2d.cu` | `ops/pallas/warp.py::_backward_fused` (its VJP)     |
+
+A backward call is one launch of one kernel, with or without the image
+gradient.
 """
 
-LAUNCHES: dict[str, int] = {"warp2d": 0}
+LAUNCHES: dict[str, int] = {"warp2d": 0, "warp2d_bwd": 0}
 
 
 def reset_launches() -> None:

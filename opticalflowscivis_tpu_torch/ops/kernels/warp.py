@@ -1,15 +1,25 @@
-"""Bilinear backward warp: wrapper of the Hopper kernel ``csrc/warp2d.cu``.
+"""Bilinear backward warp: wrapper of the Hopper kernels in ``csrc/warp2d.cu``.
 
-Counterpart of ``opticalflowscivis_tpu/ops/pallas/warp.py::backward_warp_pallas``
-(forward).  ``warp2d`` dispatches by the tensors' device:
+Counterpart of ``opticalflowscivis_tpu/ops/pallas/warp.py::backward_warp_pallas``,
+forward and VJP.  ``warp2d`` dispatches by the tensors' device:
 
-- CUDA tensors launch the kernel (image and flow both f32 or both bf16), or raise on
-  anything the kernel does not take; there is no fallback to the plain
-  version;
-- CPU tensors go to the plain version, ``ops.warp.warp2d_plain``.
+- CUDA tensors launch the forward kernel (image and flow both f32 or both
+  bf16), or raise on anything the kernel does not take; a gradient through it
+  launches the backward kernel.  There is no fallback to the plain version;
+- CPU tensors go to the plain version, ``ops.warp.warp2d_plain``, whose
+  backward is PyTorch's autograd.
 
-The kernel's backward arrives with the training slice; until then a gradient
-through the kernel raises instead of coming out as zero.
+The flow is clipped to ``±r`` (``r = 0``: unbounded), and a flow component
+with ``|flow| >= r`` carries no gradient: the clip's adjoint is zero at the
+boundary too, as in the TPU kernel (``ops/pallas/warp.py:323``).
+
+The backward kernel writes ``dflow`` once per pixel and accumulates ``dimg``
+with float32 atomics into a float32 buffer that is zero-filled here and cast
+to the image's dtype afterwards; atomics sum in an order that changes from run
+to run, so ``dimg`` is reproducible only to float32 rounding.  When the image
+needs no gradient (the model's warps sample the input frames) the buffer and
+the atomics are skipped.  The incoming gradient is read through its strides,
+in whatever layout autograd hands it over, without a copy.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
 from opticalflowscivis_tpu_torch.ops.kernels.build import load
@@ -27,10 +38,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def _library() -> ctypes.CDLL:
     lib = load("warp2d")
-    fn = lib.warp2d_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 11 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.warp2d_forward.argtypes is None:
+        lib.warp2d_forward.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 11 + [ctypes.c_void_p]
+        )
+        lib.warp2d_forward.restype = ctypes.c_int
+        lib.warp2d_backward.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 15 + [ctypes.c_void_p]
+        )
+        lib.warp2d_backward.restype = ctypes.c_int
     return lib
 
 
@@ -51,18 +67,53 @@ def _launch(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str) -> torc
     return out
 
 
+def _launch_backward(
+    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, r: int,
+    padding: str, need_dimg: bool,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """One launch of the backward kernel: ``(dimg or None, dflow)``."""
+    if grad_out.device != img.device or grad_out.dtype != img.dtype:
+        raise TypeError(
+            f"warp2d backward got a gradient of {grad_out.dtype} on "
+            f"{grad_out.device} for an image of {img.dtype} on {img.device}"
+        )
+    if grad_out.shape != img.shape:
+        raise ValueError(
+            f"warp2d backward got a gradient {tuple(grad_out.shape)} for an "
+            f"image {tuple(img.shape)}"
+        )
+    b, c, h, w = img.shape
+    dflow = torch.empty((b, 2, h, w), dtype=flow.dtype, device=flow.device)
+    acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_dimg else None
+    fn = _library().warp2d_backward
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = fn(
+            img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), dflow.data_ptr(),
+            acc.data_ptr() if need_dimg else None,
+            b, c, h, w, *flow.stride(), *grad_out.stride(),
+            r, int(padding == "zeros"), int(img.dtype == torch.bfloat16), stream,
+        )
+    if err:
+        raise RuntimeError(f"warp2d backward kernel launch failed with CUDA error {err}")
+    LAUNCHES["warp2d_bwd"] += 1
+    return (acc.to(img.dtype) if need_dimg else None), dflow
+
+
 class _Warp2dKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, flow, r, padding):
+        ctx.save_for_backward(img, flow)
+        ctx.r, ctx.padding = r, padding
         return _launch(img, flow, r, padding)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the warp2d kernel has no backward yet: the fused warp VJP "
-            "(ops/pallas/warp.py:274) is ported with the training slice "
-            "(ROADMAP B.2)"
-        )
+        img, flow = ctx.saved_tensors
+        need_dimg, need_dflow = ctx.needs_input_grad[:2]
+        dimg, dflow = _launch_backward(img, flow, grad_out, ctx.r, ctx.padding, need_dimg)
+        return dimg, (dflow if need_dflow else None), None, None
 
 
 def _check_cuda_args(img: torch.Tensor, flow: torch.Tensor) -> None:
@@ -86,6 +137,8 @@ def warp2d(
 
     ``r = 0`` is unbounded.  Returns ``[B, C, H, W]`` in ``img``'s dtype;
     on CUDA, image and flow share one dtype, float32 or bfloat16.
+    Differentiable in ``img`` and ``flow``; a flow component with
+    ``|flow| >= r`` gets no gradient.
     """
     if padding not in ("border", "zeros"):
         raise ValueError(f"padding must be 'border' or 'zeros', got {padding!r}")

@@ -10,7 +10,8 @@ space, the same as ``grid_sample(align_corners=True)``.  ``'border'`` clamps
 each corner index to the image, ``'zeros'`` drops out-of-range corners.  The
 bounded variants first clip the flow to ``±r`` (``r = 0``: no bound), which
 is what the TPU kernel computes (``ops/pallas/warp.py:184`` clips, and its
-edge-padded window equals the per-corner clamp).
+edge-padded window equals the per-corner clamp).  Under autograd they are
+the plain backward of the kernel: ``|flow| >= r`` carries no flow gradient.
 
 Flow convention: ``flow[..., 0] = dy``, ``flow[..., 1] = dx`` (row-major).
 The public functions take channels-last ``[B, H, W, C]`` images; the
@@ -92,10 +93,16 @@ def _base_grid(h: int, w: int, dtype: torch.dtype, device) -> tuple[torch.Tensor
 
 
 def _clip(flow: torch.Tensor, r: int) -> torch.Tensor:
+    """Clip to ``±r`` (0 = unbounded).  The gradient passes only where
+    ``|flow| < r``: a flow exactly on the bound counts as clamped, as in the
+    TPU kernel (``ops/pallas/warp.py:323``) and the Hopper kernel, whereas
+    ``torch.clamp`` would pass it there."""
     if r < 0:
         raise ValueError(f"r must be >= 0 (0 = unbounded), got {r}")
     flow = flow.to(torch.promote_types(flow.dtype, torch.float32))
-    return flow.clamp(-r, r) if r > 0 else flow
+    if r == 0:
+        return flow
+    return torch.where(flow.abs() < r, flow, torch.sign(flow.detach()) * r)
 
 
 def warp2d_plain(

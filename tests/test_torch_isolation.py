@@ -41,7 +41,11 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
-    assert len(_module_names()) >= 15
+    names = _module_names()
+    assert len(names) >= 27
+    for module in ("losses.rife", "training.trainer", "training.checkpoint", "cli.__main__",
+                   "ops.pyramid"):
+        assert f"opticalflowscivis_tpu_torch.{module}" in names
 
 
 def _imports(path: Path):
@@ -76,6 +80,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_trainer_and_cli_raise_without_cuda(monkeypatch, tmp_path):
+    """Training and the CLI verbs run on the GPU unless asked for the CPU."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import main
+    from opticalflowscivis_tpu_torch.training import ModelConfig, TrainConfig, Trainer, build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig(model=ModelConfig(block_channels=(8, 8, 8), teacher_channels=8),
+                      data_dir=str(tmp_path), log_dir=str(tmp_path), results_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    assert Trainer(cfg, device="cpu").device == torch.device("cpu")
+    (tmp_path / "cfg.json").write_text(cfg.to_json())
+    for verb in ("train", "test", "inference_video"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([verb, "--config_json", str(tmp_path / "cfg.json")])
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

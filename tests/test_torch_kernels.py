@@ -8,6 +8,11 @@ This file imports no JAX, so it also runs on a GPU host without JAX:
 Tests marked ``cuda`` skip without a CUDA device: a CUDA kernel has no CPU
 mode.  Tolerances: f32 1e-5 (the same 4 taps summed in another order), bf16
 one ulp of the output (the f32 sums may round to neighbouring bf16 values).
+The backward is held against autograd through the plain version: float32
+within 1e-4 of the largest gradient (``dimg`` sums up to a few dozen
+contributions per source pixel with atomics, in an order that changes from
+run to run; ``dflow`` sums C terms), bfloat16 within 2 % of the largest
+gradient (one rounding of the plain version's bf16 output path per term).
 """
 
 import numpy as np
@@ -91,12 +96,68 @@ def test_kernel_matches_plain_on_card(padding, dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_backward_raises_on_card():
+@pytest.mark.parametrize("img_grad", [True, False], ids=["dimg", "no_dimg"])
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [16, 0])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+def test_kernel_backward_matches_plain_on_card(padding, r, dtype, channels_last, img_grad):
+    """``dimg`` / ``dflow`` of the backward kernel against autograd through
+    the plain version; flow (a slice of a 4-channel flow) and incoming
+    gradient in NCHW or channels-last layout."""
     _cuda_or_skip()
-    img = torch.rand(1, 1, 8, 8, device="cuda", requires_grad=True)
-    flow = torch.zeros(1, 2, 8, 8, device="cuda")
-    with pytest.raises(NotImplementedError):
-        warp2d(img, flow).sum().backward()
+    dt = getattr(torch, dtype)
+    img, flow = _inputs(8, (3, 37, 53, 3), 10.0)  # ragged, flows beyond ±16
+    g = np.random.default_rng(9).standard_normal(img.shape).astype(np.float32)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    img_t = torch.from_numpy(img).permute(0, 3, 1, 2).contiguous().cuda().to(dt)
+    flow4 = torch.from_numpy(np.concatenate([flow * 0.5, flow], -1)).permute(0, 3, 1, 2)
+    flow4 = flow4.cuda().to(dt).contiguous(memory_format=fmt)
+    g_t = torch.from_numpy(g).permute(0, 3, 1, 2).cuda().to(dt).contiguous(memory_format=fmt)
+
+    def through(fn):
+        leaf = flow4.detach().clone(memory_format=torch.preserve_format).requires_grad_(True)
+        im = img_t.detach().clone().requires_grad_(img_grad)
+        fn(im, leaf[:, 2:4], r, padding).backward(g_t)
+        return im.grad, leaf.grad
+
+    before = dict(LAUNCHES)
+    dimg, dflow = through(warp2d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp2d"] == before["warp2d"] + 1
+    assert LAUNCHES["warp2d_bwd"] == before["warp2d_bwd"] + 1
+    dimg_ref, dflow_ref = through(tw.warp2d_plain)
+    assert LAUNCHES["warp2d_bwd"] == before["warp2d_bwd"] + 1  # plain launches nothing
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    assert bool((dflow[:, :2] == 0).all())  # the unused half of the 4-channel flow
+    scale = float(dflow_ref.float().abs().max())
+    assert float((dflow.float() - dflow_ref.float()).abs().max()) <= rel * scale
+    if img_grad:
+        assert dimg.dtype == dt
+        scale = float(dimg_ref.float().abs().max())
+        assert float((dimg.float() - dimg_ref.float()).abs().max()) <= rel * scale
+    else:
+        assert dimg is None
+
+
+@pytest.mark.cuda
+def test_kernel_backward_zeroes_flow_gradient_on_the_bound_on_card():
+    """A flow exactly on ±r is clamped: no gradient, as beyond it."""
+    _cuda_or_skip()
+    img = torch.rand(1, 1, 24, 24, device="cuda")
+    flow = torch.full((1, 2, 24, 24), 0.3, device="cuda")
+    flow[0, 0, :, :8] = 4.0
+    flow[0, 1, :, 8:16] = -4.0
+    flow[0, 0, :, 16:] = 5.5
+    flow.requires_grad_(True)
+    warp2d(img, flow, 4, "border").square().sum().backward()
+    ref = flow.detach().clone().requires_grad_(True)
+    tw.warp2d_plain(img, ref, 4, "border").square().sum().backward()
+    assert bool((flow.grad[0, 0, :, :8] == 0).all())
+    assert bool((flow.grad[0, 1, :, 8:16] == 0).all())
+    assert bool((flow.grad[0, 0, :, 16:] == 0).all())
+    assert bool((flow.grad[0, 1, :, :8] != 0).any())
+    assert float((flow.grad - ref.grad).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -119,3 +180,37 @@ def test_ifnet_forward_on_card_goes_through_the_kernel():
         assert LAUNCHES["warp2d"] == before + 6
         ref = cpu(a, b)["merged"][-1]
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_goes_through_both_kernels():
+    """One narrow train step on the card launches 10 forward and 10 backward
+    kernels, and its parts agree with the same step on the CPU (1e-4: f32
+    convolutions in other orders)."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.data import group_tuples, rectangle_2d
+    from opticalflowscivis_tpu_torch.losses import RIFELossWeights
+    from opticalflowscivis_tpu_torch.training import ModelConfig, OptimConfig, TrainConfig, Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TrainConfig(
+        dataset="rectangle2d", batch_size=4,
+        model=ModelConfig(block_channels=(16, 12, 8), teacher_channels=8, bfloat16=False),
+        loss=RIFELossWeights.preset_2d(flow_supervised=True),
+        optim=OptimConfig(lr_max=1e-3, warmup_steps=2),
+    )
+    tuples = group_tuples(rectangle_2d(n_frames=12, grid=(32, 32), box=(10, 14), seed=5), 1)
+    parts = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg, device=device)
+        tr.init_state(total_steps=4)
+        before = dict(LAUNCHES)
+        parts[device] = tr.train_step(tr.upload(tuples))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["warp2d"] == before["warp2d"] + 10
+            assert LAUNCHES["warp2d_bwd"] == before["warp2d_bwd"] + 10
+        else:
+            assert LAUNCHES == before
+    for key, ref in parts["cpu"].items():
+        assert float(parts["cuda"][key]) == pytest.approx(float(ref), abs=1e-4), key
