@@ -5,25 +5,33 @@
 
 Builds every Hopper kernel of the port from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card, drives the
-two main paths at the full width of ``ifnet_2d`` and shows that each went
-through the kernels: interpolation serving (``Interpolator``,
+main paths at the full width of ``ifnet_2d`` and ``ifnet_3d`` and shows that
+each went through the kernels: interpolation serving (``Interpolator``,
 ``interpolate_series``) and training (``Trainer.fit``, then the CLI verbs
-generate → train → test → inference_video).  It compares both with the same
-weights on the CPU, and times them.
+generate → train → test → inference_video), on 2-D frames and on 64^3
+volumes, and the ``train256`` module at 128^3.  It compares each path with
+the same weights on the CPU, and times them.
 
 Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time;
-  2. kernel vs plain on the card, forward and backward, every case against a
-     stated tolerance;
-  3. serving path at full width, f32 and bf16, with launch counts, the CPU
+  2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
+     case against a stated tolerance;
+  3. 2-D serving path at full width, f32 and bf16, with launch counts, the CPU
      comparison and the series metrics against the linear baseline;
-  4. training path at full width, f32 and bf16: ``fit`` lowers ``loss_G``,
+  4. 2-D training path at full width, f32 and bf16: ``fit`` lowers ``loss_G``,
      10 forward and 10 backward launches per train step (10 / 0 per eval
      step), ``loss.json``, checkpoint round trip; one train step against the
      CPU; the CLI verbs;
-  5. times (CUDA events, warm-up, inputs that vary from call to call) and
-     profiles of both paths;
-  6. one ``{"kernels": [...]}`` line.
+  5. 3-D serving path at full width at [4, 64, 64, 64, 1]: 6 ``warp3d``
+     launches per forward (12 with TTA), the CPU comparison, a ``rectangle_3d``
+     series against the linear baseline;
+  6. 3-D training path: ``fit`` with the 3-D presets, 8 + 8 launches per train
+     step (8 + 0 per eval step), checkpoint round trip, ``remat`` against the
+     plain step, one train step against the CPU, the CLI verbs on
+     ``rectangle3d``, the ``train256`` module at 128^3;
+  7. times (CUDA events, warm-up, inputs that vary from call to call) and
+     profiles of all paths;
+  8. one ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
 CUDA device or without the port beside it.
@@ -50,6 +58,8 @@ F32_FLOPS_PER_S = 67e12
 
 WARP_SHAPE = (32, 160, 224, 1)  # [B, H, W, C] of the serving path's warps
 TRAIN_SHAPE = (64, 128, 128, 1)  # [B, H, W, C] of the training path's warps
+VOLUME_SHAPE = (4, 64, 64, 64, 1)  # [B, Z, Y, X, C] of the 3-D paths' warps
+RADII_3D = ((8, 8), (4, 0), (0, 0))  # (r_z, r_yx); the model passes (8, 8)
 F32_TOL = 1e-5  # order of the f32 sums: the two versions add 4 taps differently
 CPU_TOL = 1e-3  # f32 convs in other summation orders across 3 blocks of 13 layers
 # Backward, relative to the largest reference gradient of the case.  f32: dflow
@@ -104,15 +114,21 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
+    # a profiler window now and then comes back without any device event (seen
+    # once, over 40 launches of one short kernel, right after a window with
+    # thousands of events); such a window is measured again, never estimated
+    for attempt in range(3):
         torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if is_kernel(ev, DeviceType) and (only is None or only in ev.key))
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                       if is_kernel(ev, DeviceType) and (only is None or only in ev.key))
+        if total_us > 0:
+            return total_us / iters / 1e3
+        print(f"device_ms: profiler window {attempt + 1} held no device event, measuring again")
+    raise RuntimeError("chip_smoke failed: the profiler recorded no device time in 3 windows")
 
 
 def bf16_ulp(x):
@@ -149,7 +165,8 @@ def phase_card(torch):
     from opticalflowscivis_tpu_torch.ops.kernels.build import build
 
     t0 = time.perf_counter()
-    libs = build(["warp2d"])  # one source holds the forward and the backward kernel
+    # each source holds a forward and a backward kernel; one nvcc per source, in parallel
+    libs = build(["warp2d", "warp3d"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s  "
           f"{[str(p.relative_to(REPO)) for p in libs.values()]}")
     return smi
@@ -293,6 +310,8 @@ def profile_forward(torch, name: str, fn, iters: int = 3, unit: str = "forward")
         "busy_share": total / wall_us,
         "warp2d_share": share("warp2d_kernel"),
         "warp2d_bwd_share": share("warp2d_bwd_kernel"),
+        "warp3d_share": share("warp3d_kernel"),
+        "warp3d_bwd_share": share("warp3d_bwd_kernel"),
         "kernel_launches": sum(n for _, _, n in kernels) // iters,
         "top": [{"kernel": k[:70], "share": t / max(total, 1e-9), "launches": n // iters}
                 for k, t, n in top],
@@ -472,7 +491,7 @@ def phase_training(torch, tmp: str):
     from opticalflowscivis_tpu_torch.training import Trainer
 
     b, h, w, _ = TRAIN_SHAPE
-    epochs, steps_per_epoch, n_val = 9, 4, 16
+    epochs, steps_per_epoch, n_val = 6, 4, 16
     frames = rectangle_2d(n_frames=3 * (steps_per_epoch * b + n_val), grid=(h, w), box=(60, 80),
                           seed=0)
     tuples = group_tuples(frames, 1).astype(np.float32)
@@ -488,7 +507,7 @@ def phase_training(torch, tmp: str):
         reset_launches()  # the training path's run starts here
         hist = tr.fit(train, val, epochs=epochs, log_every=0)
         torch.cuda.synchronize()
-        counts = dict(LAUNCHES)  # read just after the run
+        counts = {k: LAUNCHES[k] for k in launches}  # read just after the run
         steps, evals = epochs * steps_per_epoch, epochs  # one val chunk per epoch
         print(f"fit {name}: {steps} train steps + {evals} eval steps at [{b},{h},{w},1]: "
               f"launches={counts} loss_G first eval {hist[0]['loss_G']:.6f} "
@@ -556,9 +575,9 @@ def phase_train_step_vs_cpu(torch, tmp: str):
         before = dict(LAUNCHES)
         parts[device] = {k: float(v) for k, v in
                          tr.train_step(tr.upload(tuples)).items()}
-        delta = {k: LAUNCHES[k] - before[k] for k in before}
-        check(delta == ({"warp2d": 10, "warp2d_bwd": 10} if device == "cuda"
-                        else {"warp2d": 0, "warp2d_bwd": 0}), f"{device} step launches {delta}")
+        delta = {k: LAUNCHES[k] - before[k] for k in before if LAUNCHES[k] != before[k]}
+        check(delta == ({"warp2d": 10, "warp2d_bwd": 10} if device == "cuda" else {}),
+              f"{device} step launches {delta}")
         grads[device] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
     for key, ref in parts["cpu"].items():
         err = abs(parts["cuda"][key] - ref)
@@ -602,7 +621,7 @@ def phase_cli(torch, tmp: str):
                                             for v in row.values()), "cli interp report")
     check(os.path.isfile(os.path.join(tmp, "cli_l", "rectangle2d", "flownet.ckpt")),
           "cli checkpoint")
-    delta = {k: LAUNCHES[k] - before[k] for k in before}
+    delta = {k: LAUNCHES[k] - before[k] for k in ("warp2d", "warp2d_bwd")}
     print(f"cli: generate, train, test, inference_video ok; launches={delta}")
     check(all(v > 0 for v in delta.values()), "the CLI run missed a kernel")
 
@@ -702,6 +721,524 @@ def phase_train_times(torch, trainers):
     return times, out
 
 
+# -- 3-D: the trilinear warp kernels, ifnet_3d serving and training ------------------
+
+
+def warp3d_inputs(torch, shape, dtype, seed: int, channels_last: bool, off_integer=False):
+    """Image ``[B, C, Z, Y, X]``, a 6-channel flow (the warp takes its last three
+    channels, as the model passes them) and an incoming gradient; flow and
+    gradient contiguous or in the channels-last-3d layout cuDNN may produce.
+    N(0, 6) flows, some beyond ±8; ``off_integer`` keeps them off the kinks of
+    the trilinear weights."""
+    b, z, y, x, c = shape
+    fmt = torch.channels_last_3d if channels_last else torch.contiguous_format
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand((b, c, z, y, x), generator=gen, device="cuda").to(dtype)
+    flow6 = torch.randn((b, 6, z, y, x), generator=gen, device="cuda") * 6.0
+    if off_integer:
+        flow6 = torch.round(flow6 * 4) / 4 + 0.11
+    flow6 = flow6.to(dtype).contiguous(memory_format=fmt)
+    g = torch.randn((b, c, z, y, x), generator=gen, device="cuda").to(dtype)
+    return img, flow6, g.contiguous(memory_format=fmt)
+
+
+def phase_warp3d_vs_plain(torch):
+    """``warp3d`` and ``warp3d_bwd`` against ``warp3d_plain`` and autograd through it."""
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp3d
+    from opticalflowscivis_tpu_torch.ops.warp import warp3d_plain
+
+    def grads(fn, img, flow6, g, radii, padding, img_grad):
+        im = img.detach().clone().requires_grad_(img_grad)
+        fl = flow6.detach().clone(memory_format=torch.preserve_format).requires_grad_(True)
+        fn(im, fl[:, 3:], *radii, padding).backward(g)
+        return im.grad, fl.grad[:, 3:]
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    seed = 400
+    for shape in (VOLUME_SHAPE, (2, 11, 13, 17, 3)):
+        cl = shape[-1] > 1  # the small shape: channels-last-3d flow and gradient
+        for padding in ("border", "zeros"):
+            for radii in RADII_3D:
+                for dtype in (torch.float32, torch.bfloat16):
+                    seed += 1
+                    name = str(dtype).replace("torch.", "")
+                    tag = (f"{list(shape)} {padding:6s} r={radii} {name:8s} "
+                           f"{'ndhwc' if cl else 'ncdhw'}")
+                    # forward
+                    img, flow6, _ = warp3d_inputs(torch, shape, dtype, seed, cl)
+                    flow = flow6[:, 3:]
+                    check(bool((flow.float().abs() > 8).any()), "no flow beyond ±8")
+                    before = dict(LAUNCHES)
+                    out = warp3d(img, flow, *radii, padding)
+                    torch.cuda.synchronize()
+                    ref = warp3d_plain(img, flow, *radii, padding)
+                    check(LAUNCHES["warp3d"] == before["warp3d"] + 1
+                          and LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"],
+                          "forward launch count")
+                    check(out.dtype == dtype and out.shape == ref.shape, "kernel output type")
+                    diff = (out.float() - ref.float()).abs()
+                    err = float(diff.max())
+                    if dtype == torch.float32:
+                        ok, tol = err <= F32_TOL, f"{F32_TOL:g}"
+                        worst["fwd"] = max(worst["fwd"], err)
+                    else:
+                        ok, tol = bool((diff <= bf16_ulp(ref.float())).all()), "1 bf16 ulp"
+                    print(f"warp3d {tag} max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+                    check(ok, f"warp3d kernel disagrees with plain ({tag})")
+                    # backward, with an image gradient and (the big shape) without
+                    for img_grad in ([True] if cl else [True, False]):
+                        img, flow6, g = warp3d_inputs(torch, shape, dtype, seed + 1000, cl,
+                                                      off_integer=True)
+                        before = dict(LAUNCHES)
+                        dimg, dflow = grads(warp3d, img, flow6, g, radii, padding, img_grad)
+                        torch.cuda.synchronize()
+                        check(LAUNCHES["warp3d"] == before["warp3d"] + 1
+                              and LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1,
+                              "backward launch count")
+                        dimg_ref, dflow_ref = grads(warp3d_plain, img, flow6, g, radii, padding,
+                                                    img_grad)
+                        check(LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1,
+                              "the plain version launched")
+                        rel = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+                        pairs = [("dflow", dflow, dflow_ref)]
+                        if img_grad:
+                            pairs.append(("dimg", dimg, dimg_ref))
+                        else:
+                            check(dimg is None, "an image gradient nobody asked for")
+                        ok, shown = True, []
+                        for what, got, want in pairs:
+                            check(got.dtype == dtype and got.shape == want.shape, f"{what} type")
+                            err = float((got.float() - want.float()).abs().max())
+                            scale = float(want.float().abs().max())
+                            ok = ok and err <= rel * scale
+                            shown.append(f"{what}_err={err:.3e} (max|ref|={scale:.3e})")
+                            if dtype == torch.float32:
+                                worst["bwd"] = max(worst["bwd"], err)
+                        fl = flow6[:, 3:].float()
+                        for comp, r in ((slice(0, 1), radii[0]), (slice(1, 3), radii[1])):
+                            if r:  # exactly 0 at and beyond the bound
+                                clamped = fl[:, comp].abs() >= r
+                                ok = ok and bool((dflow[:, comp][clamped] == 0).all())
+                        print(f"warp3d_bwd {tag} img_grad={int(img_grad)} {' '.join(shown)} "
+                              f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
+                        check(ok, f"warp3d backward disagrees with plain ({tag}, "
+                                  f"img_grad={img_grad})")
+    return worst
+
+
+def phase_serving3d(torch):
+    """``ifnet_3d`` at full width through ``Interpolator`` on 64^3 volumes."""
+    from opticalflowscivis_tpu_torch.data import rectangle_3d
+    from opticalflowscivis_tpu_torch.evalsuite import (
+        calculate_metrics,
+        linear_interpolation_baseline,
+    )
+    from opticalflowscivis_tpu_torch.inference import Interpolator, interpolate_series
+    from opticalflowscivis_tpu_torch.models import ifnet_3d
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    b, z, y, x, c = VOLUME_SHAPE
+    model32 = ifnet_3d(device="cuda", seed=0)
+    model16 = ifnet_3d(dtype=torch.bfloat16, device="cuda", seed=0)
+    interp32, interp16 = Interpolator(model32), Interpolator(model16)
+    interp_tta = Interpolator(model32, tta=True)
+    rng = np.random.default_rng(0)
+    a = rng.random(VOLUME_SHAPE, dtype=np.float32)
+    e = rng.random(VOLUME_SHAPE, dtype=np.float32)
+    series = rectangle_3d(n_frames=9, grid=(z, y, x), seed=0, with_flow=False)
+
+    def launches_of(fn):
+        before = dict(LAUNCHES)
+        res = fn()
+        torch.cuda.synchronize()
+        check(all(LAUNCHES[k] == before[k] for k in before if k != "warp3d"),
+              "a 3-D forward launched another kernel than warp3d")
+        return res, LAUNCHES["warp3d"] - before["warp3d"]
+
+    reset_launches()  # the 3-D serving path's run starts here
+    outs = {}
+    for name, interp in (("f32", interp32), ("bf16", interp16)):
+        (merged, flow, mask), n = launches_of(lambda: interp.pair(a, e))
+        print(f"pair3d {name} {list(VOLUME_SHAPE)}: warp3d launches={n}")
+        check(n == 6, f"{name} 3-D forward launched warp3d {n} times, expected 6")
+        check(merged.shape == VOLUME_SHAPE and flow.shape == (b, z, y, x, 6)
+              and mask.shape == VOLUME_SHAPE, f"{name} 3-D output shapes")
+        check(all(np.isfinite(v).all() for v in (merged, flow, mask)), f"{name} 3-D not finite")
+        outs[name] = merged
+    _, n = launches_of(lambda: interp_tta.pair(a[:1], e[:1]))
+    print(f"pair3d tta [1,{z},{y},{x},{c}]: warp3d launches={n}")
+    check(n == 12, f"3-D TTA forward launched warp3d {n} times, expected 12")
+    print(f"merged3d bf16 vs f32 max_abs_diff={np.abs(outs['bf16'] - outs['f32']).max():.3e}")
+
+    # the same weights on the CPU (the plain path) at batch 1
+    cpu_model = ifnet_3d(device="cpu", seed=0)
+    cpu_model.load_state_dict(model32.state_dict())
+    cpu = Interpolator(cpu_model, device="cpu").pair(a[:1], e[:1])
+    gpu, n = launches_of(lambda: interp32.pair(a[:1], e[:1]))
+    check(n == 6, "batch-1 3-D forward launches")
+    for name, got, want in zip(("merged", "flow", "mask"), gpu, cpu):
+        err = float(np.abs(got - want).max())
+        tol = CPU_TOL * max(1.0, float(np.abs(want).max()))
+        print(f"cuda vs cpu 3-D {name}: max_abs_err={err:.3e} tol={tol:.3e} "
+              f"max|cpu|={np.abs(want).max():.3e}")
+        check(err <= tol, f"cuda 3-D {name} disagrees with the CPU plain path")
+
+    for factor in (2, 4):
+        (recon, _), n = launches_of(lambda: interpolate_series(interp32, series, factor))
+        k = recon.shape[0]
+        psnr, ssim_v = calculate_metrics(series[:k, ..., 0] * 255.0, recon[..., 0] * 255.0, factor)
+        base = linear_interpolation_baseline(series[:k], factor)
+        psnr_b, ssim_b = calculate_metrics(series[:k, ..., 0] * 255.0, base[..., 0] * 255.0, factor)
+        vals = {"factor": factor, "volumes": k, "warp3d_launches": n, "psnr": psnr,
+                "ssim": ssim_v, "psnr_linear_baseline": psnr_b, "ssim_linear_baseline": ssim_b}
+        print("series3d " + json.dumps(vals))
+        check(recon.shape == (9, z, y, x, 1) and np.isfinite(recon).all(), "3-D series output")
+        check(all(math.isfinite(v) for v in (psnr, ssim_v, psnr_b, ssim_b)), "3-D series metrics")
+        check(n == 6 * int(math.log2(factor)), f"3-D series x{factor} launches {n}")
+    torch.cuda.synchronize()
+    total = LAUNCHES["warp3d"]  # read just after the 3-D serving path's run
+    print(f"3-D serving path: warp3d launches={total}")
+    check(total > 0, "the 3-D serving path never launched warp3d")
+    return total, (interp32, interp16)
+
+
+def train3d_config(tmp: str, bfloat16: bool, batch: int = 4, **model_kw):
+    """``ModelConfig.preset_3d()`` at full width with ``RIFELossWeights.preset_3d()``
+    on ``rectangle3d``; the warm-up is cut from 2000 steps to 10 so that a few
+    dozen steps move the loss."""
+    from opticalflowscivis_tpu_torch.losses import RIFELossWeights
+    from opticalflowscivis_tpu_torch.training import ModelConfig, OptimConfig, TrainConfig
+
+    name = "bf16" if bfloat16 else "f32"
+    return TrainConfig(
+        dataset="rectangle3d", batch_size=batch,
+        model=ModelConfig.preset_3d(bfloat16=bfloat16, **model_kw),
+        loss=RIFELossWeights.preset_3d(),
+        optim=OptimConfig(warmup_steps=10),
+        data_dir=os.path.join(tmp, "data3d"), log_dir=os.path.join(tmp, f"log3d_{name}"),
+        results_dir=os.path.join(tmp, f"res3d_{name}"),
+    )
+
+
+def phase_training3d(torch, tmp: str):
+    """``Trainer.fit`` at full width on 64^3 ``rectangle_3d`` tuples, f32 and bf16.
+
+    The loss is read on the first training tuples themselves: an untrained
+    IFNet already returns the linear blend of its inputs, and on held-out
+    tuples the unsupervised 3-D recipe needs far more than a few dozen steps
+    to beat that, while on the tuples it trains on ``loss_G`` falls at once."""
+    from opticalflowscivis_tpu_torch.data import group_tuples, rectangle_3d
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import Trainer
+
+    b, z, y, x, _ = VOLUME_SHAPE
+    epochs, steps_per_epoch = 16, 2
+    frames = rectangle_3d(n_frames=3 * steps_per_epoch * b, grid=(z, y, x), seed=0)
+    train = group_tuples(frames, 1).astype(np.float32)
+    val = train[:b]
+    check(train.shape == (steps_per_epoch * b, 3, z, y, x, 4), "3-D tuples")
+
+    launches = {"warp3d": 0, "warp3d_bwd": 0}
+    trainers = {}
+    for bfloat16 in (False, True):
+        name = "bf16" if bfloat16 else "f32"
+        cfg = train3d_config(tmp, bfloat16)
+        tr = Trainer(cfg)
+        reset_launches()  # the 3-D training path's run starts here
+        hist = tr.fit(train, val, epochs=epochs, log_every=0)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)  # read just after the run
+        steps, evals = epochs * steps_per_epoch, epochs  # one val chunk per epoch
+        print(f"fit3d {name}: {steps} train steps + {evals} eval steps at {list(VOLUME_SHAPE)}: "
+              f"launches={counts} loss_G first eval {hist[0]['loss_G']:.6f} "
+              f"last {hist[-1]['loss_G']:.6f}")
+        check(len(hist) == epochs and tr.state.step == steps, f"{name} 3-D fit length")
+        check(all(math.isfinite(v) for parts in hist for v in parts.values()),
+              f"{name} 3-D losses not finite")
+        check(hist[-1]["loss_G"] < hist[0]["loss_G"], f"{name} 3-D fit did not lower loss_G")
+        check(counts["warp3d"] == 8 * (steps + evals),
+              f"{name}: {counts['warp3d']} warp3d launches, expected 8 per train and eval step")
+        check(counts["warp3d_bwd"] == 8 * steps,
+              f"{name}: {counts['warp3d_bwd']} warp3d_bwd launches, expected 8 per train step")
+        check(counts["warp2d"] == 0 and counts["warp2d_bwd"] == 0,
+              "3-D training launched a 2-D kernel")
+        for key in launches:
+            launches[key] += counts[key]
+
+        with open(os.path.join(tr.results_dir, "loss.json")) as f:
+            rows = json.load(f)["val_loss"]
+        check(len(rows) == epochs and all(len(row) == 7 for row in rows), f"{name} 3-D loss.json")
+        check(os.path.isfile(tr.checkpoint_path()), f"{name} 3-D checkpoint not written")
+        fresh = Trainer(cfg)
+        fresh.init_state(total_steps=steps)
+        check(fresh.load_checkpoint() and fresh.state.step == steps, f"{name} 3-D checkpoint load")
+        restored = fresh.model.state_dict()
+        check(all(torch.equal(v, restored[k]) for k, v in tr.model.state_dict().items()),
+              f"{name}: restored 3-D weights differ")
+
+        def rel_diff(p, q):
+            return max(abs(p[k] - q[k]) / max(abs(p[k]), 1e-12) for k in p)
+
+        ours = tr.evaluate(val, b)
+        again, theirs = rel_diff(ours, tr.evaluate(val, b)), rel_diff(ours, fresh.evaluate(val, b))
+        tol = 1e-6 if not bfloat16 else 1e-3  # as in 2-D: bf16 convs do not repeat bit for bit
+        print(f"checkpoint3d {name}: restored step {fresh.state.step}, weights equal, evaluate "
+              f"rel diff {theirs:.3e} (same trainer twice: {again:.3e}) tol={tol:g}")
+        check(theirs <= tol, f"{name}: the restored 3-D trainer evaluates differently")
+        trainers[name] = (tr, train)
+    print(f"3-D training path: launches={launches}")
+    check(all(v > 0 for v in launches.values()), "the 3-D training path missed a kernel")
+    return launches, trainers
+
+
+def textured_volume_tuples(n_tuples: int, grid, seed: int):
+    """``rectangle_3d`` tuples on a random texture: every voxel carries signal,
+    so that gradients are not float32 rounding of exact zeros."""
+    from opticalflowscivis_tpu_torch.data import group_tuples, rectangle_3d
+
+    tuples = group_tuples(rectangle_3d(n_frames=3 * n_tuples, grid=grid, seed=seed), 1)
+    tuples = tuples.astype(np.float32)
+    tuples[..., 0] += np.random.default_rng(seed).uniform(0.05, 0.3, tuples.shape[:-1]).astype(
+        np.float32)
+    return tuples
+
+
+def phase_train3d_step_checks(torch, tmp: str):
+    """One 3-D train step from the same weights: ``remat`` against the plain
+    step on the card (batch 4), and the card against the CPU (batch 1)."""
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+    from opticalflowscivis_tpu_torch.training import Trainer
+
+    grid = VOLUME_SHAPE[1:4]
+
+    def one_step(cfg, device, tuples):
+        tr = Trainer(cfg, device=device)
+        tr.init_state(total_steps=10)
+        before = dict(LAUNCHES)
+        parts = {k: float(v) for k, v in tr.train_step(tr.upload(tuples)).items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        delta = {k: LAUNCHES[k] - before[k] for k in before if LAUNCHES[k] != before[k]}
+        grads = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+        return parts, grads, delta
+
+    def compare(tag, got, want, parts_tol, grad_tol):
+        for key, ref in want[0].items():
+            print(f"train3d step {tag} {key}: {got[0][key]:.6e} vs {ref:.6e} tol={parts_tol:g} rel")
+            check(abs(got[0][key] - ref) <= parts_tol * max(abs(ref), 1e-6),
+                  f"3-D train step {tag}: {key} disagrees")
+        largest = max(float(g.abs().max()) for g in want[1].values())
+        worst, where = max((float((got[1][n] - g).abs().max()), n) for n, g in want[1].items())
+        print(f"train3d step {tag} gradients: max_abs_diff={worst:.3e} at {where}, largest "
+              f"gradient {largest:.3e}, ratio {worst / largest:.3e} tol={grad_tol:g}")
+        check(worst <= grad_tol * largest, f"3-D train step {tag}: gradients disagree")
+
+    expected = {"warp3d": 8, "warp3d_bwd": 8}
+    tuples4 = textured_volume_tuples(VOLUME_SHAPE[0], grid, seed=1)
+    plain = one_step(train3d_config(tmp, False), "cuda", tuples4)
+    remat = one_step(train3d_config(tmp, False, remat=True), "cuda", tuples4)
+    print(f"train3d step launches: plain {plain[2]} remat {remat[2]}")
+    check(plain[2] == expected, f"3-D train step launches {plain[2]}")
+    # the warps lie outside the recomputed blocks: remat reruns none of them
+    check(remat[2] == expected, f"3-D train step launches with remat {remat[2]}")
+    # the same arithmetic, but cuDNN may pick other algorithms for the recomputation
+    compare("remat vs plain", remat, plain, 1e-5, 1e-3)
+
+    cfg1 = train3d_config(tmp, False, batch=1)
+    tuples1 = tuples4[:1]
+    cuda, cpu = one_step(cfg1, "cuda", tuples1), one_step(cfg1, "cpu", tuples1)
+    check(cuda[2] == expected and cpu[2] == {}, f"step launches cuda {cuda[2]} cpu {cpu[2]}")
+    compare("cuda vs cpu", cuda, cpu, TRAIN_PARTS_TOL, TRAIN_GRAD_TOL)
+
+
+def phase_cli3d(torch, tmp: str):
+    """generate → train (1 epoch) → test → inference_video on ``rectangle3d``, in
+    process, on the card, at the full width the flags build; then the
+    ``train256`` module at 128^3 as its own process."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import main as cli
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+
+    dirs = ["--data_dir", os.path.join(tmp, "cli3_d"), "--results_dir", os.path.join(tmp, "cli3_r"),
+            "--log_dir", os.path.join(tmp, "cli3_l")]
+    before = dict(LAUNCHES)
+    cli(["generate", "--dataset", "rectangle3d", "--frames", "60", "--data_dir", dirs[1]])
+    cli(["train", "--dataset", "rectangle3d", "--epochs", "1", "--batch_size", "4", *dirs])
+    cli(["test", "--dataset", "rectangle3d", "--batch_size", "4", *dirs])
+    cli(["inference_video", "--dataset", "rectangle3d", "--factors", "2,4", "--max_frames", "9",
+         *dirs])
+    torch.cuda.synchronize()
+    run = os.path.join(tmp, "cli3_r", "rectangle3d")
+    with open(os.path.join(run, "2x", "flownet", "loss.json")) as f:
+        final = json.load(f)["val_loss"][-1]
+    with open(os.path.join(run, "2x", "flownet", "test_report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(run, "interp_report.json")) as f:
+        interp = json.load(f)
+    check(all(math.isfinite(v) for v in final), "3-D cli train: loss.json not finite")
+    check(set(report) == {"psnr", "ssim", "epe_ft1", "epe_ft0"}
+          and all(math.isfinite(v) for v in report.values()), "3-D cli test report")
+    check(set(interp) == {"2", "4"} and all(math.isfinite(v) for row in interp.values()
+                                            for v in row.values()), "3-D cli interp report")
+    check(os.path.isfile(os.path.join(tmp, "cli3_l", "rectangle3d", "flownet.ckpt")),
+          "3-D cli checkpoint")
+    delta = {k: LAUNCHES[k] - before[k] for k in before}
+    print(f"cli3d: generate, train, test, inference_video ok; launches={delta}")
+    check(delta["warp3d"] > 0 and delta["warp3d_bwd"] > 0 and delta["warp2d"] == 0,
+          "the 3-D CLI run missed a kernel")
+
+    out = os.path.join(tmp, "t256")
+    cmd = [sys.executable, "-m", "opticalflowscivis_tpu_torch.scripts.train256", "--grid", "128",
+           "--frames", "5", "--epochs", "1", "--coarse_final", "--out", out]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"train256 exited {res.returncode}:\n{res.stderr[-2000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    print("train256 " + json.dumps(report))
+    check(report["grid"] == 128 and report["steps"] == 4 and report["coarse_final"]
+          and report["device"].startswith("cuda"), "train256 report")
+    check(all(math.isfinite(report[k]) for k in ("seconds_per_step", "train_step_seconds",
+                                                 "val_loss_final", "val_psnr_model"))
+          and report["cuda_peak_bytes"] > 0, "train256 numbers")
+
+
+def phase_times3d(torch, interps, trainers):
+    """Times of the 3-D paths and of the two 3-D kernels at the paths' shape."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch3d_backward, warp3d
+    from opticalflowscivis_tpu_torch.ops.warp import warp3d_plain
+
+    b, z, y, x, c = VOLUME_SHAPE
+    times = {}
+    for name, interp in zip(("f32", "bf16"), interps):
+        sets = []
+        for i in range(4):
+            g = torch.Generator(device="cuda").manual_seed(500 + i)
+            sets.append((torch.rand((b, c, z, y, x), generator=g, device="cuda"),
+                         torch.rand((b, c, z, y, x), generator=g, device="cuda")))
+        ms = cuda_ms(lambda i: interp.forward(*sets[i % 4]), iters=10)
+        times[f"forward3d_ms_{name}"] = ms
+        times[f"volume_pairs_per_sec_{name}"] = b / (ms / 1e3)
+        profile_forward(torch, f"3d_{name}", lambda i: interp.forward(*sets[i % 4]))
+    for name, (tr, train) in trainers.items():
+        batches = [tr.upload(train[i * b : (i + 1) * b]) for i in range(train.shape[0] // b)]
+
+        def step(i, tr=tr, batches=batches):
+            return tr.train_step(batches[i % len(batches)])
+
+        ms = cuda_ms(step, iters=8)
+        times[f"train3d_step_ms_{name}"] = ms
+        times[f"train3d_volumes_per_sec_{name}"] = b * 1e3 / ms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):
+            step(i)
+        torch.cuda.synchronize()
+        times[f"train3d_volumes_per_sec_host_clock_{name}"] = 8 * b / (time.perf_counter() - t0)
+        profile_forward(torch, f"train3d_{name}", step, unit="train_step")
+    print("times3d " + json.dumps(times))
+
+    # the kernels at the paths' shape: f32, border, radii (8, 8), flow a 3-channel slice
+    r_z, r_yx = RADII_3D[0]
+    sets = [warp3d_inputs(torch, VOLUME_SHAPE, torch.float32, 600 + i, False, off_integer=True)
+            for i in range(4)]
+
+    def clipped_grid(flow):
+        """``F.grid_sample``'s (x, y, z) grid in [-1, 1] for a (dz, dy, dx) flow."""
+        fz = torch.where(flow[:, 0].abs() < r_z, flow[:, 0], torch.sign(flow[:, 0].detach()) * r_z)
+        fyx = torch.where(flow[:, 1:].abs() < r_yx, flow[:, 1:],
+                          torch.sign(flow[:, 1:].detach()) * r_yx)
+        zs = torch.arange(z, device="cuda", dtype=torch.float32).view(1, z, 1, 1)
+        ys = torch.arange(y, device="cuda", dtype=torch.float32).view(1, 1, y, 1)
+        xs = torch.arange(x, device="cuda", dtype=torch.float32).view(1, 1, 1, x)
+        gz = 2.0 * (zs + fz) / (z - 1) - 1.0
+        gy = 2.0 * (ys + fyx[:, 0]) / (y - 1) - 1.0
+        gx = 2.0 * (xs + fyx[:, 1]) / (x - 1) - 1.0
+        return torch.stack([gx, gy, gz], dim=-1)
+
+    def library_forward(img, flow):
+        return F.grid_sample(img, clipped_grid(flow), mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    grids = [(img, clipped_grid(flow6[:, 3:])) for img, flow6, _ in sets]
+    # the library call is held against the kernel once: it is the same function
+    lib_err = float((library_forward(sets[0][0], sets[0][1][:, 3:])
+                     - warp3d(sets[0][0], sets[0][1][:, 3:], r_z, r_yx, "border")).abs().max())
+    check(lib_err <= 1e-4, f"F.grid_sample is not the same function ({lib_err:.3e})")
+
+    def kernel(i):
+        return warp3d(sets[i % 4][0], sets[i % 4][1][:, 3:], r_z, r_yx, "border")
+
+    def plain(i):
+        return warp3d_plain(sets[i % 4][0], sets[i % 4][1][:, 3:], r_z, r_yx, "border")
+
+    def library(i):
+        return F.grid_sample(*grids[i % 4], mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    vox = b * z * y * x
+    fwd_bytes = vox * (4 * c + 12 + 4 * c)  # image read, (dz, dy, dx) read, out written
+    fwd_flops = vox * (45 + 24 + 16 * c)  # clips, coords, 8 weights; 8 taps per channel
+    fwd = {
+        "kernel_ms": device_ms(kernel, 40), "plain_ms": device_ms(plain, 20),
+        "library_ms": device_ms(library, 40),
+        "bytes_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+        "operations_bound_ms": fwd_flops / F32_FLOPS_PER_S * 1e3,
+        "bytes": fwd_bytes,
+        "back_to_back_call_ms": {"kernel": cuda_ms(kernel, 40), "plain": cuda_ms(plain, 20),
+                                 "library": cuda_ms(library, 40)},
+    }
+    fwd["bound_ms"] = max(fwd["bytes_bound_ms"], fwd["operations_bound_ms"])
+    fwd["bound_by"] = "bytes" if fwd["bytes_bound_ms"] >= fwd["operations_bound_ms"] else "operations"
+    fwd["achieved_GBps"] = fwd_bytes / (fwd["kernel_ms"] / 1e3) / 1e9
+    print("warp3d times " + json.dumps(fwd) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+
+    bwd = {}
+    for with_dimg in (False, True):
+        graphs = {"plain": [], "library": []}
+        for img, flow6, g in sets:
+            for kind in graphs:
+                im = img.clone().requires_grad_(with_dimg)
+                fl = flow6[:, 3:].clone().requires_grad_(True)
+                res = (warp3d_plain(im, fl, r_z, r_yx, "border") if kind == "plain"
+                       else library_forward(im, fl))
+                graphs[kind].append((res, (im, fl) if with_dimg else (fl,), g))
+
+        def bwd_kernel(i):
+            img, flow6, g = sets[i % 4]
+            return _launch3d_backward(img, flow6[:, 3:], g, r_z, r_yx, "border", with_dimg)
+
+        def through(kind):
+            def run(i):
+                res, leaves, g = graphs[kind][i % 4]
+                return torch.autograd.grad(res, leaves, g, retain_graph=True)
+            return run
+
+        # bytes the function must move: image, flow and g read, dflow written, and
+        # with dimg that written too (the design also zero-fills its f32
+        # accumulator and reads it back under the atomics)
+        function_bytes = vox * (4 * c + 12 + 4 * c + 12 + (4 * c if with_dimg else 0))
+        flops = vox * (45 + 24 + 60 * c + (16 * c if with_dimg else 0))
+        bytes_ms = function_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        kernel_only = device_ms(bwd_kernel, 40, only="warp3d_bwd_kernel")
+        bwd["with_dimg" if with_dimg else "dflow_only"] = {
+            "kernel_ms": kernel_only,
+            "call_device_ms": device_ms(bwd_kernel, 40),  # with the zero-fill and the cast
+            "plain_ms": device_ms(through("plain"), 10),
+            "library_ms": device_ms(through("library"), 20),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+            "bytes": function_bytes,
+            "achieved_GBps": function_bytes / (kernel_only / 1e3) / 1e9,
+            "back_to_back_call_ms": cuda_ms(bwd_kernel, 40),
+        }
+    print("warp3d_bwd times " + json.dumps(bwd) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+    return times, fwd, bwd
+
+
+
 def main() -> int:
     import torch
 
@@ -718,6 +1255,7 @@ def main() -> int:
     smi = phase_card(torch)
     worst_f32 = phase_kernel_vs_plain(torch)
     worst_bwd_f32 = phase_backward_vs_plain(torch)
+    worst3d = phase_warp3d_vs_plain(torch)
     launches, interps = phase_main_path(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_launches, trainers = phase_training(torch, tmp)
@@ -725,6 +1263,13 @@ def main() -> int:
         phase_cli(torch, tmp)
         times, warp = phase_times(torch, interps)
         train_times, bwd = phase_train_times(torch, trainers)
+        del interps, trainers  # free the 2-D models before the volumes
+        torch.cuda.empty_cache()
+        launches3d, interps3d = phase_serving3d(torch)
+        train_launches3d, trainers3d = phase_training3d(torch, tmp)
+        phase_train3d_step_checks(torch, tmp)
+        phase_cli3d(torch, tmp)
+        _, warp3, bwd3 = phase_times3d(torch, interps3d, trainers3d)
 
     source = "opticalflowscivis_tpu_torch/csrc/warp2d.cu"
     kernels = [{
@@ -764,6 +1309,44 @@ def main() -> int:
                       ("kernel_ms", "call_device_ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
         "shape": list(TRAIN_SHAPE),
+        "card": smi,
+    }, {
+        "name": "warp3d",
+        "route": "cuda",
+        "source": "opticalflowscivis_tpu_torch/csrc/warp3d.cu",
+        "replaces": "opticalflowscivis_tpu/ops/warp.py:144",
+        "launches": launches3d + train_launches3d["warp3d"],
+        "launches_serving_path": launches3d,
+        "launches_training_path": train_launches3d["warp3d"],
+        "launches_per_forward": 6,
+        "launches_per_train_step": 8,
+        "max_abs_err": worst3d["fwd"],
+        "ms": warp3["kernel_ms"],
+        "plain_ms": warp3["plain_ms"],
+        "bound_ms": warp3["bound_ms"],
+        "bound_by": warp3["bound_by"],
+        "library_ms": warp3["library_ms"],
+        "shape": list(VOLUME_SHAPE),
+        "card": smi,
+    }, {
+        # as for warp2d_bwd: the call without an image gradient (all 8 calls of
+        # a 3-D train step), the one with it beside it
+        "name": "warp3d_bwd",
+        "route": "cuda",
+        "source": "opticalflowscivis_tpu_torch/csrc/warp3d.cu",
+        "replaces": "opticalflowscivis_tpu/ops/warp.py:144",
+        "launches": train_launches3d["warp3d_bwd"],
+        "launches_per_train_step": 8,
+        "max_abs_err": worst3d["bwd"],
+        "ms": bwd3["dflow_only"]["kernel_ms"],
+        "plain_ms": bwd3["dflow_only"]["plain_ms"],
+        "bound_ms": bwd3["dflow_only"]["bound_ms"],
+        "bound_by": bwd3["dflow_only"]["bound_by"],
+        "library_ms": bwd3["dflow_only"]["library_ms"],
+        "with_dimg": {k: bwd3["with_dimg"][k] for k in
+                      ("kernel_ms", "call_device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")},
+        "shape": list(VOLUME_SHAPE),
         "card": smi,
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -5,18 +5,19 @@ module layout so that each counterpart is found under the same path:
 
 - ``ops``        — plain PyTorch warp / resize / SSIM, and ``ops.kernels``:
   the hand-written Hopper kernels (CUDA C++ in ``csrc/``) with their wrappers.
-- ``models``     — IFNet-2D (RIFE student/teacher) as ``nn.Module``s.
+- ``models``     — IFNet (RIFE student/teacher), 2-D and 3-D, as ``nn.Module``s.
 - ``bridge``     — flax params → this package's ``state_dict``.
 - ``losses``     — the RIFE training losses.
 - ``training``   — config, schedule, checkpoint and the ``Trainer``.
-- ``cli``        — the 2-D verbs: generate, train, test, inference_img / _video.
+- ``cli``        — the RIFE verbs: generate, train, test, inference_img / _video.
+- ``scripts``    — ``train256`` (256³ training) and ``forward3d`` (forward timing).
 - ``inference``  — ``Interpolator`` and the series / recursive interpolators.
 - ``evalsuite``  — PSNR / SSIM metrics and the linear baseline.
 - ``data``       — numpy generators, pipeline and dataset registry.
 
 Conventions at the public functions are the reference's: channels-last
-arrays and row-major flow, ``flow[..., 0] = dy`` and ``flow[..., 1] = dx``.
-Inside ``nn.Module``s tensors are NCHW.  Entry points run on ``cuda`` unless
+arrays and row-major flow, (dy, dx) in 2-D and (dz, dy, dx) in 3-D.
+Inside ``nn.Module``s tensors are channels-first.  Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``; they raise when CUDA is asked for and
 absent (``device.resolve_device``).
 

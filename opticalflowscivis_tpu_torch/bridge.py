@@ -4,9 +4,10 @@
 arrays (``{"params": {...}}`` or the inner dict) and returns a ``state_dict``
 for ``models.ifnet.IFNet``:
 
-- conv kernels HWIO → OIHW;
-- transposed-conv kernels HWIO → IOHW plus a spatial flip (flax
-  ``ConvTranspose`` does not flip its kernel, torch's transposed conv does);
+- conv kernels HWIO → OIHW (3-D: DHWIO → OIDHW);
+- transposed-conv kernels HWIO → IOHW (3-D: DHWIO → IODHW) plus a flip of
+  every spatial axis (flax ``ConvTranspose`` does not flip its kernel, torch's
+  transposed conv does);
 - biases as they are, PReLU ``slope`` as they are.
 
 Flax module paths (as ``models/ifnet_hd.py:111-126`` of the reference lists
@@ -76,12 +77,16 @@ def _torch_key(path: tuple) -> str:
 def _convert(path: tuple, arr: np.ndarray) -> np.ndarray:
     if path[-1] != "kernel":
         return arr
-    if arr.ndim != 4:
-        raise ValueError(f"{'/'.join(path)}: expected a 2-D conv kernel, got {arr.shape}")
+    if arr.ndim not in (4, 5):
+        raise ValueError(f"{'/'.join(path)}: expected a 2-D or 3-D conv kernel, got {arr.shape}")
+    nd = arr.ndim - 2
+    spatial = tuple(range(nd))
     if "ConvTranspose" in path[-2]:
-        # HWIO → IOHW, taps flipped (torch's transposed conv flips, flax's does not)
-        return np.flip(arr.transpose(2, 3, 0, 1), axis=(2, 3)).copy()
-    return arr.transpose(3, 2, 0, 1).copy()  # HWIO → OIHW
+        # [*k, I, O] → [I, O, *k], taps flipped on every spatial axis (torch's
+        # transposed conv flips, flax's does not)
+        moved = arr.transpose((nd, nd + 1) + spatial)
+        return np.flip(moved, axis=tuple(range(2, 2 + nd))).copy()
+    return arr.transpose((nd + 1, nd) + spatial).copy()  # [*k, I, O] → [O, I, *k]
 
 
 def ifnet_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:

@@ -1,8 +1,8 @@
 """CLI dispatcher: ``python -m opticalflowscivis_tpu_torch.cli <verb> [flags]``.
 
-The 2-D verbs of ``opticalflowscivis_tpu.cli`` with the same flags.  ``--cpu``
-selects ``device="cpu"``; without it every verb runs on the GPU and raises
-when there is none.
+The RIFE verbs of ``opticalflowscivis_tpu.cli`` with the same flags, on 2-D and
+3-D datasets.  ``--cpu`` selects ``device="cpu"``; without it every verb runs
+on the GPU and raises when there is none.
 """
 
 from __future__ import annotations
@@ -39,22 +39,16 @@ def _device(args) -> str | None:
     return "cpu" if args.cpu else None
 
 
-def _spec_2d(dataset: str):
+def _spec(dataset: str):
     """The dataset's spec, or exit for what the ported verbs cannot serve yet."""
     from opticalflowscivis_tpu_torch.data import get_spec
 
-    spec = get_spec(dataset)
-    if spec.ndim == 3:
-        raise SystemExit(
-            f"dataset {dataset!r} is 3-D: IFNet-3D and its trilinear warp kernel "
-            "are ported with the RIFE-3D slice (ROADMAP A.8)"
-        )
     if dataset == "vimeo2d":
         raise SystemExit(
             "dataset 'vimeo2d' streams Vimeo90K crops through data/vimeo.py, "
             "which is ported with the remaining data tooling (ROADMAP A.11)"
         )
-    return spec
+    return get_spec(dataset)
 
 
 def _build_cfg(args, epochs=None, batch_size=None):
@@ -64,8 +58,16 @@ def _build_cfg(args, epochs=None, batch_size=None):
     if args.config_json:
         with open(args.config_json) as f:
             return TrainConfig.from_json(f.read())
-    spec = _spec_2d(args.dataset)
-    loss = RIFELossWeights.preset_2d(flow_supervised=getattr(args, "flow_supervised", False))
+    spec = _spec(args.dataset)
+    volumes = spec.ndim == 3
+    if volumes:
+        # remat: the reference's 3-D recipe recomputes the IFBlocks in the
+        # backward pass to fit volume batches into device memory
+        model = ModelConfig.preset_3d(remat=True)
+        loss = RIFELossWeights.preset_3d()
+    else:
+        model = ModelConfig.preset_2d()
+        loss = RIFELossWeights.preset_2d(flow_supervised=getattr(args, "flow_supervised", False))
     if getattr(args, "distill", None) is not None:
         loss = dataclasses.replace(loss, distill=args.distill)
     return TrainConfig(
@@ -77,11 +79,15 @@ def _build_cfg(args, epochs=None, batch_size=None):
         results_dir=args.results_dir,
         log_dir=args.log_dir,
         model_name=args.model_name,
-        model=ModelConfig.preset_2d(),
+        model=model,
         loss=loss,
+        early_stop_patience=1000 if volumes else 0,
+        keep_best_only=volumes,
         # On-device flip augmentation whenever the dataset flips: equal to the
-        # host augmentation (tested) with 4x fewer resident bytes.
+        # host augmentation (tested) with 4x fewer resident bytes.  Volumes are
+        # also kept in bfloat16 on the device.
         device_flip_aug=spec.flip_aug,
+        hbm_dataset_dtype="bfloat16" if volumes else "float32",
     )
 
 
@@ -103,14 +109,14 @@ def cmd_train(argv):
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--flow_supervised", action="store_true")
     p.add_argument("--distill", type=float, default=None,
-                   help="override the distill lambda (2-D default 0.01)")
+                   help="override the distill lambda (default 0.01 in 2-D, 0 in 3-D)")
     p.add_argument("--resume", action="store_true")
     args = p.parse_args(argv)
 
     from opticalflowscivis_tpu_torch.training import Trainer
 
     cfg = _build_cfg(args)
-    _spec_2d(cfg.dataset)
+    _spec(cfg.dataset)
     tr = Trainer(cfg, device=_device(args))
     train, val = tr.load_datasets()
     print(f"train tuples {train.shape}, val tuples {val.shape}", flush=True)
@@ -132,7 +138,7 @@ def cmd_test(argv):
     from opticalflowscivis_tpu_torch.losses import epe
 
     cfg = _build_cfg(args)
-    spec = _spec_2d(cfg.dataset)
+    spec = _spec(cfg.dataset)
     tr = _restored_trainer(cfg, args)
     test = load_data(cfg.dataset, cfg.exp, "test", cfg.data_dir)
 
@@ -150,8 +156,9 @@ def cmd_test(argv):
         report["epe_ft1"] = float(epe(flow[..., ndim:], flow_gt))
         report["epe_ft0"] = float(epe(flow[..., :ndim], -flow_gt))
 
-    # the reference also draws a test panel and the loss curve here; the
-    # plotting module is not ported yet (ROADMAP A.11)
+    # the reference also draws a test panel (in 3-D a mid-depth slice and a
+    # volume render) and the loss curve here; the plotting module is not
+    # ported yet (ROADMAP A.11)
     os.makedirs(tr.results_dir, exist_ok=True)
     with open(os.path.join(tr.results_dir, "test_report.json"), "w") as f:
         json.dump(report, f, indent=2)
@@ -217,7 +224,7 @@ def cmd_inference_video(argv):
     from opticalflowscivis_tpu_torch.inference import Interpolator, interpolate_series
 
     cfg = _build_cfg(args, epochs=1)
-    _spec_2d(cfg.dataset)
+    _spec(cfg.dataset)
     frames = load_raw_series(cfg.dataset, cfg.data_dir, "test")[..., :1]
     if args.max_frames:
         frames = frames[: args.max_frames]

@@ -1,0 +1,310 @@
+// Trilinear backward warp of volumes, forward pass and its VJP, for Hopper (sm_90a).
+//
+// Replaces the slab warp of opticalflowscivis_tpu/ops/warp.py
+// (_slab_warp_core / backward_warp3d_slab): on the TPU a scan over 2*r_z+3
+// z-taps, each one launch of the bilinear Pallas kernel
+// (ops/pallas/warp.py::backward_warp_pallas, z folded into its batch) weighted
+// by the hat function max(0, 1 - |flow_z - s|), and under a gradient the fused
+// Pallas VJP once per tap.  That decomposition exists because the TPU cannot
+// gather from a volume that exceeds its VMEM; of the taps only two carry weight
+// per voxel.  The GPU gathers the 8 corners directly, so this kernel computes
+// the function of the slab warp, not its scan:
+//
+//   (dz, dy, dx) = flow[b, :, z, y, x]; dz clipped to +-r_z when r_z > 0,
+//                  dy and dx to +-r_yx when r_yx > 0 (the bounded 2-D kernel's
+//                  clip on the TPU path)
+//   out[b, c, z, y, x] = sum over the 8 corners of w_corner * img[b, c, iz, iy, ix]
+//   border: corner indices clamped to the volume (the slab's edge-padded z
+//           taps and the 2-D kernel's edge pad);
+//   zeros:  out-of-range corners dropped on all three axes.  That equals the
+//           slab's in-plane zeros x clip(sum of in-range z weights): with one of
+//           the two live z-taps out of range the edge slab stands in for it and
+//           the scale removes exactly its weight.
+//
+//   dimg[b, c, iz, iy, ix] += w_corner * g[b, c, z, y, x]        (f32 atomics)
+//   dflow[b, k, z, y, x]    = sum_c g * d out / d flow_k, exactly 0 for a
+//                             component at or beyond its radius
+//
+// Bound: device-memory bytes.  The forward at [4,1,64,64,64] f32 moves 1.05 M
+// voxels x (4 B image + 12 B flow + 4 B out) and does ~70 flops per voxel, far
+// below the card's compute rate; the backward reads image, flow and g and
+// writes 12 B of dflow, and for dimg adds a zero-fill and a read-modify-write of
+// the image's size.  The 8 taps of a voxel lie within +-(r+1) of it on each
+// axis, so neighbouring threads' gathers and atomics hit L1 and L2.
+//
+// Design (simple first): one thread per output voxel (b, z, y, x), consecutive
+// threads on consecutive x so reads of g and writes of out / dflow coalesce; a
+// loop over C; f32 arithmetic, stored in the dtype of image and flow (f32 or
+// bf16).  Forward and backward share `make_taps`, so the backward recomputes
+// exactly the forward's clips, coordinate clamp, corners and weights.  dflow is
+// written once per voxel with no atomics.  dimg is accumulated with f32
+// atomicAdd into an f32 buffer that the wrapper zero-fills and casts afterwards;
+// the kernel is compiled without that part for calls whose image needs no
+// gradient (every warp of a training step: the model warps input frames).  The
+// flow and g are read through their five strides, so the model's channel
+// slices of a 6-channel flow, and tensors in the channels-last-3d layout cuDNN
+// may hand back, need no copy.
+//
+// Index arithmetic: every element offset is a 64-bit integer, so a volume of
+// any size that fits the card addresses correctly; the launch refuses only a
+// voxel count beyond the 1-D grid limit (2^31 - 1 blocks of 256 threads).
+//
+// Plain C interface for ctypes; each entry returns cudaGetLastError() after
+// the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+struct Dims {
+  int64_t B, C, Z, Y, X;
+};
+
+// Five element strides of a [B, C, Z, Y, X] view.
+struct Strides {
+  int64_t b, c, z, y, x;
+};
+
+// The eight corners of one output voxel, indexed k = 4*hz + 2*hy + hx (the
+// corner order of the plain version): trilinear fractions, per-corner validity
+// (always 1 in border mode), clamped offsets into one image volume, and whether
+// each flow component passes a gradient through its clip.
+struct Taps {
+  float az, ay, ax;
+  float m[8];
+  int64_t o[8];
+  bool live_z, live_y, live_x;
+};
+
+// One axis: clip the displacement to +-r (r = 0: none), clamp the coordinate to
+// one voxel outside the volume, split it into floor and fraction.  Coordinates
+// further outside sample the same values (border) or nothing (zeros) wherever
+// they lie; the clamp keeps the integer conversion in range for unbounded flows.
+__device__ __forceinline__ void axis_taps(float d, int64_t i, int64_t n, float r,
+                                          int zeros, float* frac, int64_t* c0,
+                                          int64_t* c1, float* v0, float* v1,
+                                          bool* live) {
+  // strict <: a flow exactly on +-r is clamped and carries no gradient
+  *live = !(r > 0.f) || fabsf(d) < r;
+  if (r > 0.f) d = fminf(fmaxf(d, -r), r);
+  const float s = fminf(fmaxf((float)i + d, -2.f), (float)n + 1.f);
+  const float f = floorf(s);
+  *frac = s - f;
+  const int i0 = (int)f, i1 = i0 + 1;
+  *v0 = (!zeros || (i0 >= 0 && i0 < n)) ? 1.f : 0.f;
+  *v1 = (!zeros || (i1 >= 0 && i1 < n)) ? 1.f : 0.f;
+  *c0 = min(max(i0, 0), (int)n - 1);
+  *c1 = min(max(i1, 0), (int)n - 1);
+}
+
+__device__ __forceinline__ Taps make_taps(float dz, float dy, float dx,
+                                          int64_t z, int64_t y, int64_t x,
+                                          const Dims& d, float r_z, float r_yx,
+                                          int zeros) {
+  Taps t;
+  int64_t cz[2], cy[2], cx[2];
+  float vz[2], vy[2], vx[2];
+  axis_taps(dz, z, d.Z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1], &t.live_z);
+  axis_taps(dy, y, d.Y, r_yx, zeros, &t.ay, &cy[0], &cy[1], &vy[0], &vy[1], &t.live_y);
+  axis_taps(dx, x, d.X, r_yx, zeros, &t.ax, &cx[0], &cx[1], &vx[0], &vx[1], &t.live_x);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int hz = k >> 2, hy = (k >> 1) & 1, hx = k & 1;
+    t.m[k] = vz[hz] * vy[hy] * vx[hx];
+    t.o[k] = (cz[hz] * d.Y + cy[hy]) * d.X + cx[hx];
+  }
+  return t;
+}
+
+// w[k] = ((wz * wy) * wx) * m[k], the weight product of the plain version.
+__device__ __forceinline__ void corner_weights(const Taps& t, float* w) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float wz = (k >> 2) ? t.az : 1.f - t.az;
+    const float wy = ((k >> 1) & 1) ? t.ay : 1.f - t.ay;
+    const float wx = (k & 1) ? t.ax : 1.f - t.ax;
+    w[k] = wz * wy * wx * t.m[k];
+  }
+}
+
+// Voxel (b, z, y, x) of thread i; false past the end.
+__device__ __forceinline__ bool voxel_of(int64_t i, const Dims& d, int64_t* b,
+                                         int64_t* z, int64_t* y, int64_t* x) {
+  if (i >= d.B * d.Z * d.Y * d.X) return false;
+  *x = i % d.X;
+  int64_t t = i / d.X;
+  *y = t % d.Y;
+  t /= d.Y;
+  *z = t % d.Z;
+  *b = t / d.Z;
+  return true;
+}
+
+template <typename T>
+__global__ void warp3d_kernel(const T* __restrict__ img,
+                              const T* __restrict__ flow, T* __restrict__ out,
+                              Dims d, Strides fs, float r_z, float r_yx,
+                              int zeros) {
+  int64_t b, z, y, x;
+  if (!voxel_of((int64_t)blockIdx.x * blockDim.x + threadIdx.x, d, &b, &z, &y, &x))
+    return;
+  const T* f = flow + b * fs.b + z * fs.z + y * fs.y + x * fs.x;
+  const Taps k = make_taps(load_f32(f), load_f32(f + fs.c), load_f32(f + 2 * fs.c),
+                           z, y, x, d, r_z, r_yx, zeros);
+  float w[8];
+  corner_weights(k, w);
+
+  const int64_t vol = d.Z * d.Y * d.X;
+  const T* src = img + b * d.C * vol;
+  T* dst = out + b * d.C * vol + (z * d.Y + y) * d.X + x;
+  for (int64_t c = 0; c < d.C; ++c) {
+    const T* p = src + c * vol;
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc += w[j] * load_f32(p + k.o[j]);
+    store(dst + c * vol, acc);
+  }
+}
+
+// NEED_DIMG = false compiles the image-gradient scatter away: the model's
+// warps sample input frames, which carry no gradient.
+template <typename T, bool NEED_DIMG>
+__global__ void warp3d_bwd_kernel(const T* __restrict__ img,
+                                  const T* __restrict__ flow,
+                                  const T* __restrict__ g, T* __restrict__ dflow,
+                                  float* __restrict__ dimg, Dims d, Strides fs,
+                                  Strides gs, float r_z, float r_yx, int zeros) {
+  int64_t b, z, y, x;
+  if (!voxel_of((int64_t)blockIdx.x * blockDim.x + threadIdx.x, d, &b, &z, &y, &x))
+    return;
+  const T* f = flow + b * fs.b + z * fs.z + y * fs.y + x * fs.x;
+  const Taps k = make_taps(load_f32(f), load_f32(f + fs.c), load_f32(f + 2 * fs.c),
+                           z, y, x, d, r_z, r_yx, zeros);
+  float w[8];
+  if (NEED_DIMG) corner_weights(k, w);
+  const float az = k.az, ay = k.ay, ax = k.ax;
+
+  const int64_t vol = d.Z * d.Y * d.X;
+  const T* src = img + b * d.C * vol;
+  const T* gp = g + b * gs.b + z * gs.z + y * gs.y + x * gs.x;
+  float* dst = NEED_DIMG ? dimg + b * d.C * vol : nullptr;
+  float gz = 0.f, gy = 0.f, gx = 0.f;
+  for (int64_t c = 0; c < d.C; ++c) {
+    const T* p = src + c * vol;
+    const float gc = load_f32(gp + c * gs.c);
+    float v[8];  // v[4*hz + 2*hy + hx], dropped corners as 0
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = k.m[j] * load_f32(p + k.o[j]);
+    // d out / d (coordinate) = the difference across that axis, interpolated
+    // along the other two
+    gz += gc * ((1.f - ay) * ((1.f - ax) * (v[4] - v[0]) + ax * (v[5] - v[1])) +
+                ay * ((1.f - ax) * (v[6] - v[2]) + ax * (v[7] - v[3])));
+    gy += gc * ((1.f - az) * ((1.f - ax) * (v[2] - v[0]) + ax * (v[3] - v[1])) +
+                az * ((1.f - ax) * (v[6] - v[4]) + ax * (v[7] - v[5])));
+    gx += gc * ((1.f - az) * ((1.f - ay) * (v[1] - v[0]) + ay * (v[3] - v[2])) +
+                az * ((1.f - ay) * (v[5] - v[4]) + ay * (v[7] - v[6])));
+    if (NEED_DIMG) {
+      float* dd = dst + c * vol;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (w[j] != 0.f) atomicAdd(dd + k.o[j], w[j] * gc);
+    }
+  }
+  T* df = dflow + b * 3 * vol + (z * d.Y + y) * d.X + x;
+  store(df, k.live_z ? gz : 0.f);
+  store(df + vol, k.live_y ? gy : 0.f);
+  store(df + 2 * vol, k.live_x ? gx : 0.f);
+}
+
+const int kThreads = 256;
+
+// Blocks for one thread per voxel, or 0 when that exceeds the 1-D grid limit.
+unsigned blocks_for(const Dims& d) {
+  const int64_t n = d.B * d.Z * d.Y * d.X;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  return blocks > 0x7fffffffLL ? 0u : (unsigned)blocks;
+}
+
+template <typename T>
+void launch(const void* img, const void* flow, void* out, const Dims& d,
+            const Strides& fs, float r_z, float r_yx, int zeros,
+            cudaStream_t stream) {
+  warp3d_kernel<T><<<blocks_for(d), kThreads, 0, stream>>>(
+      static_cast<const T*>(img), static_cast<const T*>(flow),
+      static_cast<T*>(out), d, fs, r_z, r_yx, zeros);
+}
+
+template <typename T>
+void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
+                void* dimg, const Dims& d, const Strides& fs, const Strides& gs,
+                float r_z, float r_yx, int zeros, cudaStream_t stream) {
+  const unsigned blocks = blocks_for(d);
+  const T* i = static_cast<const T*>(img);
+  const T* f = static_cast<const T*>(flow);
+  const T* gg = static_cast<const T*>(g);
+  T* df = static_cast<T*>(dflow);
+  float* di = static_cast<float*>(dimg);
+  if (dimg)
+    warp3d_bwd_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+        i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros);
+  else
+    warp3d_bwd_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+        i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros);
+}
+
+}  // namespace
+
+// img [B, C, Z, Y, X] contiguous; flow [B, 3, Z, Y, X] with the element strides
+// fs[5] = (batch, channel, z, y, x); out [B, C, Z, Y, X] contiguous.  dims[5] =
+// (B, C, Z, Y, X).  All three tensors are bf16 (bf16 = 1) or f32 (0).
+extern "C" int warp3d_forward(const void* img, const void* flow, void* out,
+                              const int64_t* dims, const int64_t* fs,
+                              int64_t r_z, int64_t r_yx, int64_t zeros,
+                              int64_t bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dims d = {dims[0], dims[1], dims[2], dims[3], dims[4]};
+  const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
+  if (blocks_for(d) == 0) return (int)cudaErrorInvalidValue;
+  const int z = zeros ? 1 : 0;
+  if (bf16)
+    launch<__nv_bfloat16>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, s);
+  else
+    launch<float>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, s);
+  return (int)cudaGetLastError();
+}
+
+// img [B, C, Z, Y, X] contiguous; flow [B, 3, Z, Y, X] and g [B, C, Z, Y, X]
+// with the element strides fs[5] and gs[5]; dflow [B, 3, Z, Y, X] contiguous,
+// every element written.  img, flow, g and dflow are bf16 (bf16 = 1) or f32
+// (0).  dimg is null (no image gradient wanted) or a zero-filled contiguous f32
+// [B, C, Z, Y, X] buffer that the kernel adds into.
+extern "C" int warp3d_backward(const void* img, const void* flow, const void* g,
+                               void* dflow, void* dimg, const int64_t* dims,
+                               const int64_t* fs, const int64_t* gs, int64_t r_z,
+                               int64_t r_yx, int64_t zeros, int64_t bf16,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dims d = {dims[0], dims[1], dims[2], dims[3], dims[4]};
+  const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
+  const Strides gg = {gs[0], gs[1], gs[2], gs[3], gs[4]};
+  if (blocks_for(d) == 0) return (int)cudaErrorInvalidValue;
+  const int z = zeros ? 1 : 0;
+  if (bf16)
+    launch_bwd<__nv_bfloat16>(img, flow, g, dflow, dimg, d, f, gg, (float)r_z,
+                              (float)r_yx, z, s);
+  else
+    launch_bwd<float>(img, flow, g, dflow, dimg, d, f, gg, (float)r_z,
+                      (float)r_yx, z, s);
+  return (int)cudaGetLastError();
+}

@@ -3,8 +3,9 @@
 Counterpart of ``opticalflowscivis_tpu/inference.py``:
 
 - ``Interpolator.pair``: student-only IFNet forward on ``[B, H, W, C]``
-  numpy frames, edge-padded to a multiple of 32 and cropped back, with
-  optional flip test-time augmentation (TTA).
+  numpy frames or ``[B, Z, Y, X, C]`` volumes, edge-padded to a multiple of 32
+  on every spatial axis and cropped back, with optional flip test-time
+  augmentation (TTA).
 - ``interpolate_recursive`` / ``interpolate_ratio``: midpoint bisection.
 - ``interpolate_series``: decimate a series by ``factor`` and reconstruct the
   missing frames; power-of-two factors without SSIM gates take the
@@ -25,7 +26,10 @@ from opticalflowscivis_tpu_torch.device import resolve_device
 from opticalflowscivis_tpu_torch.models.ifnet import IFNet
 from opticalflowscivis_tpu_torch.ops.ssim import ssim
 
-_SPATIAL = (2, 3)  # NCHW spatial dims
+
+def _spatial_dims(x: torch.Tensor) -> tuple[int, ...]:
+    """The spatial dims of a channels-first tensor ``[B, C, *S]``."""
+    return tuple(range(2, x.dim()))
 
 
 class Interpolator:
@@ -47,19 +51,18 @@ class Interpolator:
         return out["merged"][-1], out["flow_list"][-1], out["mask_list"][-1]
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor, timestep=0.5):
-        """NCHW device tensors → (merged, flow, mask) NCHW device tensors.
+        """Channels-first device tensors → (merged, flow, mask), channels-first.
 
-        With TTA a second pass runs on inputs mirrored along both spatial axes
+        With TTA a second pass runs on inputs mirrored along every spatial axis
         at the same timestep, and the un-mirrored merged frames are averaged;
         flow and mask stay from the primary pass.
         """
         with torch.inference_mode():
             merged, flow, mask = self._forward_plain(img0, img1, timestep)
             if self.tta:
-                m2, _, _ = self._forward_plain(
-                    img0.flip(_SPATIAL), img1.flip(_SPATIAL), timestep
-                )
-                merged = (merged + m2.flip(_SPATIAL)) / 2
+                spatial = _spatial_dims(img0)
+                m2, _, _ = self._forward_plain(img0.flip(spatial), img1.flip(spatial), timestep)
+                merged = (merged + m2.flip(spatial)) / 2
         return merged, flow, mask
 
     def _pad(self, x: np.ndarray):
@@ -68,24 +71,30 @@ class Interpolator:
         return np.pad(x, pads, mode="edge"), x.shape
 
     def _to_tensor(self, x: np.ndarray) -> torch.Tensor:
-        """``[N, H, W, C]`` numpy → contiguous NCHW float32 on the device."""
+        """``[N, *S, C]`` numpy → contiguous channels-first float32 on the device."""
         t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
-        return t.permute(0, 3, 1, 2).contiguous()
+        return t.movedim(-1, 1).contiguous()
 
     @staticmethod
     def _to_numpy(t: torch.Tensor) -> np.ndarray:
-        return t.float().permute(0, 2, 3, 1).cpu().numpy()
+        return t.float().movedim(1, -1).cpu().numpy()
+
+    @staticmethod
+    def _crop(orig_shape) -> tuple[slice, ...]:
+        """Index that cuts a padded ``[N, *S, C]`` array back to ``orig_shape``'s
+        spatial size."""
+        return (slice(None),) + tuple(slice(0, s) for s in orig_shape[1:-1])
 
     def pair(self, img0: np.ndarray, img1: np.ndarray, timestep: float = 0.5):
-        """Predict the frame at ``timestep`` between two ``[B, H, W, C]`` frames.
+        """Predict the frame at ``timestep`` between two ``[B, *S, C]`` frames.
 
-        Returns numpy (merged ``[B, H, W, C]``, flow ``[B, H, W, 4]``, mask
-        ``[B, H, W, 1]``).
+        Returns numpy (merged ``[B, *S, C]``, flow ``[B, *S, 2 * ndim]``, mask
+        ``[B, *S, 1]``).
         """
         p0, orig_shape = self._pad(np.asarray(img0, np.float32))
         p1, _ = self._pad(np.asarray(img1, np.float32))
         merged, flow, mask = self.forward(self._to_tensor(p0), self._to_tensor(p1), timestep)
-        crop = (slice(None), slice(0, orig_shape[1]), slice(0, orig_shape[2]))
+        crop = self._crop(orig_shape)
         return self._to_numpy(merged)[crop], self._to_numpy(flow)[crop], self._to_numpy(mask)[crop]
 
 
@@ -144,7 +153,7 @@ def interpolate_series(
     cut_ssim_gate: float | None = None,
     collect_flow: bool = False,
 ):
-    """Decimate ``[T, H, W, C]`` by ``factor`` and reconstruct by interpolation.
+    """Decimate ``[T, *S, C]`` by ``factor`` and reconstruct by interpolation.
 
     Returns (reconstruction of length ``(T//factor-1)*factor + 1``, flows or
     None).  ``dup_ssim_gate`` copies img0 when a pair is near-identical
@@ -217,7 +226,7 @@ def interpolate_series_device(
             recon[starts + gap // 2] = merged.float()
             gap //= 2
 
-        crop = (slice(None), slice(0, orig_shape[1]), slice(0, orig_shape[2]))
+        crop = interp._crop(orig_shape)
         flows = None
         if collect_flow:
             _, flow, _ = interp.forward(src[:-1], src[1:], 0.5)
@@ -228,7 +237,7 @@ def interpolate_series_device(
 def batched_pair_inference(
     interp: Interpolator, tuples: np.ndarray, batch_size: int = 16
 ):
-    """Run ``pair`` over grouped test tuples ``[N, slots, H, W, C]`` (density ch).
+    """Run ``pair`` over grouped test tuples ``[N, slots, *S, C]`` (density ch).
 
     Returns a dict of stacked (pred, flow, mask, gt).
     """

@@ -1,8 +1,9 @@
 """Elementary loss functions on channels-last tensors, float32 accumulation.
 
-Counterpart of ``opticalflowscivis_tpu/losses/basic.py`` for 2-D fields:
-images ``[B, H, W, C]``, flows ``[B, H, W, 2]`` or, from the model,
-``[B, H, W, 4]`` as (dy0, dx0, dy1, dx1).
+Counterpart of ``opticalflowscivis_tpu/losses/basic.py``: images
+``[B, *S, C]``, flows ``[B, *S, ndim]`` or, from the model,
+``[B, *S, 2 * ndim]`` as (F_t→0, F_t→1), each (dy, dx) or (dz, dy, dx).
+``sobel_loss`` is 2-D only, as in the reference.
 """
 
 from __future__ import annotations
@@ -10,19 +11,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
+from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp3d
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.float()
-
-
-def _check_2d(ndim: int) -> None:
-    if ndim != 2:
-        raise NotImplementedError(
-            "only the 2-D losses are ported; the 3-D ones come with the "
-            "RIFE-3D slice (ROADMAP A.8)"
-        )
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -69,18 +62,23 @@ def photometric_loss(
     is divided by 3 and the batch sum by B whatever the channel count, which
     keeps the reference's loss scale.
 
-    The two full-resolution warps go through ``warp2d``: the Hopper kernel on
-    CUDA tensors, the plain version on the CPU, both with the flow clipped to
-    ``±fast_warp_r`` (0 = unbounded), the bound the model's own warps have.
+    The two full-resolution warps go through ``warp2d`` / ``warp3d``: the
+    Hopper kernels on CUDA tensors, the plain versions on the CPU.  In 2-D the
+    flow is clipped to ``±fast_warp_r`` (0 = unbounded), the bound the model's
+    own warps have; in 3-D the warp is unbounded, as the reference's is.
     """
-    _check_2d(ndim)
+    if ndim not in (2, 3) or merged.dim() != ndim + 2:
+        raise ValueError(f"ndim {ndim} does not fit a prediction of {tuple(merged.shape)}")
     per_image_denom = merged.shape[0] * 3
-    pred = merged.permute(0, 3, 1, 2).contiguous()
-    flow_nchw = flow.permute(0, 3, 1, 2).to(pred.dtype)
+    pred = merged.movedim(-1, 1).contiguous()
+    flow_nchw = flow.movedim(-1, 1).to(pred.dtype)
 
     def one_side(f: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        warped = warp2d(pred, f, fast_warp_r, "zeros").permute(0, 2, 3, 1)
-        return charbonnier(_f32(warped) - _f32(target)).sum() / per_image_denom
+        if ndim == 2:
+            warped = warp2d(pred, f, fast_warp_r, "zeros")
+        else:
+            warped = warp3d(pred, f, 0, 0, "zeros")
+        return charbonnier(_f32(warped.movedim(1, -1)) - _f32(target)).sum() / per_image_denom
 
     loss = one_side(flow_nchw[:, ndim:], img0) + one_side(flow_nchw[:, :ndim], img1)
     return loss / 2.0

@@ -79,13 +79,13 @@ def rife_losses(
     Args:
       outputs: IFNet forward dict (flow_list / mask_list / merged / teacher /
         distill) with channels-last tensors.
-      img0, img1: input frames ``[B, H, W, C]``.
+      img0, img1: input frames ``[B, *S, C]``.
       gt: ground-truth middle frame.
       params: ``dict(model.named_parameters())``, for the block2 / teacher L1
         regularizer.
       weights: lambda configuration.
-      ndim: spatial rank (2).
-      gt_flow: optional ground-truth flow ``[B, H, W, ndim]`` (per-step
+      ndim: spatial rank (2 or 3).
+      gt_flow: optional ground-truth flow ``[B, *S, ndim]`` (per-step
         velocity, row-major axes) enabling the supervised term.
 
     Returns:

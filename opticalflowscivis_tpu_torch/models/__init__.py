@@ -1,6 +1,6 @@
-"""Models: the RIFE-style IFNet in 2-D (the 3-D variant, UPFlow and the zoo
-models are ported in later slices, see ROADMAP)."""
+"""Models: the RIFE-style IFNet in 2-D and 3-D (UPFlow and the zoo models are
+ported in later slices, see ROADMAP)."""
 
-from opticalflowscivis_tpu_torch.models.ifnet import IFBlock, IFNet, ifnet_2d
+from opticalflowscivis_tpu_torch.models.ifnet import IFBlock, IFNet, ifnet_2d, ifnet_3d
 
-__all__ = ["IFBlock", "IFNet", "ifnet_2d"]
+__all__ = ["IFBlock", "IFNet", "ifnet_2d", "ifnet_3d"]

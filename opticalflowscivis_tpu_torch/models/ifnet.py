@@ -1,26 +1,44 @@
 """IFNet — RIFE-style student/teacher coarse-to-fine intermediate-flow network.
 
-Counterpart of ``opticalflowscivis_tpu/models/ifnet.py`` for ``ndim=2``:
+Counterpart of ``opticalflowscivis_tpu/models/ifnet.py``, one implementation
+for ``ndim`` 2 and 3:
 
-- ``IFBlock``: two stride-2 convs, four residual double convs, and two
-  transposed-conv heads emitting 4 flow channels (F_t→0 and F_t→1, each
-  (dy, dx)) and 1 mask channel; inputs and flow are bilinearly downscaled by
-  ``scale`` before and the outputs upscaled (flow values rescaled) after.
+- ``IFBlock``: two stride-2 convs (kernel ``conv0_kernel``: 3 in 2-D, 4 in
+  3-D), four residual double convs, and two transposed-conv heads emitting
+  ``2 * ndim`` flow channels (F_t→0 and F_t→1) and 1 mask channel; inputs and
+  flow are linearly downscaled by ``scale`` before and the outputs upscaled
+  (flow values rescaled) after.
 - ``IFNet``: the student blocks at scales (4, 2, 1), iterative residual flow
   refinement with a backward warp of both inputs after each block,
   mask-blended merging, the teacher block that also sees the ground-truth
-  middle frame, and the masked-RMSE distillation loss.
+  middle frame (at ``teacher_scale``; > 1 keeps every conv off full-resolution
+  inputs, the single-device 256³ mode), and the masked-RMSE distillation loss.
 
-Tensors inside are NCHW: images ``[B, C, H, W]``, flow ``[B, 4, H, W]`` with
-channels (dy0, dx0, dy1, dx1).  Parameters are float32; ``dtype`` selects the
-compute dtype (``torch.bfloat16`` or float32).
+Tensors inside are channels-first: images ``[B, C, H, W]`` or
+``[B, C, Z, Y, X]``, flow ``[B, 2 * ndim, ...]`` with channels
+(dy0, dx0, dy1, dx1) or (dz0, dy0, dx0, dz1, dy1, dx1).  Parameters are
+float32; ``dtype`` selects the compute dtype (``torch.bfloat16`` or float32).
 
-Every warp goes through ``ops.kernels.warp.warp2d``: on a CUDA tensor it
-launches the Hopper kernel (and its backward kernel under autograd), on a CPU
-tensor it runs the plain version.  Both clip the flow to ``±fast_warp_r``
-(0 = unbounded), which is the TPU kernel's semantics; the reference's CPU
-path warps unbounded.  A flow component with ``|flow| >= fast_warp_r``
-carries no gradient through the warp.
+Every warp goes through ``ops.kernels.warp``: ``warp2d`` in 2-D, ``warp3d`` in
+3-D.  On a CUDA tensor they launch the Hopper kernels (and their backward
+kernels under autograd), on a CPU tensor the plain versions.
+
+- 2-D: the flow is clipped to ``±fast_warp_r`` (0 = unbounded), which is the
+  TPU kernel's semantics; the reference's CPU path warps unbounded.
+- 3-D with ``bounded_warp_rz > 0``: ``flow_z`` is clipped to
+  ``±bounded_warp_rz`` and the in-plane components to
+  ``±(fast_warp_r or bounded_warp_rz)``, the semantics of the reference's slab
+  warp on the TPU (each z-tap runs the bounded 2-D kernel there); the
+  reference's CPU path clips ``flow_z`` only.  With ``bounded_warp_rz == 0``
+  the reference warps unbounded whatever ``fast_warp_r`` says, and so does
+  this model.
+
+A flow component at or beyond its radius carries no gradient through the warp.
+
+``remat=True`` recomputes each IFBlock in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations: the memory mode of 256³ training.  The warps lie outside the
+blocks and are not rerun, so the launch counts do not change.
 """
 
 from __future__ import annotations
@@ -29,6 +47,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from opticalflowscivis_tpu_torch.device import resolve_device
 from opticalflowscivis_tpu_torch.models.layers import (
@@ -38,17 +57,17 @@ from opticalflowscivis_tpu_torch.models.layers import (
     deconv,
     deconv_forward,
 )
-from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
+from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp3d
 from opticalflowscivis_tpu_torch.ops.resize import resize_flow_nchw, resize_nchw
 
 
 class _Head(nn.Module):
     """Deconv(c → c/2) + PReLU, then deconv(c/2 → out)."""
 
-    def __init__(self, c: int, out_ch: int, generator: torch.Generator):
+    def __init__(self, c: int, out_ch: int, generator: torch.Generator, ndim: int):
         super().__init__()
-        self.up = DeconvPReLU(c, c // 2, generator)
-        self.out = deconv(c // 2, out_ch, generator)
+        self.up = DeconvPReLU(c, c // 2, generator, ndim)
+        self.out = deconv(c // 2, out_ch, generator, ndim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return deconv_forward(self.out, self.up(x))
@@ -58,20 +77,21 @@ class IFBlock(nn.Module):
     """One coarse-to-fine refinement block (reference IFNet.py:34-122, v2).
 
     ``in_ch`` counts the image-side input channels; a block that receives a
-    flow gets 4 more.
+    flow gets ``2 * ndim`` more.  ``conv0_kernel`` is the kernel of the two
+    stride-2 convs only.
     """
 
     def __init__(self, in_ch: int, c: int, generator: torch.Generator,
-                 with_flow: bool = True):
+                 with_flow: bool = True, ndim: int = 2, conv0_kernel: int = 3):
         super().__init__()
-        first = in_ch + (4 if with_flow else 0)
+        first = in_ch + (2 * ndim if with_flow else 0)
         self.conv0 = nn.Sequential(
-            ConvPReLU(first, c // 2, generator, stride=2),
-            ConvPReLU(c // 2, c, generator, stride=2),
+            ConvPReLU(first, c // 2, generator, stride=2, ndim=ndim, kernel_size=conv0_kernel),
+            ConvPReLU(c // 2, c, generator, stride=2, ndim=ndim, kernel_size=conv0_kernel),
         )
-        self.convblock = nn.Sequential(*[ResConvBlock(c, generator) for _ in range(4)])
-        self.flow_head = _Head(c, 4, generator)
-        self.mask_head = _Head(c, 1, generator)
+        self.convblock = nn.Sequential(*[ResConvBlock(c, generator, ndim) for _ in range(4)])
+        self.flow_head = _Head(c, 2 * ndim, generator, ndim)
+        self.mask_head = _Head(c, 1, generator, ndim)
 
     def forward(self, x: torch.Tensor, flow: torch.Tensor | None, scale: int):
         full = tuple(x.shape[2:])
@@ -92,10 +112,10 @@ class IFBlock(nn.Module):
 
 
 class IFNet(nn.Module):
-    """Student/teacher coarse-to-fine interpolation flow network (2-D).
+    """Student/teacher coarse-to-fine interpolation flow network (2-D or 3-D).
 
-    Call with NCHW ``img0, img1`` (C = ``in_channels``); ``gt`` (the real
-    middle frame) enables the teacher branch and the distillation loss.
+    Call with channels-first ``img0, img1`` (C = ``in_channels``); ``gt`` (the
+    real middle frame) enables the teacher branch and the distillation loss.
     """
 
     def __init__(
@@ -105,18 +125,20 @@ class IFNet(nn.Module):
         block_channels: Sequence[int] = (128, 96, 64),
         scales: Sequence[int] = (4, 2, 1),
         teacher_channels: int = 64,
+        teacher_scale: int = 1,
         arbitrary_timestep: bool = False,
+        conv0_kernel: int = 3,
         refine: bool = False,
         fast_warp_r: int = 0,
+        bounded_warp_rz: int = 0,
+        remat: bool = False,
         dtype: torch.dtype | None = None,
         device: str | torch.device | None = None,
         seed: int = 0,
     ):
         super().__init__()
-        if ndim != 2:
-            raise NotImplementedError(
-                "IFNet-3D is ported with the RIFE-3D slice (ROADMAP A.8)"
-            )
+        if ndim not in (2, 3):
+            raise ValueError(f"ndim must be 2 or 3, got {ndim}")
         if refine:
             raise NotImplementedError(
                 "Contextnet/Unet refinement (models/refine.py) is ported with "
@@ -125,26 +147,40 @@ class IFNet(nn.Module):
         if len(scales) != len(block_channels):
             raise ValueError("one scale per student block")
         device = resolve_device(device)
+        self.ndim = ndim
         self.in_channels = in_channels
         self.scales = tuple(scales)
+        self.teacher_scale = teacher_scale
         self.arbitrary_timestep = arbitrary_timestep
         self.fast_warp_r = fast_warp_r
+        self.bounded_warp_rz = bounded_warp_rz
+        self.remat = remat
         self.dtype = dtype
         gen = torch.Generator().manual_seed(seed)
         c, ts = in_channels, int(arbitrary_timestep)
+        kw = {"ndim": ndim, "conv0_kernel": conv0_kernel}
         for i, width in enumerate(block_channels):
             # block 0 sees (img0, img1); later blocks also (warped0, warped1, mask)
             in_ch = (2 * c if i == 0 else 4 * c + 1) + ts
             self.add_module(
                 f"block{i}",
-                IFBlock(in_ch, width, gen, with_flow=i > 0),
+                IFBlock(in_ch, width, gen, with_flow=i > 0, **kw),
             )
-        self.block_tea = IFBlock(5 * c + 1 + ts, teacher_channels, gen)
+        self.block_tea = IFBlock(5 * c + 1 + ts, teacher_channels, gen, **kw)
         self.n_blocks = len(block_channels)
         self.to(device)
 
     def _warp(self, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-        return warp2d(img, flow, self.fast_warp_r, "border")
+        if self.ndim == 2:
+            return warp2d(img, flow, self.fast_warp_r, "border")
+        r_z = self.bounded_warp_rz
+        r_yx = (self.fast_warp_r or r_z) if r_z > 0 else 0
+        return warp3d(img, flow, r_z, r_yx, "border")
+
+    def _block(self, block: IFBlock, x: torch.Tensor, flow: torch.Tensor | None, scale: int):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, flow, scale, use_reentrant=False)
+        return block(x, flow, scale)
 
     def forward(
         self,
@@ -154,16 +190,19 @@ class IFNet(nn.Module):
         timestep: float | torch.Tensor = 0.5,
     ) -> dict:
         compute = img0.dtype if self.dtype is None else self.dtype
-        # the warp kernel reads contiguous NCHW images
+        # the warp kernels read contiguous channels-first images
         img0 = img0.to(compute).contiguous()
         img1 = img1.to(compute).contiguous()
-        b, _, h, w = img0.shape
+        nd = self.ndim
+        if img0.dim() != nd + 2:
+            raise ValueError(f"a {nd}-D IFNet takes [B, C, *S] with {nd} spatial axes, "
+                             f"got {tuple(img0.shape)}")
 
         def ts_channel() -> torch.Tensor:
             t = torch.as_tensor(timestep, dtype=compute, device=img0.device)
             if t.dim() == 1:
-                t = t.view(-1, 1, 1, 1)
-            return t.expand(b, 1, h, w)
+                t = t.view((-1,) + (1,) * (nd + 1))
+            return t.expand((img0.shape[0], 1) + tuple(img0.shape[2:]))
 
         flow = mask = None
         warped0, warped1 = img0, img1
@@ -173,13 +212,13 @@ class IFNet(nn.Module):
             if self.arbitrary_timestep:
                 inp.append(ts_channel())
             block = getattr(self, f"block{i}")
-            flow_d, mask_d = block(torch.cat(inp, dim=1), flow, self.scales[i])
+            flow_d, mask_d = self._block(block, torch.cat(inp, dim=1), flow, self.scales[i])
             flow = flow_d if flow is None else flow + flow_d
             mask = mask_d if mask is None else mask + mask_d
             flow_list.append(flow)
             mask_list.append(torch.sigmoid(mask))
-            warped0 = self._warp(img0, flow[:, 0:2])  # F_t→0 samples img0
-            warped1 = self._warp(img1, flow[:, 2:4])  # F_t→1 samples img1
+            warped0 = self._warp(img0, flow[:, :nd])  # F_t→0 samples img0
+            warped1 = self._warp(img1, flow[:, nd:])  # F_t→1 samples img1
             merged.append((warped0, warped1))
 
         flow_teacher = merged_teacher = None
@@ -189,12 +228,11 @@ class IFNet(nn.Module):
             tea_inp = [img0, img1, warped0, warped1, mask, gt]
             if self.arbitrary_timestep:
                 tea_inp.append(ts_channel())
-            # the teacher runs at scale 1; the reference's teacher_scale > 1
-            # is a 3-D single-chip mode, ported with the RIFE-3D slice
-            flow_d, mask_d = self.block_tea(torch.cat(tea_inp, dim=1), flow, 1)
+            flow_d, mask_d = self._block(self.block_tea, torch.cat(tea_inp, dim=1), flow,
+                                         self.teacher_scale)
             flow_teacher = flow + flow_d
-            w0_tea = self._warp(img0, flow_teacher[:, 0:2])
-            w1_tea = self._warp(img1, flow_teacher[:, 2:4])
+            w0_tea = self._warp(img0, flow_teacher[:, :nd])
+            w1_tea = self._warp(img1, flow_teacher[:, nd:])
             mask_teacher = torch.sigmoid(mask + mask_d)
             merged_teacher = w0_tea * mask_teacher + w1_tea * (1 - mask_teacher)
 
@@ -243,4 +281,26 @@ def ifnet_2d(
     kw.setdefault("fast_warp_r", 16)
     return IFNet(ndim=2, in_channels=in_channels, block_channels=(128, 96, 64),
                  teacher_channels=64, dtype=dtype, device=device,
+                 seed=seed, **kw)
+
+
+def ifnet_3d(
+    in_channels: int = 1,
+    dtype: torch.dtype | None = None,
+    device: str | torch.device | None = None,
+    seed: int = 0,
+    **kw,
+) -> IFNet:
+    """Reference Flow-3D configuration: blocks (128, 64, 64), teacher 64,
+    4-wide stride-2 convs.
+
+    Warps clip ``flow_z`` to ±8 (``bounded_warp_rz``; the data's velocities
+    are <= 8 voxels per step) and the in-plane flow to ±8 (``fast_warp_r``);
+    pass ``bounded_warp_rz=0`` for unbounded warps.  Runs on ``cuda`` unless
+    ``device="cpu"``; weights are drawn from ``seed``.
+    """
+    kw.setdefault("bounded_warp_rz", 8)
+    kw.setdefault("fast_warp_r", 8)
+    return IFNet(ndim=3, in_channels=in_channels, block_channels=(128, 64, 64),
+                 teacher_channels=64, conv0_kernel=4, dtype=dtype, device=device,
                  seed=seed, **kw)

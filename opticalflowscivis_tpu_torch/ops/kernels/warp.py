@@ -1,25 +1,32 @@
-"""Bilinear backward warp: wrapper of the Hopper kernels in ``csrc/warp2d.cu``.
+"""Bilinear and trilinear backward warps: wrappers of the Hopper kernels in
+``csrc/warp2d.cu`` and ``csrc/warp3d.cu``.
 
-Counterpart of ``opticalflowscivis_tpu/ops/pallas/warp.py::backward_warp_pallas``,
-forward and VJP.  ``warp2d`` dispatches by the tensors' device:
+``warp2d`` is the counterpart of
+``opticalflowscivis_tpu/ops/pallas/warp.py::backward_warp_pallas``, forward and
+VJP; ``warp3d`` of the slab warp built on it,
+``opticalflowscivis_tpu/ops/warp.py::backward_warp3d_slab`` (a scan of the 2-D
+kernel over z-taps on the TPU, one 8-corner gather here).  Both dispatch by
+the tensors' device:
 
 - CUDA tensors launch the forward kernel (image and flow both f32 or both
   bf16), or raise on anything the kernel does not take; a gradient through it
   launches the backward kernel.  There is no fallback to the plain version;
-- CPU tensors go to the plain version, ``ops.warp.warp2d_plain``, whose
-  backward is PyTorch's autograd.
+- CPU tensors go to the plain version, ``ops.warp.warp2d_plain`` /
+  ``warp3d_plain``, whose backward is PyTorch's autograd.
 
-The flow is clipped to ``±r`` (``r = 0``: unbounded), and a flow component
-with ``|flow| >= r`` carries no gradient: the clip's adjoint is zero at the
+The flow is clipped to ``±r`` (``r = 0``: unbounded; in 3-D ``r_z`` for the z
+component and ``r_yx`` for the in-plane ones), and a flow component with
+``|flow| >= r`` carries no gradient: the clip's adjoint is zero at the
 boundary too, as in the TPU kernel (``ops/pallas/warp.py:323``).
 
-The backward kernel writes ``dflow`` once per pixel and accumulates ``dimg``
+The backward kernels write ``dflow`` once per pixel and accumulate ``dimg``
 with float32 atomics into a float32 buffer that is zero-filled here and cast
 to the image's dtype afterwards; atomics sum in an order that changes from run
 to run, so ``dimg`` is reproducible only to float32 rounding.  When the image
 needs no gradient (the model's warps sample the input frames) the buffer and
-the atomics are skipped.  The incoming gradient is read through its strides,
-in whatever layout autograd hands it over, without a copy.
+the atomics are skipped.  The flow and the incoming gradient are read through
+their strides, in whatever layout the caller or autograd hands them over,
+without a copy.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from torch.autograd.function import once_differentiable
 
 from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
 from opticalflowscivis_tpu_torch.ops.kernels.build import load
-from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain, warp3d_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -67,21 +74,25 @@ def _launch(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str) -> torc
     return out
 
 
+def _check_grad(img: torch.Tensor, grad_out: torch.Tensor, name: str) -> None:
+    if grad_out.device != img.device or grad_out.dtype != img.dtype:
+        raise TypeError(
+            f"{name} backward got a gradient of {grad_out.dtype} on "
+            f"{grad_out.device} for an image of {img.dtype} on {img.device}"
+        )
+    if grad_out.shape != img.shape:
+        raise ValueError(
+            f"{name} backward got a gradient {tuple(grad_out.shape)} for an "
+            f"image {tuple(img.shape)}"
+        )
+
+
 def _launch_backward(
     img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, r: int,
     padding: str, need_dimg: bool,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """One launch of the backward kernel: ``(dimg or None, dflow)``."""
-    if grad_out.device != img.device or grad_out.dtype != img.dtype:
-        raise TypeError(
-            f"warp2d backward got a gradient of {grad_out.dtype} on "
-            f"{grad_out.device} for an image of {img.dtype} on {img.device}"
-        )
-    if grad_out.shape != img.shape:
-        raise ValueError(
-            f"warp2d backward got a gradient {tuple(grad_out.shape)} for an "
-            f"image {tuple(img.shape)}"
-        )
+    _check_grad(img, grad_out, "warp2d")
     b, c, h, w = img.shape
     dflow = torch.empty((b, 2, h, w), dtype=flow.dtype, device=flow.device)
     acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_dimg else None
@@ -116,18 +127,18 @@ class _Warp2dKernel(torch.autograd.Function):
         return dimg, (dflow if need_dflow else None), None, None
 
 
-def _check_cuda_args(img: torch.Tensor, flow: torch.Tensor) -> None:
+def _check_cuda_args(img: torch.Tensor, flow: torch.Tensor, name: str = "warp2d") -> None:
     if flow.device != img.device:
         raise ValueError(f"img on {img.device} but flow on {flow.device}")
     if img.dtype not in _DTYPES or flow.dtype != img.dtype:
         raise TypeError(
-            f"warp2d kernel takes img and flow both float32 or both bfloat16, "
+            f"{name} kernel takes img and flow both float32 or both bfloat16, "
             f"got {img.dtype} and {flow.dtype}"
         )
     if not img.is_contiguous():
-        raise ValueError("warp2d kernel needs a contiguous NCHW image")
+        raise ValueError(f"{name} kernel needs a contiguous channels-first image")
     if img.numel() == 0:
-        raise ValueError(f"warp2d kernel got an empty image {tuple(img.shape)}")
+        raise ValueError(f"{name} kernel got an empty image {tuple(img.shape)}")
 
 
 def warp2d(
@@ -158,3 +169,114 @@ def warp2d(
         raise ValueError(f"warp2d runs on cuda or cpu tensors, got {img.device}")
     _check_cuda_args(img, flow)
     return _Warp2dKernel.apply(img, flow, r, padding)
+
+
+# -- 3-D ------------------------------------------------------------------------
+
+_I64x5 = ctypes.c_int64 * 5
+
+
+def _library3d() -> ctypes.CDLL:
+    lib = load("warp3d")
+    if lib.warp3d_forward.argtypes is None:
+        ints = ctypes.POINTER(ctypes.c_int64)
+        lib.warp3d_forward.argtypes = (
+            [ctypes.c_void_p] * 3 + [ints] * 2 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+        )
+        lib.warp3d_forward.restype = ctypes.c_int
+        lib.warp3d_backward.argtypes = (
+            [ctypes.c_void_p] * 5 + [ints] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+        )
+        lib.warp3d_backward.restype = ctypes.c_int
+    return lib
+
+
+def _launch3d(img: torch.Tensor, flow: torch.Tensor, r_z: int, r_yx: int,
+              padding: str) -> torch.Tensor:
+    out = torch.empty_like(img, memory_format=torch.contiguous_format)
+    fn = _library3d().warp3d_forward
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = fn(
+            img.data_ptr(), flow.data_ptr(), out.data_ptr(),
+            _I64x5(*img.shape), _I64x5(*flow.stride()),
+            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16), stream,
+        )
+    if err:
+        raise RuntimeError(f"warp3d kernel launch failed with CUDA error {err}")
+    LAUNCHES["warp3d"] += 1
+    return out
+
+
+def _launch3d_backward(
+    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, r_z: int, r_yx: int,
+    padding: str, need_dimg: bool,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """One launch of the 3-D backward kernel: ``(dimg or None, dflow)``."""
+    _check_grad(img, grad_out, "warp3d")
+    dflow = torch.empty((img.shape[0], 3) + tuple(img.shape[2:]), dtype=flow.dtype,
+                        device=flow.device)
+    acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_dimg else None
+    fn = _library3d().warp3d_backward
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = fn(
+            img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), dflow.data_ptr(),
+            acc.data_ptr() if need_dimg else None,
+            _I64x5(*img.shape), _I64x5(*flow.stride()), _I64x5(*grad_out.stride()),
+            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16), stream,
+        )
+    if err:
+        raise RuntimeError(f"warp3d backward kernel launch failed with CUDA error {err}")
+    LAUNCHES["warp3d_bwd"] += 1
+    return (acc.to(img.dtype) if need_dimg else None), dflow
+
+
+class _Warp3dKernel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, flow, r_z, r_yx, padding):
+        ctx.save_for_backward(img, flow)
+        ctx.radii, ctx.padding = (r_z, r_yx), padding
+        return _launch3d(img, flow, r_z, r_yx, padding)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        img, flow = ctx.saved_tensors
+        need_dimg, need_dflow = ctx.needs_input_grad[:2]
+        dimg, dflow = _launch3d_backward(img, flow, grad_out, *ctx.radii, ctx.padding,
+                                         need_dimg)
+        return dimg, (dflow if need_dflow else None), None, None, None
+
+
+def warp3d(
+    img: torch.Tensor, flow: torch.Tensor, r_z: int = 8, r_yx: int = 8,
+    padding: str = "border",
+) -> torch.Tensor:
+    """Warp ``img [B, C, Z, Y, X]`` by ``flow [B, 3, Z, Y, X]`` (dz, dy, dx).
+
+    ``flow_z`` is clipped to ``±r_z`` and ``flow_y``, ``flow_x`` to ``±r_yx``;
+    a radius of 0 leaves its components unbounded.  Returns ``[B, C, Z, Y, X]``
+    in ``img``'s dtype; on CUDA, image and flow share one dtype, float32 or
+    bfloat16, and the image is contiguous while the flow may be any strided
+    view.  Differentiable in ``img`` and ``flow``; a flow component at or
+    beyond its radius gets no gradient.
+    """
+    if padding not in ("border", "zeros"):
+        raise ValueError(f"padding must be 'border' or 'zeros', got {padding!r}")
+    for name, r in (("r_z", r_z), ("r_yx", r_yx)):
+        if not isinstance(r, int) or r < 0:
+            raise ValueError(f"{name} must be an int >= 0 (0 = unbounded), got {r!r}")
+    if img.dim() != 5 or flow.dim() != 5 or flow.shape[1] != 3:
+        raise ValueError(
+            f"expected img [B,C,Z,Y,X] and flow [B,3,Z,Y,X], got {tuple(img.shape)} "
+            f"and {tuple(flow.shape)}"
+        )
+    if (flow.shape[0],) + tuple(flow.shape[2:]) != (img.shape[0],) + tuple(img.shape[2:]):
+        raise ValueError(f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}")
+    if img.device.type == "cpu" and flow.device.type == "cpu":
+        return warp3d_plain(img, flow, r_z, r_yx, padding)
+    if img.device.type != "cuda":
+        raise ValueError(f"warp3d runs on cuda or cpu tensors, got {img.device}")
+    _check_cuda_args(img, flow, "warp3d")
+    return _Warp3dKernel.apply(img, flow, r_z, r_yx, padding)

@@ -1,24 +1,35 @@
-"""Backward warping (grid-sample) — plain PyTorch 2-D bilinear gather.
+"""Backward warping (grid-sample) — plain PyTorch bilinear / trilinear gather.
 
-Counterpart of ``opticalflowscivis_tpu/ops/warp.py`` (2-D part) and, through
-``warp2d_plain``, the plain version of the Hopper warp kernel
-(``ops/kernels/warp.py``).  These functions are the CPU path and the oracle
-the kernel is held against on the card.
+Counterpart of ``opticalflowscivis_tpu/ops/warp.py`` and, through
+``warp2d_plain`` and ``warp3d_plain``, the plain versions of the Hopper warp
+kernels (``ops/kernels/warp.py``).  These functions are the CPU path and the
+oracle the kernels are held against on the card.
 
-Semantics are the reference's: bilinear sampling at (identity + flow) in pixel
-space, the same as ``grid_sample(align_corners=True)``.  ``'border'`` clamps
-each corner index to the image, ``'zeros'`` drops out-of-range corners.  The
-bounded variants first clip the flow to ``±r`` (``r = 0``: no bound), which
-is what the TPU kernel computes (``ops/pallas/warp.py:184`` clips, and its
-edge-padded window equals the per-corner clamp).  Under autograd they are
-the plain backward of the kernel: ``|flow| >= r`` carries no flow gradient.
+Semantics are the reference's: multilinear sampling at (identity + flow) in
+pixel space, the same as ``grid_sample(align_corners=True)``.  ``'border'``
+clamps each corner index to the image, ``'zeros'`` drops out-of-range corners.
+The bounded variants first clip the flow to ``±r`` (``r = 0``: no bound),
+which is what the TPU kernel computes (``ops/pallas/warp.py:184`` clips, and
+its edge-padded window equals the per-corner clamp).  Under autograd they are
+the plain backward of the kernels: ``|flow| >= r`` carries no flow gradient.
 
-Flow convention: ``flow[..., 0] = dy``, ``flow[..., 1] = dx`` (row-major).
-The public functions take channels-last ``[B, H, W, C]`` images; the
-``*_nchw`` / ``warp2d_plain`` forms take the NCHW tensors the model carries.
+``warp3d_plain`` is the *function* of the reference's slab decomposition
+(``ops/warp.py::backward_warp3d_slab``): ``flow_z`` clipped to ``±r_z``, the
+in-plane components to ``±r_yx`` (what the TPU path computes, where each
+z-tap runs the bounded 2-D kernel; the reference's CPU path leaves the
+in-plane flow unbounded), then one 8-corner gather.  In ``'zeros'`` mode
+dropping out-of-range corners on all three axes equals the slab's
+``in-plane zeros x clip(sum of in-range z weights)``.
+
+Flow convention: ``flow[..., i]`` displaces along spatial axis ``i``
+(row-major): (dy, dx) in 2-D, (dz, dy, dx) in 3-D.  The public functions take
+channels-last ``[B, *S, C]`` images; ``sample_channels_first`` /
+``warp2d_plain`` / ``warp3d_plain`` take the channels-first tensors the model carries.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -30,55 +41,61 @@ def _check_padding(padding: str) -> None:
         raise ValueError(f"padding must be 'border' or 'zeros', got {padding!r}")
 
 
-def sample_nchw(
+def sample_channels_first(
     img: torch.Tensor,
-    sy: torch.Tensor,
-    sx: torch.Tensor,
+    coords: tuple[torch.Tensor, ...],
     padding: str = "border",
     return_mask: bool = False,
 ):
-    """Sample ``img [B, C, H, W]`` at absolute coords ``sy, sx [B, Ho, Wo]``.
+    """Sample ``img [B, C, *S]`` at absolute coords, one ``[B, *So]`` per axis.
 
-    Four corner gathers with bilinear weights, accumulated in float32 (or the
-    image's wider type) and returned in the image's dtype.  The optional mask
-    ``[B, 1, Ho, Wo]`` is the fraction of interpolation weight that fell
-    inside the image.
+    ``2^ndim`` corner gathers with multilinear weights, accumulated in float32
+    (or the image's wider type) and returned in the image's dtype.  The
+    optional mask ``[B, 1, *So]`` is the fraction of interpolation weight that
+    fell inside the image.
     """
     _check_padding(padding)
-    b, c, h, w = img.shape
+    b, c = img.shape[:2]
+    spatial = tuple(img.shape[2:])
+    if len(coords) != len(spatial):
+        raise ValueError(f"{len(coords)} coordinates for a {len(spatial)}-D image")
     compute = torch.promote_types(img.dtype, torch.float32)
-    sy = sy.to(compute)
-    sx = sx.to(compute)
-    y0f = torch.floor(sy)
-    x0f = torch.floor(sx)
-    ay = sy - y0f
-    ax = sx - x0f
-    y0 = y0f.long()
-    x0 = x0f.long()
-    out_spatial = sy.shape[1:]
-    flat = img.reshape(b, c, h * w).to(compute)
+    out_spatial = tuple(coords[0].shape[1:])
+    flat = img.reshape(b, c, -1).to(compute)
 
-    out = torch.zeros((b, c) + tuple(out_spatial), dtype=compute, device=img.device)
-    mask = torch.zeros((b,) + tuple(out_spatial), dtype=compute, device=img.device)
-    # corner order (0,0), (0,1), (1,0), (1,1) and weight = (1 * wy) * wx, as
+    # per axis and side (low, high): weight, validity, clamped index * stride
+    sides = []
+    stride = 1
+    for size, s in zip(reversed(spatial), reversed(coords)):
+        s = s.to(compute)
+        lo = torch.floor(s)
+        frac = s - lo
+        lo = lo.long()
+        axis_sides = []
+        for hi, w in ((0, 1.0 - frac), (1, frac)):
+            idx = lo + hi
+            valid = (idx >= 0) & (idx <= size - 1)
+            axis_sides.append((w, valid, idx.clamp(0, size - 1) * stride))
+        sides.append(axis_sides)
+        stride *= size
+    sides.reverse()
+
+    out = torch.zeros((b, c) + out_spatial, dtype=compute, device=img.device)
+    mask = torch.zeros((b,) + out_spatial, dtype=compute, device=img.device)
+    # corner order (0,..,0), (0,..,1), ... and weight = ((1 * w0) * w1) * ..., as
     # the reference's multilinear_sample accumulates
-    for hy in (0, 1):
-        iy = y0 + hy
-        wy = ay if hy else 1.0 - ay
-        vy = (iy >= 0) & (iy <= h - 1)
-        iy = iy.clamp(0, h - 1)
-        for hx in (0, 1):
-            ix = x0 + hx
-            wx = ax if hx else 1.0 - ax
-            valid = vy & (ix >= 0) & (ix <= w - 1)
-            ix = ix.clamp(0, w - 1)
-            weight = wy * wx
-            if padding == "zeros":
-                weight = torch.where(valid, weight, torch.zeros_like(weight))
-            idx = (iy * w + ix).reshape(b, 1, -1).expand(b, c, -1)
-            gathered = torch.gather(flat, 2, idx).reshape(out.shape)
-            out = out + gathered * weight[:, None]
-            mask = mask + torch.where(valid, weight, torch.zeros_like(weight))
+    for corner in itertools.product((0, 1), repeat=len(spatial)):
+        weight, valid, idx = sides[0][corner[0]]
+        for axis_sides, hi in zip(sides[1:], corner[1:]):
+            w, v, i = axis_sides[hi]
+            weight, valid, idx = weight * w, valid & v, idx + i
+        inside = torch.where(valid, weight, torch.zeros_like(weight))
+        if padding == "zeros":
+            weight = inside
+        flat_idx = idx.reshape(b, 1, -1).expand(b, c, -1)
+        gathered = torch.gather(flat, 2, flat_idx).reshape(out.shape)
+        out = out + gathered * weight[:, None]
+        mask = mask + inside
 
     out = out.to(img.dtype)
     if return_mask:
@@ -86,10 +103,15 @@ def sample_nchw(
     return out
 
 
-def _base_grid(h: int, w: int, dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
-    ys = torch.arange(h, dtype=dtype, device=device).view(1, h, 1)
-    xs = torch.arange(w, dtype=dtype, device=device).view(1, 1, w)
-    return ys, xs
+def _base_grid(spatial, dtype: torch.dtype, device) -> list[torch.Tensor]:
+    """One broadcastable index tensor ``[1, .., S_i, .., 1]`` per spatial axis."""
+    nd = len(spatial)
+    grids = []
+    for i, size in enumerate(spatial):
+        shape = [1] * (nd + 1)
+        shape[i + 1] = size
+        grids.append(torch.arange(size, dtype=dtype, device=device).view(shape))
+    return grids
 
 
 def _clip(flow: torch.Tensor, r: int) -> torch.Tensor:
@@ -124,8 +146,47 @@ def warp2d_plain(
         raise ValueError(f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}")
     compute = torch.promote_types(img.dtype, torch.float32)
     fl = _clip(flow, r).to(compute)
-    ys, xs = _base_grid(h, w, compute, img.device)
-    return sample_nchw(img, ys + fl[:, 0], xs + fl[:, 1], padding)
+    ys, xs = _base_grid((h, w), compute, img.device)
+    return sample_channels_first(img, (ys + fl[:, 0], xs + fl[:, 1]), padding)
+
+
+def warp3d_plain(
+    img: torch.Tensor, flow: torch.Tensor, r_z: int = 0, r_yx: int = 0,
+    padding: str = "border",
+) -> torch.Tensor:
+    """Channels-first bounded trilinear warp: ``img [B, C, Z, Y, X]`` by
+    ``flow [B, 3, Z, Y, X]`` (dz, dy, dx).
+
+    The plain version of the Hopper kernel: ``flow_z`` is clipped to ``±r_z``
+    and ``flow_y``, ``flow_x`` to ``±r_yx`` first (each radius 0: no bound).
+    ``flow`` may be any strided view (the model passes channel slices of its
+    6-channel flow).
+    """
+    if img.dim() != 5 or flow.dim() != 5 or flow.shape[1] != 3:
+        raise ValueError(
+            f"expected img [B,C,Z,Y,X] and flow [B,3,Z,Y,X], got {tuple(img.shape)} "
+            f"and {tuple(flow.shape)}"
+        )
+    if (flow.shape[0],) + tuple(flow.shape[2:]) != (img.shape[0],) + tuple(img.shape[2:]):
+        raise ValueError(f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}")
+    compute = torch.promote_types(img.dtype, torch.float32)
+    fz = _clip(flow[:, 0], r_z).to(compute)
+    fyx = _clip(flow[:, 1:3], r_yx).to(compute)
+    zs, ys, xs = _base_grid(tuple(img.shape[2:]), compute, img.device)
+    return sample_channels_first(img, (zs + fz, ys + fyx[:, 0], xs + fyx[:, 1]), padding)
+
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(-1, 1)
+
+
+def _check_rank(img: torch.Tensor, field: torch.Tensor, what: str) -> int:
+    ndim = img.dim() - 2
+    if ndim not in (2, 3):
+        raise ValueError(f"expected a channels-last 2-D or 3-D image, got {tuple(img.shape)}")
+    if field.dim() != img.dim() or field.shape[-1] != ndim:
+        raise ValueError(f"{what} {tuple(field.shape)} does not fit a {ndim}-D image")
+    return ndim
 
 
 def multilinear_sample(
@@ -134,23 +195,19 @@ def multilinear_sample(
     padding: str = "border",
     return_mask: bool = False,
 ):
-    """Sample channels-last ``img [B, H, W, C]`` at ``coords [B, Ho, Wo, 2]``.
+    """Sample channels-last ``img [B, *S, C]`` at ``coords [B, *So, ndim]``.
 
-    ``coords[..., 0]`` is the absolute row, ``coords[..., 1]`` the column.
-    Returns ``[B, Ho, Wo, C]`` (and the ``[B, Ho, Wo, 1]`` mask).
+    ``coords[..., i]`` is the absolute position along spatial axis ``i``.
+    Returns ``[B, *So, C]`` (and the ``[B, *So, 1]`` mask).
     """
-    if img.dim() != 4 or coords.shape[-1] != 2:
-        raise NotImplementedError(
-            "only 2-D sampling is ported; the trilinear warp comes with the "
-            "RIFE-3D slice (ROADMAP A.8)"
-        )
-    res = sample_nchw(
-        img.permute(0, 3, 1, 2), coords[..., 0], coords[..., 1], padding, return_mask
+    ndim = _check_rank(img, coords, "coords")
+    res = sample_channels_first(
+        _channels_first(img), tuple(coords[..., i] for i in range(ndim)), padding, return_mask
     )
     if return_mask:
         out, mask = res
-        return out.permute(0, 2, 3, 1), mask.permute(0, 2, 3, 1)
-    return res.permute(0, 2, 3, 1)
+        return out.movedim(1, -1), mask.movedim(1, -1)
+    return res.movedim(1, -1)
 
 
 def backward_warp(
@@ -159,29 +216,27 @@ def backward_warp(
     padding: str = "border",
     return_mask: bool = False,
 ):
-    """Sample channels-last ``img [B, H, W, C]`` at (identity + ``flow``).
+    """Sample channels-last ``img [B, *S, C]`` at (identity + ``flow``).
 
-    ``flow [B, H, W, 2]`` holds pixel displacements (dy, dx).  Unbounded:
-    the counterpart of the reference's ``ops.warp.backward_warp``.
+    ``flow [B, *S, ndim]`` holds pixel displacements, (dy, dx) or
+    (dz, dy, dx).  Unbounded: the counterpart of the reference's
+    ``ops.warp.backward_warp``.
     """
-    if img.dim() != 4 or flow.shape[-1] != 2:
-        raise NotImplementedError(
-            "only 2-D warps are ported; the trilinear warp comes with the "
-            "RIFE-3D slice (ROADMAP A.8)"
-        )
+    _check_rank(img, flow, "flow")
     compute = torch.promote_types(img.dtype, torch.float32)
-    ys, xs = _base_grid(img.shape[1], img.shape[2], compute, img.device)
+    base = _base_grid(tuple(img.shape[1:-1]), compute, img.device)
     fl = flow.to(compute)
-    coords = torch.stack([ys + fl[..., 0], xs + fl[..., 1]], dim=-1)
+    coords = torch.stack([g + fl[..., i] for i, g in enumerate(base)], dim=-1)
     return multilinear_sample(img, coords, padding, return_mask)
 
 
 def backward_warp_bounded(
     img: torch.Tensor, flow: torch.Tensor, r: int = 16, padding: str = "border"
 ) -> torch.Tensor:
-    """Channels-last warp with the flow clipped to ``±r`` first (0 = unbounded).
+    """Channels-last warp with every flow component clipped to ``±r`` first
+    (0 = unbounded).
 
-    The plain counterpart of ``ops/pallas/warp.py::backward_warp_pallas``
+    In 2-D the plain counterpart of ``ops/pallas/warp.py::backward_warp_pallas``
     (forward): exact for ``|flow| <= r``, clamped beyond.
     """
     return backward_warp(img, _clip(flow, r), padding)

@@ -41,7 +41,8 @@ class ModelConfig:
     arbitrary_timestep: bool = False
     refine: bool = False
     bfloat16: bool = True  # compute dtype (parameters and optimizer state stay f32)
-    fast_warp_r: int = 16  # 2-D warp radius: flows are clipped to ±r (0 = unbounded)
+    fast_warp_r: int = 16  # warp radius: flows are clipped to ±r (0 = unbounded); in
+    #   3-D the in-plane radius, used only with bounded_warp_rz > 0
     bounded_warp_rz: int = 0  # 3-D warp z radius (0 = unbounded)
     remat: bool = False  # recompute the IFBlocks in the backward (3-D memory)
 

@@ -15,9 +15,9 @@ Counterpart of ``opticalflowscivis_tpu/training/trainer.py``:
   ``<results_dir>/<dataset>/<factor>x/<model_name>/loss.json``, a checkpoint
   that also holds the optimizer state, keep-best and early stopping.
 
-Batches are channels-last ``[B, slots, H, W, C]`` as the data pipeline makes
-them; the model runs NCHW and its outputs are handed to the losses as
-channels-last views.  Parameters and optimizer state are float32; with
+Batches are channels-last ``[B, slots, *S, C]`` (2-D frames or 3-D volumes)
+as the data pipeline makes them; the model runs channels-first and its
+outputs are handed to the losses as channels-last views.  Parameters and optimizer state are float32; with
 ``ModelConfig.bfloat16`` the model computes in bfloat16.
 
 One device only: ``n_data`` other than None / 1 raises (ROADMAP A.12), and
@@ -61,27 +61,19 @@ class TrainState:
 
 def build_model(cfg: TrainConfig, device: str | torch.device | None = None) -> IFNet:
     m = cfg.model
-    waits = {
-        "teacher_scale": m.teacher_scale != 1,
-        "conv0_kernel": m.conv0_kernel != 3,
-        "bounded_warp_rz": m.bounded_warp_rz != 0,
-        "remat": m.remat,
-    }
-    asked = [name for name, on in waits.items() if on]
-    if asked:
-        raise NotImplementedError(
-            f"ModelConfig.{', '.join(asked)}: options of IFNet-3D, ported with "
-            "the RIFE-3D slice (ROADMAP A.8)"
-        )
     return IFNet(
         ndim=m.ndim,
         in_channels=m.in_channels,
         block_channels=tuple(m.block_channels),
         scales=tuple(m.scales),
         teacher_channels=m.teacher_channels,
+        teacher_scale=m.teacher_scale,
         arbitrary_timestep=m.arbitrary_timestep,
+        conv0_kernel=m.conv0_kernel,
         refine=m.refine,
         fast_warp_r=m.fast_warp_r,
+        bounded_warp_rz=m.bounded_warp_rz,
+        remat=m.remat,
         dtype=torch.bfloat16 if m.bfloat16 else None,
         device=device,
         seed=cfg.seed,
@@ -102,7 +94,8 @@ def split_batch(batch: torch.Tensor, ndim: int, has_flow: bool):
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
+    """Channels-last ``[B, *S, C]`` → channels-first ``[B, C, *S]`` (a view)."""
+    return x.movedim(-1, 1)
 
 
 def _channels_last(x):
@@ -110,7 +103,7 @@ def _channels_last(x):
         return None
     if isinstance(x, list):
         return [_channels_last(t) for t in x]
-    return x.permute(0, 2, 3, 1)
+    return x.movedim(1, -1)
 
 
 def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
@@ -158,7 +151,7 @@ def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
 
 
 class Trainer:
-    """End-to-end RIFE trainer (2-D).  Runs on ``cuda`` unless ``device="cpu"``."""
+    """End-to-end RIFE trainer (2-D and 3-D by config).  Runs on ``cuda`` unless ``device="cpu"``."""
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
         cfg.validate()
@@ -210,7 +203,7 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
     def train_step(self, batch: torch.Tensor) -> dict[str, torch.Tensor]:
-        """One optimizer update on a device batch ``[B, slots, H, W, C]``;
+        """One optimizer update on a device batch ``[B, slots, *S, C]``;
         returns the loss parts as 0-d tensors on the device."""
         return self._train_step_fn(self.state, batch)
 
@@ -374,7 +367,7 @@ class Trainer:
         return {k: v / max(total_w, 1.0) for k, v in sums.items()}
 
     def predict(self, batch_np: np.ndarray):
-        """Eval forward on ``[B, slots, H, W, C]``: (loss parts, extras dict of
+        """Eval forward on ``[B, slots, *S, C]``: (loss parts, extras dict of
         channels-last tensors on the device)."""
         return self.eval_step(self.upload(batch_np))
 

@@ -1,4 +1,5 @@
-"""PyTorch port: the 2-D CLI verbs end to end on the CPU, in process.
+"""PyTorch port: the CLI verbs end to end on the CPU, in process, in 2-D
+(the 3-D twins are in ``test_torch_training3d.py``).
 
 ``generate → train → test → inference_video`` in a temporary directory, on a
 narrow model given through ``--config_json`` (the flags alone build the
@@ -103,9 +104,10 @@ def test_verbs_that_wait_exit_with_their_roadmap_item(verb):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["train", "--cpu", "--dataset", "rectangle3d"], r"ROADMAP A\.8"),
-    (["test", "--cpu", "--dataset", "droplet3d"], r"ROADMAP A\.8"),
     (["train", "--cpu", "--dataset", "vimeo2d"], r"ROADMAP A\.11"),
+    (["test", "--cpu", "--dataset", "vimeo2d"], r"ROADMAP A\.11"),
+    (["inference_img", "--cpu", "--zoo_dir", "somewhere", "--img0", "a", "--img1", "b"],
+     r"ROADMAP A\.10"),
     (["inference_video", "--cpu", "--zoo_dir", "somewhere"], r"ROADMAP A\.10"),
 ])
 def test_datasets_and_options_that_wait_exit_with_their_roadmap_item(argv, match):

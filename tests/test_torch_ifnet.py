@@ -136,7 +136,17 @@ def test_ifnet_bf16_compute_tracks_f32(pair_of_models):
     np.testing.assert_allclose(m16.float().numpy(), m32.numpy(), atol=5e-2)
 
 
-@pytest.mark.parametrize("kw", [{"ndim": 3}, {"refine": True}])
-def test_unported_variants_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw, error, match", [
+    ({"refine": True}, NotImplementedError, "ROADMAP"),
+    ({"ndim": 4}, ValueError, "ndim"),
+    ({"scales": (4, 2)}, ValueError, "scale"),
+])
+def test_unported_variants_raise(kw, error, match):
+    with pytest.raises(error, match=match):
         IFNet(device="cpu", **NARROW, **kw)
+
+
+def test_2d_model_refuses_volumes():
+    net = IFNet(device="cpu", **NARROW)
+    with pytest.raises(ValueError, match="2 spatial axes"):
+        net(torch.zeros(1, 1, 8, 8, 8), torch.zeros(1, 1, 8, 8, 8))

@@ -42,9 +42,9 @@ def test_importing_every_module_loads_no_jax():
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
     names = _module_names()
-    assert len(names) >= 27
+    assert len(names) >= 29
     for module in ("losses.rife", "training.trainer", "training.checkpoint", "cli.__main__",
-                   "ops.pyramid"):
+                   "ops.pyramid", "scripts.train256"):
         assert f"opticalflowscivis_tpu_torch.{module}" in names
 
 
@@ -69,14 +69,17 @@ def test_no_source_imports_jax(path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from opticalflowscivis_tpu_torch.inference import Interpolator
-    from opticalflowscivis_tpu_torch.models import IFNet, ifnet_2d
+    from opticalflowscivis_tpu_torch.models import IFNet, ifnet_2d, ifnet_3d
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ifnet_2d()
-    net = IFNet(block_channels=(8, 8, 8), teacher_channels=8, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        Interpolator(net)
+        ifnet_3d()
+    for ndim in (2, 3):
+        net = IFNet(ndim=ndim, block_channels=(8, 8, 8), teacher_channels=8, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Interpolator(net)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -99,6 +102,19 @@ def test_trainer_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     for verb in ("train", "test", "inference_video"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main([verb, "--config_json", str(tmp_path / "cfg.json")])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([verb, "--dataset", "rectangle3d", "--data_dir", str(tmp_path)])
+
+
+def test_train256_module_raises_without_cuda(monkeypatch, tmp_path):
+    """``train256`` runs on the GPU unless ``--cpu`` is given; it finds out
+    before it generates any data only with ``--eval_only``, so that is the
+    cheap way to ask."""
+    from opticalflowscivis_tpu_torch.scripts import train256
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train256.main(["--grid", "32", "--eval_only", "--out", str(tmp_path)])
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

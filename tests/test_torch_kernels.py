@@ -13,6 +13,7 @@ within 1e-4 of the largest gradient (``dimg`` sums up to a few dozen
 contributions per source pixel with atomics, in an order that changes from
 run to run; ``dflow`` sums C terms), bfloat16 within 2 % of the largest
 gradient (one rounding of the plain version's bf16 output path per term).
+The 3-D kernels (8 taps) are held to the same tolerances.
 """
 
 import numpy as np
@@ -21,7 +22,7 @@ import torch
 
 from opticalflowscivis_tpu_torch.ops import warp as tw
 from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
-from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
+from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp3d
 
 VAL_TOL = 1e-5
 
@@ -69,7 +70,7 @@ def test_warp2d_rejects_what_it_does_not_take(kwargs):
 
 def _cuda_or_skip():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the warp2d kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the warp kernels have no CPU mode")
 
 
 @pytest.mark.cuda
@@ -210,6 +211,205 @@ def test_train_step_on_card_goes_through_both_kernels():
             torch.cuda.synchronize()
             assert LAUNCHES["warp2d"] == before["warp2d"] + 10
             assert LAUNCHES["warp2d_bwd"] == before["warp2d_bwd"] + 10
+        else:
+            assert LAUNCHES == before
+    for key, ref in parts["cpu"].items():
+        assert float(parts["cuda"][key]) == pytest.approx(float(ref), abs=1e-4), key
+
+
+# -- warp3d -----------------------------------------------------------------------
+
+RADII = [(8, 8), (4, 0), (0, 0)]
+
+
+def _inputs3d(seed, shape, flow_scale, off_integer=False):
+    """Contiguous image ``[B, C, Z, Y, X]`` and a 6-channel flow whose last
+    three channels the warp takes, float32 on the CPU."""
+    rng = np.random.default_rng(seed)
+    b, c, z, y, x = shape
+    img = rng.uniform(0, 1, shape).astype(np.float32)
+    flow6 = rng.standard_normal((b, 6, z, y, x)) * flow_scale
+    if off_integer:
+        flow6 = np.round(flow6 * 4) / 4 + 0.11
+    return torch.from_numpy(img), torch.from_numpy(flow6.astype(np.float32))
+
+
+def _ulp_bf16(ref):
+    return torch.pow(2.0, torch.floor(torch.log2(ref.float().abs().clamp_min(2.0**-126))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last_3d"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+def test_warp3d_kernel_matches_plain_on_card(padding, dtype, layout):
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    img, flow6 = _inputs3d(5, (2, 3, 11, 13, 17), 6.0)  # ragged, flows beyond ±8
+    img_t, flow6 = img.cuda().to(dt), flow6.cuda().to(dt)
+    if layout == "channels_last_3d":
+        flow6 = flow6.contiguous(memory_format=torch.channels_last_3d)
+    flow_t = flow6[:, 3:]
+    assert bool((flow_t.float().abs() > 8).any())
+    for r_z, r_yx in RADII:
+        before = LAUNCHES["warp3d"]
+        out = warp3d(img_t, flow_t, r_z, r_yx, padding)
+        torch.cuda.synchronize()
+        assert LAUNCHES["warp3d"] == before + 1
+        ref = tw.warp3d_plain(img_t, flow_t, r_z, r_yx, padding)
+        assert LAUNCHES["warp3d"] == before + 1  # the plain version launches nothing
+        assert out.dtype == dt and out.is_contiguous()
+        diff = (out.float() - ref.float()).abs()
+        if dt == torch.float32:
+            assert float(diff.max()) <= VAL_TOL, (r_z, r_yx)
+        else:
+            assert bool((diff <= _ulp_bf16(ref)).all()), (r_z, r_yx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img_grad", [True, False], ids=["dimg", "no_dimg"])
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last_3d"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radii", RADII, ids=["r8_8", "r4_0", "r0_0"])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+def test_warp3d_kernel_backward_matches_plain_on_card(padding, radii, dtype, layout, img_grad):
+    """``dimg`` / ``dflow`` of the 3-D backward kernel against autograd through
+    the plain version; flow (a slice of a 6-channel flow) and incoming
+    gradient contiguous or in the channels-last-3d layout."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    fmt = torch.channels_last_3d if layout == "channels_last_3d" else torch.contiguous_format
+    img, flow6 = _inputs3d(8, (2, 3, 11, 13, 17), 6.0, off_integer=True)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(img.shape).astype(np.float32))
+    img_t = img.cuda().to(dt)
+    flow6 = flow6.cuda().to(dt).contiguous(memory_format=fmt)
+    g_t = g.cuda().to(dt).contiguous(memory_format=fmt)
+
+    def through(fn):
+        leaf = flow6.detach().clone(memory_format=torch.preserve_format).requires_grad_(True)
+        im = img_t.detach().clone().requires_grad_(img_grad)
+        fn(im, leaf[:, 3:], *radii, padding).backward(g_t)
+        return im.grad, leaf.grad
+
+    before = dict(LAUNCHES)
+    dimg, dflow = through(warp3d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp3d"] == before["warp3d"] + 1
+    assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1
+    dimg_ref, dflow_ref = through(tw.warp3d_plain)
+    assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    assert bool((dflow[:, :3] == 0).all())  # the unused half of the 6-channel flow
+    scale = float(dflow_ref.float().abs().max())
+    assert float((dflow.float() - dflow_ref.float()).abs().max()) <= rel * scale
+    flow = flow6[:, 3:].float()
+    for component, r in ((slice(0, 1), radii[0]), (slice(1, 3), radii[1])):
+        if r:  # exactly 0 at and beyond the bound
+            clamped = flow[:, component].abs() >= r
+            assert bool(clamped.any()) and bool((dflow[:, 3:][:, component][clamped] == 0).all())
+    if img_grad:
+        assert dimg.dtype == dt
+        scale = float(dimg_ref.float().abs().max())
+        assert float((dimg.float() - dimg_ref.float()).abs().max()) <= rel * scale
+    else:
+        assert dimg is None
+
+
+@pytest.mark.cuda
+def test_warp3d_kernel_zeroes_flow_gradient_on_the_bound_on_card():
+    """A flow component exactly on its radius is clamped: no gradient."""
+    _cuda_or_skip()
+    img = torch.rand(1, 1, 12, 12, 12, device="cuda")
+    flow = torch.full((1, 3, 12, 12, 12), 0.3, device="cuda")
+    flow[0, 0, :4] = 4.0
+    flow[0, 1, 4:8] = -2.0
+    flow[0, 2, 8:] = 2.0
+    flow.requires_grad_(True)
+    warp3d(img, flow, 4, 2, "border").square().sum().backward()
+    ref = flow.detach().clone().requires_grad_(True)
+    tw.warp3d_plain(img, ref, 4, 2, "border").square().sum().backward()
+    assert bool((flow.grad[0, 0, :4] == 0).all())
+    assert bool((flow.grad[0, 1, 4:8] == 0).all())
+    assert bool((flow.grad[0, 2, 8:] == 0).all())
+    assert bool((flow.grad[0, 1, :4] != 0).any())
+    assert float((flow.grad - ref.grad).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_warp3d_on_card_raises_on_what_the_kernel_does_not_take():
+    _cuda_or_skip()
+    img = torch.zeros(1, 1, 4, 4, 4, device="cuda")
+    flow = torch.zeros(1, 3, 4, 4, 4, device="cuda")
+    with pytest.raises(TypeError):
+        warp3d(img, flow.bfloat16())
+    with pytest.raises(TypeError):
+        warp3d(img.half(), flow.half())
+    with pytest.raises(ValueError):
+        warp3d(img, flow.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        warp3d(torch.zeros(1, 4, 4, 4, 2, device="cuda").movedim(-1, 1), flow)
+
+
+@pytest.mark.cuda
+def test_ifnet3d_forward_on_card_goes_through_the_kernel():
+    """A narrow IFNet-3D on the card launches warp3d twice per block and agrees
+    with the same weights on the CPU (f32 convs in other orders: 1e-4)."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.models import IFNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"ndim": 3, "block_channels": (12, 8, 8), "teacher_channels": 8, "conv0_kernel": 4,
+          "bounded_warp_rz": 8, "fast_warp_r": 8}
+    net = IFNet(device="cuda", **kw).eval()
+    cpu = IFNet(device="cpu", **kw).eval()
+    a, b = (_inputs3d(seed, (2, 1, 32, 32, 32), 1.0)[0] for seed in (6, 7))
+    with torch.inference_mode():
+        before = dict(LAUNCHES)
+        out = net(a.cuda(), b.cuda())["merged"][-1]
+        torch.cuda.synchronize()
+        assert LAUNCHES["warp3d"] == before["warp3d"] + 6
+        assert LAUNCHES["warp2d"] == before["warp2d"]
+        ref = cpu(a, b)["merged"][-1]
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_3d_train_step_on_card_goes_through_both_kernels(remat):
+    """One narrow 3-D train step on the card launches 8 forward and 8 backward
+    kernels (with ``remat`` too: the warps lie outside the recomputed blocks),
+    and its parts agree with the same step on the CPU (1e-4)."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.data import group_tuples, rectangle_3d
+    from opticalflowscivis_tpu_torch.losses import RIFELossWeights
+    from opticalflowscivis_tpu_torch.training import ModelConfig, OptimConfig, TrainConfig, Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TrainConfig(
+        dataset="rectangle3d", batch_size=2,
+        model=ModelConfig(ndim=3, block_channels=(12, 8, 8), teacher_channels=8, conv0_kernel=4,
+                          bounded_warp_rz=8, fast_warp_r=8, bfloat16=False, remat=remat),
+        loss=RIFELossWeights.preset_3d(distill=0.1),
+        optim=OptimConfig(lr_max=1e-3, warmup_steps=2),
+    )
+    tuples = group_tuples(rectangle_3d(n_frames=6, grid=(32, 32, 32), box=(10, 14, 12), seed=5), 1)
+    tuples = tuples.astype(np.float32)
+    tuples[..., 0] += np.random.default_rng(0).uniform(0.05, 0.3, tuples.shape[:-1]).astype(
+        np.float32)
+    parts = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg, device=device)
+        tr.init_state(total_steps=4)
+        before = dict(LAUNCHES)
+        parts[device] = tr.train_step(tr.upload(tuples))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["warp3d"] == before["warp3d"] + 8
+            assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 8
+            _, extras = tr.eval_step(tr.upload(tuples))
+            assert LAUNCHES["warp3d"] == before["warp3d"] + 16
+            assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 8
+            assert extras["pred"].shape == (2, 32, 32, 32, 1)
         else:
             assert LAUNCHES == before
     for key, ref in parts["cpu"].items():

@@ -102,9 +102,13 @@ def test_laplacian_pyramid_and_blur_match_jax(shape):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-6)
 
 
-def test_pyramid_refuses_volumes():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tp.lap_loss(torch.zeros(1, 8, 8, 8, 1), torch.zeros(1, 8, 8, 8, 1))
+def test_pyramid_takes_volumes_and_refuses_other_ranks():
+    """Volumes go through ``conv3d`` (held against the JAX package in
+    ``test_torch_warp3d.py``); a rank with no convolution raises."""
+    x = torch.from_numpy(_unit(3, 1, 8, 8, 8, 1))
+    assert float(tp.lap_loss(x, x)) == 0 and float(tp.lap_loss(x, 1 - x)) > 0
+    with pytest.raises(ValueError, match="volumes"):
+        tp.lap_loss(torch.zeros(1, 8, 1), torch.zeros(1, 8, 1))
 
 
 # -- losses/basic.py ------------------------------------------------------------
@@ -167,10 +171,19 @@ def test_flow_supervision_matches_jax(with_teacher):
                flows + [gt])
 
 
-def test_photometric_loss_refuses_3d():
+def test_photometric_loss_matches_jax_in_3d():
+    """Volumes: an unbounded zeros-padded trilinear warp on both sides
+    (``fast_warp_r`` plays no part in 3-D, as in the reference)."""
+    merged, img0, img1 = (_unit(s, 2, 8, 10, 12, 1) for s in (50, 51, 52))
+    flow = _flow(53, 2, 8, 10, 12, 6)
+    _check(
+        lambda m, f, a, b: tb.photometric_loss(m, f, a, b, 3, fast_warp_r=8),
+        lambda m, f, a, b: jb.photometric_loss(m, f, a, b, 3, fast_warp_r=8),
+        [merged, flow, img0, img1], grad_rtol=CHARB_RTOL,
+    )
     x = torch.zeros(1, 4, 4, 4, 1)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tb.photometric_loss(x, x, x, x, 3)
+    with pytest.raises(ValueError, match="ndim"):
+        tb.photometric_loss(x, x, x, x, 2)
 
 
 # -- losses/rife.py -------------------------------------------------------------

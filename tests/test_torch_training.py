@@ -401,14 +401,37 @@ def test_train_config_json_round_trip_and_jax_json_loads(tiny_setup):
     ({"spatial_shard": True}, NotImplementedError, "A.12"),
     ({"compiler_options": {"xla_flag": "1"}}, ValueError, "A.12"),
     ({"hbm_dataset_dtype": "float16"}, ValueError, "hbm_dataset_dtype"),
-    ({"model": ModelConfig(remat=True)}, NotImplementedError, "A.8"),
-    ({"model": ModelConfig(teacher_scale=2)}, NotImplementedError, "A.8"),
     ({"model": ModelConfig(refine=True)}, NotImplementedError, "A.10"),
     ({"dataset": "rectangle3d"}, ValueError, "ndim"),
+    ({"model": ModelConfig.preset_3d()}, ValueError, "ndim"),
 ])
 def test_trainer_refuses_what_is_not_ported(kw, error, match):
     with pytest.raises(error, match=match):
         Trainer(TrainConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{"remat": True}, {"teacher_scale": 2, "scales": (4, 2, 2)},
+                                {"conv0_kernel": 4}],
+                         ids=["remat", "teacher_scale", "conv0_kernel"])
+def test_model_options_of_the_3d_recipe_also_build_in_2d(tiny_setup, kw):
+    """``remat``, ``teacher_scale`` and ``conv0_kernel`` reach the model from
+    the config; a train step runs with each and moves the parameters."""
+    cfg, tuples = tiny_setup
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **kw))
+    tr = Trainer(cfg, device="cpu")
+    for name, value in kw.items():
+        if name == "conv0_kernel":
+            assert tr.model.block0.conv0[0].conv.kernel_size == (4, 4)
+            assert tr.model.block0.convblock[0].convs[0].conv.kernel_size == (3, 3)
+        else:
+            assert getattr(tr.model, name) == value
+    tr.init_state(total_steps=4)
+    batch = tr.upload(tuples[:4])
+    tr.train_step(batch)  # the first update runs at lr 0
+    before = [p.detach().clone() for p in tr.model.parameters()]
+    parts = tr.train_step(batch)
+    assert np.isfinite(float(parts["loss_G"]))
+    assert any(not torch.equal(p, q) for p, q in zip(tr.model.parameters(), before))
 
 
 def test_fit_device_gen_waits_for_the_device_generators(tiny_setup):
