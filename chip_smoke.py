@@ -5,11 +5,13 @@
 
 Builds every Hopper kernel of the port from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card, drives the
-main paths at the full width of ``ifnet_2d`` and ``ifnet_3d`` and shows that
-each went through the kernels: interpolation serving (``Interpolator``,
-``interpolate_series``) and training (``Trainer.fit``, then the CLI verbs
-generate → train → test → inference_video), on 2-D frames and on 64^3
-volumes, and the ``train256`` module at 128^3.  It compares each path with
+main paths at the full width of ``ifnet_2d``, ``ifnet_3d`` and ``UPFlowNet``
+and shows that each went through the kernels: interpolation serving
+(``Interpolator``, ``interpolate_series``) and training (``Trainer.fit``, then
+the CLI verbs generate → train → test → inference_video), on 2-D frames and on
+64^3 volumes, the ``train256`` module at 128^3, and UPFlow flow estimation
+(``UPFlowTrainer.predict``) and training (``UPFlowTrainer.fit``, then
+``train_upflow`` → ``test_upflow``) at 256 x 832.  It compares each path with
 the same weights on the CPU, and times them.
 
 Phases, printed in order:
@@ -29,9 +31,16 @@ Phases, printed in order:
      step (8 + 0 per eval step), checkpoint round trip, ``remat`` against the
      plain step, one train step against the CPU, the CLI verbs on
      ``rectangle3d``, the ``train256`` module at 128^3;
-  7. times (CUDA events, warm-up, inputs that vary from call to call) and
+  7. the cost volume kernels against ``cost_volume_plain`` and autograd through
+     it, at the five shapes UPFlow gives them and odd ones;
+  8. UPFlow at full width at 256 x 832: ``predict`` on 8 pairs (5 ``corr``
+     launches per forward), the CPU comparison; ``fit`` in f32 and bf16 (5 + 5
+     ``corr`` / ``corr_bwd`` launches per train step, 10 + 10 with the
+     ex_runner recipe), one train step against the CPU, checkpoint round trip,
+     both decode forms, the CLI verbs;
+  9. times (CUDA events, warm-up, inputs that vary from call to call) and
      profiles of all paths;
-  8. one ``{"kernels": [...]}`` line.
+ 10. one ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
 CUDA device or without the port beside it.
@@ -39,6 +48,7 @@ CUDA device or without the port beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -73,14 +83,23 @@ BWD_BF16_TOL = 1e-2
 TRAIN_PARTS_TOL = 1e-3
 TRAIN_GRAD_TOL = 1e-2
 
+UPFLOW_HW = (256, 832)  # the KITTI protocol's frame size
+UPFLOW_BATCH = 8
+# [B, C, H, W] of the five cost volumes of a 256 x 832 forward at batch 8: both
+# directions stacked (B = 16), coarsest level first
+CORR_SHAPES = ((16, 196, 4, 13), (16, 128, 8, 26), (16, 96, 16, 52), (16, 64, 32, 104),
+               (16, 32, 64, 208))
+CORR_ODD_SHAPE = (2, 7, 11, 13)
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke failed: {msg}")
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn(i)`` by CUDA events."""
+def cuda_and_host_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
+    """Mean milliseconds per call of ``fn(i)`` over one loop, by CUDA events
+    and by the host's clock around the loop and a final synchronize."""
     import torch
 
     for i in range(warmup):
@@ -88,12 +107,19 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for i in range(iters):
         fn(i)
     end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    return start.elapsed_time(end) / iters, host
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn(i)`` by CUDA events."""
+    return cuda_and_host_ms(fn, iters, warmup)[0]
 
 
 def is_kernel(ev, device_type) -> bool:
@@ -132,11 +158,27 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
 
 
 def bf16_ulp(x):
-    """One bf16 ulp at the magnitude of each element of ``x`` (float32 tensor)."""
+    """One bf16 ulp at the magnitude of each element of ``x`` (float32 tensor).
+    ``frexp`` and ``ldexp`` are exact; the card's ``pow(2, -10)`` is not (it
+    came out one float32 ulp short, which failed a difference of exactly one
+    bf16 ulp)."""
     import torch
 
     mag = x.abs().clamp_min(2.0**-126)
-    return torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+    exponent = torch.frexp(mag).exponent  # mag = m * 2^e with m in [0.5, 1)
+    return torch.ldexp(torch.ones_like(mag), exponent - 8)
+
+
+def within_one_bf16_ulp(out, ref, slack: float = 0.0):
+    """Whether each element of ``out`` lies within one bf16 ulp (plus
+    ``slack``) of ``ref``, the ulp taken at the larger of the two magnitudes
+    (two neighbouring bf16 values on either side of a power of two are one ulp
+    of the upper binade apart).  ``slack`` is for sums that cancel: their
+    float32 error is absolute, and near zero it exceeds any ulp of the result."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    return (out - ref).abs() <= bf16_ulp(torch.maximum(out.abs(), ref.abs())) + slack
 
 
 def warp_inputs(shape, dtype, seed: int, scale: float = 10.0, channels_last=False):
@@ -166,7 +208,7 @@ def phase_card(torch):
 
     t0 = time.perf_counter()
     # each source holds a forward and a backward kernel; one nvcc per source, in parallel
-    libs = build(["warp2d", "warp3d"])
+    libs = build(["warp2d", "warp3d", "corr"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s  "
           f"{[str(p.relative_to(REPO)) for p in libs.values()]}")
     return smi
@@ -312,6 +354,8 @@ def profile_forward(torch, name: str, fn, iters: int = 3, unit: str = "forward")
         "warp2d_bwd_share": share("warp2d_bwd_kernel"),
         "warp3d_share": share("warp3d_kernel"),
         "warp3d_bwd_share": share("warp3d_bwd_kernel"),
+        "corr_share": share("corr_fwd_"),
+        "corr_bwd_share": share("corr_bwd_"),
         "kernel_launches": sum(n for _, _, n in kernels) // iters,
         "top": [{"kernel": k[:70], "share": t / max(total, 1e-9), "launches": n // iters}
                 for k, t, n in top],
@@ -1239,6 +1283,471 @@ def phase_times3d(torch, interps, trainers):
 
 
 
+# -- UPFlow: the cost volume kernels, flow estimation and training -------------------
+
+
+def corr_inputs(torch, shape, dtype, seed: int, channels_last: bool):
+    """Two feature maps ``[B, C, H, W]`` and an incoming gradient per ``md``,
+    contiguous or in the channels-last layout cuDNN may produce."""
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(memory_format=fmt)
+    f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(memory_format=fmt)
+
+    def grad(md):
+        b, _, h, w = shape
+        g = torch.randn((b, (2 * md + 1) ** 2, h, w), generator=gen, device="cuda").to(dtype)
+        return g.contiguous(memory_format=fmt)
+
+    return f1, f2, grad
+
+
+def phase_corr_vs_plain(torch):
+    """``corr`` against ``cost_volume_plain`` and ``corr_bwd`` against autograd
+    through it: the five model shapes and an odd one, md 4 and 2 (the odd shape
+    also md 0 and 5, which take the untiled kernels), f32 and bf16, contiguous
+    and channels-last; the odd shape also with each gradient alone."""
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
+
+    def grads(fn, f1, f2, g, md, needs):
+        a = f1.detach().clone(memory_format=torch.preserve_format).requires_grad_(needs != "f2")
+        b = f2.detach().clone(memory_format=torch.preserve_format).requires_grad_(needs != "f1")
+        fn(a, b, md).backward(g)
+        return a.grad, b.grad
+
+    # worst float32 errors (absolute), worst bf16 gradient error relative to
+    # the largest gradient of its case, and the number of cases
+    worst = {"fwd": 0.0, "bwd": 0.0, "bwd_bf16_rel": 0.0, "fwd_cases": 0, "bwd_cases": 0}
+    seed = 700
+    for shape in CORR_SHAPES + (CORR_ODD_SHAPE,):
+        odd = shape == CORR_ODD_SHAPE
+        for md in ((4, 2, 0, 5) if odd else (4, 2)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for cl in (False, True):
+                    seed += 1
+                    name = str(dtype).replace("torch.", "")
+                    tag = f"{list(shape)} md={md} {name:8s} {'nhwc' if cl else 'nchw'}"
+                    f1, f2, grad = corr_inputs(torch, shape, dtype, seed, cl)
+                    before = dict(LAUNCHES)
+                    out = cost_volume_kernel(f1, f2, md)
+                    torch.cuda.synchronize()
+                    ref = cost_volume_plain(f1, f2, md)
+                    check(LAUNCHES["corr"] == before["corr"] + 1
+                          and LAUNCHES["corr_bwd"] == before["corr_bwd"], "corr launch count")
+                    check(out.dtype == dtype and out.shape == ref.shape and out.is_contiguous(),
+                          "corr output type")
+                    diff = (out.float() - ref.float()).abs()
+                    err = float(diff.max())
+                    if dtype == torch.float32:
+                        ok, tol = err <= F32_TOL, f"{F32_TOL:g}"
+                        worst["fwd"] = max(worst["fwd"], err)
+                    else:
+                        # the float32 sums of C products that cancel differ by up
+                        # to F32_TOL whatever the result's size; each side then
+                        # rounds once to bf16
+                        near = within_one_bf16_ulp(out, ref, slack=F32_TOL)
+                        ok, tol = bool(near.all()), f"1 bf16 ulp + {F32_TOL:g}"
+                    print(f"corr {tag} max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        at = int((~near).flatten().nonzero()[0])
+                        print(f"  first element beyond: kernel {float(out.flatten()[at]):.8e} "
+                              f"plain {float(ref.flatten()[at]):.8e}")
+                    check(ok, f"corr kernel disagrees with plain ({tag})")
+                    worst["fwd_cases"] += 1
+
+                    g = grad(md)
+                    for needs in (("both", "f1", "f2") if odd else ("both",)):
+                        before = dict(LAUNCHES)
+                        got = grads(cost_volume_kernel, f1, f2, g, md, needs)
+                        torch.cuda.synchronize()
+                        check(LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1,
+                              "corr backward launch count")
+                        want = grads(cost_volume_plain, f1, f2, g, md, needs)
+                        check(LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1,
+                              "the plain version launched")
+                        rel = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+                        ok, shown = True, []
+                        for what, x, y in zip(("df1", "df2"), got, want):
+                            if y is None:
+                                check(x is None, f"a gradient nobody asked for ({what})")
+                                continue
+                            check(x.dtype == dtype and x.shape == y.shape, f"{what} type")
+                            err = float((x.float() - y.float()).abs().max())
+                            scale = float(y.float().abs().max())
+                            ok = ok and err <= rel * scale
+                            shown.append(f"{what}_err={err:.3e} (max|ref|={scale:.3e})")
+                            if dtype == torch.float32:
+                                worst["bwd"] = max(worst["bwd"], err)
+                            else:
+                                worst["bwd_bf16_rel"] = max(worst["bwd_bf16_rel"], err / scale)
+                        worst["bwd_cases"] += 1
+                        print(f"corr_bwd {tag} needs={needs:4s} {' '.join(shown)} "
+                              f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
+                        check(ok, f"corr backward disagrees with plain ({tag}, {needs})")
+    print("corr vs plain " + json.dumps(worst))
+    return worst
+
+
+def upflow_pairs(n: int, hw, seed: int, shift=(3, -5)):
+    """``[n, 2, H, W, 3]`` pairs and their true flow ``[n, H, W, 2]``: a smooth
+    random texture (noise on a 16 x 52 grid, upsampled) and the same texture
+    moved by ``shift`` pixels, so that every pixel carries signal.  im2(p) =
+    im1(p - shift), so the forward flow is +shift."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.uniform(0.05, 1.0, (n, 3, h // 16, w // 16)).astype(np.float32))
+    im1 = F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=True).clamp(0, 1)
+    im1 = im1.permute(0, 2, 3, 1).numpy()
+    im2 = np.roll(im1, shift, axis=(1, 2))
+    flow = np.broadcast_to(np.asarray(shift, np.float32), (n, h, w, 2)).copy()
+    return np.stack([im1, im2], axis=1), flow
+
+
+def upflow_config(tmp: str, name: str, bfloat16: bool, **kw):
+    """``UPFlowTrainConfig`` with its defaults: full width, cost-volume
+    normalisation per image and channel, batch 8, lr 1e-4."""
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainConfig
+
+    return UPFlowTrainConfig(bfloat16=bfloat16, exp_dir=os.path.join(tmp, f"upflow_{name}"), **kw)
+
+
+def close_enough(got, want, what: str) -> None:
+    """Within ``CPU_TOL`` of the largest reference value: float32 convolutions
+    in other orders through five decode levels, each of which doubles the flow
+    it takes over."""
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    print(f"{what}: max_abs_err={err:.3e} tol={CPU_TOL * scale:.3e} max|ref|={scale:.3e}")
+    check(err <= CPU_TOL * scale, f"{what} disagrees")
+
+
+def launch_delta(before: dict) -> dict:
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+
+    return {k: LAUNCHES[k] - before[k] for k in before if LAUNCHES[k] != before[k]}
+
+
+def phase_upflow_serving(torch, tmp: str):
+    """``UPFlowTrainer.predict`` on 8 pairs at 256 x 832 x 3, seed-0 weights."""
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainer
+
+    h, w = UPFLOW_HW
+    pairs, _ = upflow_pairs(UPFLOW_BATCH, UPFLOW_HW, seed=0)
+    trainers = {name: UPFlowTrainer(upflow_config(tmp, f"serve_{name}", name == "bf16"))
+                for name in ("f32", "bf16")}
+    reset_launches()  # the UPFlow serving path's run starts here
+    flows = {}
+    for name, tr in trainers.items():
+        before = dict(LAUNCHES)
+        parts, extras = tr.predict(pairs)
+        torch.cuda.synchronize()
+        delta = launch_delta(before)
+        flows[name] = extras["flow_f"].float().cpu()
+        print(f"predict {name} [{UPFLOW_BATCH},{h},{w},3]: launches={delta} "
+              f"mean|flow_f|={float(flows[name].norm(dim=-1).mean()):.3f} "
+              f"loss_total={float(parts['loss_total']):.5f}")
+        # 5 cost volumes; 4 feature warps with their masks in the model, then the
+        # occlusion check's 2 warps and the photometric term's 2 in the losses
+        check(delta == {"corr": 5, "warp2d": 12}, f"{name} predict launches {delta}")
+        check(extras["flow_f"].shape == (UPFLOW_BATCH, h, w, 2)
+              and extras["flow_b"].shape == (UPFLOW_BATCH, h, w, 2), f"{name} flow shapes")
+        check(bool(torch.isfinite(extras["flow_f"]).all())
+              and bool(torch.isfinite(extras["flow_b"]).all())
+              and all(math.isfinite(float(v)) for v in parts.values()), f"{name} not finite")
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] for k in ("corr", "warp2d")}  # read just after the run
+    print(f"UPFlow serving path: launches={counts}")
+    check(counts["corr"] == 10, "the UPFlow serving path missed the cost volume kernel")
+    d16 = float((flows["bf16"] - flows["f32"]).abs().max())
+    print(f"flow_f bf16 vs f32 max_abs_diff={d16:.3e} (max|f32|={float(flows['f32'].abs().max()):.3e})")
+
+    # the same weights on the CPU (the plain path) at batch 1: the model alone,
+    # on a 128 x 416 pair (a quarter of the plane keeps the CPU's share of this
+    # script's time at a few seconds; every level still has more than one tile)
+    tr = trainers["f32"]
+    cpu = UPFlowTrainer(tr.cfg, device="cpu")
+    cpu.net.load_state_dict(tr.net.state_dict())
+    one, _ = upflow_pairs(1, (h // 2, w // 2), seed=3)
+    with torch.no_grad():
+        before = dict(LAUNCHES)
+        got = tr._forward(*(tr.upload(one)[:, i] for i in (0, 1)))
+        torch.cuda.synchronize()
+        delta = launch_delta(before)
+        want = cpu._forward(*(cpu.upload(one)[:, i] for i in (0, 1)))
+    check(delta == {"corr": 5, "warp2d": 8}, f"batch-1 forward launches {delta}")
+    close_enough(got["flow_f"], want["flow_f"], "cuda vs cpu UPFlow flow_f")
+    close_enough(got["flow_b"], want["flow_b"], "cuda vs cpu UPFlow flow_b")
+    for level, ((gf, _), (wf, _)) in enumerate(zip(got["flows"], want["flows"])):
+        close_enough(gf, wf, f"cuda vs cpu UPFlow level {level} (finest first)")
+    return counts, trainers
+
+
+def phase_upflow_training(torch, tmp: str):
+    """``UPFlowTrainer.fit`` at full width on textured, shifted 256 x 832 pairs."""
+    from opticalflowscivis_tpu_torch.models import UPFlowNet
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainConfig, UPFlowTrainer
+
+    b = UPFLOW_BATCH
+    epochs, steps_per_epoch, n_val = 8, 2, 4
+    pairs, flow = upflow_pairs(steps_per_epoch * b + n_val, UPFLOW_HW, seed=1)
+    train, val, val_flow = pairs[:-n_val], pairs[-n_val:], flow[-n_val:]
+    keys = ("corr", "corr_bwd", "warp2d", "warp2d_bwd")
+    launches = dict.fromkeys(keys, 0)
+    trainers = {}
+    for name in ("f32", "bf16"):
+        cfg = upflow_config(tmp, f"fit_{name}", name == "bf16")
+        tr = UPFlowTrainer(cfg)
+        reset_launches()  # the UPFlow training path's run starts here
+        hist = tr.fit(train, epochs=epochs, log_every=0, val_pairs=val, val_flow=val_flow)
+        torch.cuda.synchronize()
+        counts = {k: LAUNCHES[k] for k in keys}  # read just after the run
+        steps = epochs * steps_per_epoch
+        print(f"upflow fit {name}: {steps} train steps + {epochs} validations at "
+              f"[{b},{UPFLOW_HW[0]},{UPFLOW_HW[1]},3]: launches={counts} loss_total first epoch "
+              f"{hist[0]['loss_total']:.6f} last {hist[-1]['loss_total']:.6f} val_epe first "
+              f"{hist[0]['val_epe']:.4f} last {hist[-1]['val_epe']:.4f} "
+              f"(zero flow {hist[-1]['val_epe_zero_flow']:.4f})")
+        check(len(hist) == epochs and tr.state.step == steps, f"{name} upflow fit length")
+        check(all(math.isfinite(v) for parts in hist for v in parts.values()),
+              f"{name} upflow losses not finite")
+        check(hist[-1]["loss_total"] < hist[0]["loss_total"],
+              f"{name} upflow fit did not lower loss_total")
+        # a train step: 5 cost volumes and their 5 backwards, 12 warps (see
+        # predict) of which the 4 feature warps and the 2 photometric ones carry a
+        # gradient; a validation: the model alone, 5 cost volumes and 8 warps
+        expect = {"corr": 5 * (steps + epochs), "corr_bwd": 5 * steps,
+                  "warp2d": 12 * steps + 8 * epochs, "warp2d_bwd": 6 * steps}
+        check(counts == expect, f"{name}: launches {counts}, expected {expect}")
+        for k in keys:
+            launches[k] += counts[k]
+
+        with open(os.path.join(cfg.exp_dir, "loss.json")) as f:
+            rows = json.load(f)["loss"]
+        check(len(rows) == epochs and all("val_epe" in row for row in rows),
+              f"{name} upflow loss.json")
+        fresh = UPFlowTrainer(cfg)
+        fresh.init_state(steps_per_epoch)
+        check(fresh.load_checkpoint() and fresh.state.step == steps, f"{name} upflow checkpoint")
+        restored = fresh.net.state_dict()
+        check(all(torch.equal(v, restored[k]) for k, v in tr.net.state_dict().items()),
+              f"{name}: restored UPFlow weights differ")
+        ours = tr.predict(val)[1]["flow_f"]
+        close_enough(fresh.predict(val)[1]["flow_f"], ours,
+                     f"checkpoint {name}: restored trainer's flow_f")
+        trainers[name] = (tr, train)
+    print(f"UPFlow training path: launches={launches}")
+    check(all(v > 0 for v in launches.values()), "the UPFlow training path missed a kernel")
+
+    # the two-stream decode gives the flows of the stacked one from the same weights
+    tr = trainers["f32"][0]
+    streams = UPFlowNet(dataclasses.replace(tr.cfg.model, batch_directions=False), device="cuda")
+    streams.load_state_dict(tr.net.state_dict())
+    dev = tr.upload(val[:2])
+    with torch.no_grad():
+        before = dict(LAUNCHES)
+        a = tr.net(dev[:, 0].movedim(-1, 1), dev[:, 1].movedim(-1, 1))
+        mid = launch_delta(before)
+        c = streams(dev[:, 0].movedim(-1, 1), dev[:, 1].movedim(-1, 1))
+        torch.cuda.synchronize()
+    both = launch_delta(before)
+    second = {k: both[k] - mid[k] for k in both}
+    print(f"decode forms: stacked launches {mid}, two streams {second}")
+    check(mid == {"corr": 5, "warp2d": 8} and second == {"corr": 10, "warp2d": 16},
+          f"decode forms launches {mid} {second}")
+    close_enough(c["flow_f"], a["flow_f"], "two-stream vs stacked flow_f")
+    close_enough(c["flow_b"], a["flow_b"], "two-stream vs stacked flow_b")
+
+    # the ex_runner recipe: a second forward on the transformed pair
+    ex = UPFlowTrainer(UPFlowTrainConfig.preset_ex_runner(
+        exp_dir=os.path.join(tmp, "upflow_ex"), bfloat16=True))
+    ex.init_state(steps_per_epoch)
+    before = dict(LAUNCHES)
+    parts = ex.train_step(ex._batch(ex.upload(train[:b])))
+    torch.cuda.synchronize()
+    delta = launch_delta(before)
+    print(f"ex_runner train step: launches={delta} eq_loss={float(parts['eq_loss']):.5f} "
+          f"oi_loss={float(parts['oi_loss']):.5f}")
+    check(delta == {"corr": 10, "corr_bwd": 10, "warp2d": 23, "warp2d_bwd": 11},
+          f"ex_runner step launches {delta}")
+    check(all(math.isfinite(float(v)) for v in parts.values()), "ex_runner parts not finite")
+    return launches, trainers
+
+
+def phase_upflow_step_vs_cpu(torch, tmp: str):
+    """One full-width train step at batch 1 on a 128 x 256 textured pair from
+    the same weights, card against CPU: loss parts and parameter gradients."""
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainer
+
+    pairs, _ = upflow_pairs(1, (128, 256), seed=2)
+    cfg = upflow_config(tmp, "step", False, batch_size=1)
+    parts, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = UPFlowTrainer(cfg, device=device)
+        tr.init_state()
+        before = dict(LAUNCHES)
+        parts[device] = {k: float(v) for k, v in
+                         tr.train_step(tr._batch(tr.upload(pairs))).items()}
+        delta = launch_delta(before)
+        check(delta == ({"corr": 5, "corr_bwd": 5, "warp2d": 12, "warp2d_bwd": 6}
+                        if device == "cuda" else {}), f"{device} upflow step launches {delta}")
+        grads[device] = {n: p.grad.detach().cpu() for n, p in tr.net.named_parameters()}
+    for key, ref in parts["cpu"].items():
+        print(f"upflow train step cuda vs cpu {key}: cuda={parts['cuda'][key]:.6e} "
+              f"cpu={ref:.6e} tol={TRAIN_PARTS_TOL:g} rel")
+        check(abs(parts["cuda"][key] - ref) <= TRAIN_PARTS_TOL * max(abs(ref), 1e-6),
+              f"upflow train step {key} disagrees")
+    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst, where = max((float((grads["cuda"][n] - g).abs().max()), n)
+                       for n, g in grads["cpu"].items())
+    print(f"upflow train step cuda vs cpu gradients: max_abs_diff={worst:.3e} at {where}, "
+          f"largest gradient {largest:.3e}, ratio {worst / largest:.3e} tol={TRAIN_GRAD_TOL:g}")
+    check(worst <= TRAIN_GRAD_TOL * largest, "upflow train step gradients disagree with the CPU")
+
+
+def phase_upflow_cli(torch, tmp: str):
+    """generate → train_upflow (1 epoch) → test_upflow, in process, on the card."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import main as cli
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+
+    data = os.path.join(tmp, "cliu_d")
+    common = ["--dataset", "rectangle2d_tex_pan", "--data_dir", data, "--results_dir",
+              os.path.join(tmp, "cliu_r")]
+    before = dict(LAUNCHES)
+    cli(["generate", "--dataset", "rectangle2d_tex_pan", "--frames", "60", "--data_dir", data])
+    cli(["train_upflow", "--epochs", "1", "--batch_size", "8", "--census_weight", "1.0",
+         "--smooth1_weight", "0.1", *common])
+    cli(["test_upflow", "--max_frames", "9", *common])
+    torch.cuda.synchronize()
+    run = os.path.join(tmp, "cliu_r", "rectangle2d_tex_pan", "upflow")
+    with open(os.path.join(run, "loss.json")) as f:
+        rows = json.load(f)["loss"]
+    with open(os.path.join(run, "test_report.json")) as f:
+        report = json.load(f)["scivis"]
+    check(len(rows) == 1 and all(math.isfinite(v) for v in rows[0].values())
+          and "val_epe" in rows[0], "cli train_upflow loss.json")
+    check(os.path.isfile(os.path.join(run, "upflow.ckpt"))
+          and os.path.isfile(os.path.join(run, "ckpt_meta.json")), "cli upflow checkpoint")
+    check(set(report) == {"mean_flow_mag", "frames", "epe", "epe_zero_flow_baseline"}
+          and all(math.isfinite(v) for v in report.values()), "cli test_upflow report")
+    delta = launch_delta(before)
+    print(f"cli upflow: generate, train_upflow, test_upflow ok; report={json.dumps(report)} "
+          f"launches={delta}")
+    check(all(delta.get(k, 0) > 0 for k in ("corr", "corr_bwd", "warp2d", "warp2d_bwd")),
+          "the UPFlow CLI run missed a kernel")
+
+
+def phase_upflow_times(torch, serving, training):
+    """Forward and train step at 256 x 832 batch 8, and the two cost volume
+    kernels at the finest level's shape, [16, 32, 64, 208] md 4."""
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        _launch_backward,
+        cost_volume_kernel,
+    )
+
+    b = UPFLOW_BATCH
+    times = {}
+    sets = [upflow_pairs(b, UPFLOW_HW, seed=10 + i)[0] for i in range(2)]
+    for name, tr in serving.items():
+        dev = [tr.upload(p) for p in sets]
+
+        def forward(i, tr=tr, dev=dev):
+            with torch.no_grad():
+                return tr._forward(dev[i % 2][:, 0], dev[i % 2][:, 1])
+
+        ms, host_ms = cuda_and_host_ms(forward, iters=8)
+        times[f"upflow_forward_ms_{name}"] = ms
+        times[f"upflow_forward_pairs_per_sec_{name}"] = b * 1e3 / ms
+        times[f"upflow_forward_pairs_per_sec_host_clock_{name}"] = b * 1e3 / host_ms
+        profile_forward(torch, f"upflow_{name}", forward, iters=2)
+    for name, (tr, train) in training.items():
+        batches = [tr._batch(tr.upload(train[i * b : (i + 1) * b])) for i in range(2)]
+
+        def step(i, tr=tr, batches=batches):
+            return tr.train_step(batches[i % 2])
+
+        ms, host_ms = cuda_and_host_ms(step, iters=6)
+        times[f"upflow_train_step_ms_{name}"] = ms
+        times[f"upflow_train_pairs_per_sec_{name}"] = b * 1e3 / ms
+        times[f"upflow_train_pairs_per_sec_host_clock_{name}"] = b * 1e3 / host_ms
+        profile_forward(torch, f"upflow_train_{name}", step, iters=2, unit="train_step")
+    print("upflow times " + json.dumps(times))
+
+    md = 4
+    shape = CORR_SHAPES[-1]
+    bb, c, h, w = shape
+    d = (2 * md + 1) ** 2
+    out = {}
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        name = str(dtype).replace("torch.", "")
+        sets = []
+        for i in range(4):
+            f1, f2, grad = corr_inputs(torch, shape, dtype, 800 + i, False)
+            sets.append((f1, f2, grad(md)))
+        graphs = []
+        for f1, f2, g in sets:
+            a, bq = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
+            graphs.append((cost_volume_plain(a, bq, md), (a, bq), g))
+
+        def kernel(i):
+            return cost_volume_kernel(sets[i % 4][0], sets[i % 4][1], md)
+
+        def plain(i):
+            return cost_volume_plain(sets[i % 4][0], sets[i % 4][1], md)
+
+        def bwd_kernel(i):
+            return _launch_backward(*sets[i % 4], md)
+
+        def bwd_plain(i):
+            res, leaves, g = graphs[i % 4]
+            return torch.autograd.grad(res, leaves, g, retain_graph=True)
+
+        # bytes the function must move: f1 and f2 read, the volume written; the
+        # backward reads f1, f2 and g and writes df1 and df2.  Operations: one
+        # multiply-add per (pixel, channel, displacement), twice that backward.
+        fwd_bytes = (2 * bb * c * h * w + bb * d * h * w) * size
+        bwd_bytes = (4 * bb * c * h * w + bb * d * h * w) * size
+        fwd_flops = 2 * bb * h * w * c * d
+        for tag, fn, ref, nbytes, flops in (("corr", kernel, plain, fwd_bytes, fwd_flops),
+                                            ("corr_bwd", bwd_kernel, bwd_plain, bwd_bytes,
+                                             2 * fwd_flops)):
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / F32_FLOPS_PER_S * 1e3
+            kernel_ms = device_ms(fn, 40, only="corr_")
+            out[f"{tag}_{name}"] = {
+                "kernel_ms": kernel_ms, "call_ms": cuda_ms(fn, 40),
+                "plain_ms": device_ms(ref, 3),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms, "bytes": nbytes,
+                "operations": flops,
+                "achieved_GBps": nbytes / (kernel_ms / 1e3) / 1e9,
+                "achieved_TFLOPs": flops / (kernel_ms / 1e3) / 1e12,
+                "library_ms": None,  # no single PyTorch call computes a cost volume
+            }
+    print("corr times " + json.dumps(out) + f"  (shape {list(shape)} md {md}; bound: H100 SXM "
+          "3.35 TB/s, 67 TFLOP/s f32)")
+    # the five model shapes, forward and backward, by CUDA events (with the host's call cost)
+    levels = {}
+    for shape in CORR_SHAPES:
+        f1, f2, grad = corr_inputs(torch, shape, torch.float32, 900, False)
+        g = grad(md)
+        levels[str(list(shape))] = {
+            "corr_call_ms": cuda_ms(lambda i: cost_volume_kernel(f1, f2, md), 40),
+            "corr_bwd_call_ms": cuda_ms(lambda i: _launch_backward(f1, f2, g, md), 40),
+        }
+    print("corr per level " + json.dumps(levels))
+    return times, out
+
+
 def main() -> int:
     import torch
 
@@ -1270,6 +1779,14 @@ def main() -> int:
         phase_train3d_step_checks(torch, tmp)
         phase_cli3d(torch, tmp)
         _, warp3, bwd3 = phase_times3d(torch, interps3d, trainers3d)
+        del interps3d, trainers3d  # free the volumes before UPFlow
+        torch.cuda.empty_cache()
+        worst_corr = phase_corr_vs_plain(torch)
+        upflow_serving, upflow_predictors = phase_upflow_serving(torch, tmp)
+        upflow_launches, upflow_trainers = phase_upflow_training(torch, tmp)
+        phase_upflow_step_vs_cpu(torch, tmp)
+        phase_upflow_cli(torch, tmp)
+        _, corr_times = phase_upflow_times(torch, upflow_predictors, upflow_trainers)
 
     source = "opticalflowscivis_tpu_torch/csrc/warp2d.cu"
     kernels = [{
@@ -1349,6 +1866,38 @@ def main() -> int:
         "shape": list(VOLUME_SHAPE),
         "card": smi,
     }]
+    corr_source = "opticalflowscivis_tpu_torch/csrc/corr.cu"
+    corr_replaces = "opticalflowscivis_tpu/ops/pallas/correlation.py:126"
+    for name, err, launches_n, per_step in (
+            ("corr", worst_corr["fwd"], upflow_serving["corr"] + upflow_launches["corr"], 5),
+            ("corr_bwd", worst_corr["bwd"], upflow_launches["corr_bwd"], 5)):
+        t = corr_times[f"{name}_float32"]
+        kernels.append({
+            # ms, bound and plain_ms in float32 at the finest level's shape; bf16 beside
+            "name": name,
+            "route": "cuda",
+            "source": corr_source,
+            "replaces": corr_replaces,
+            "launches": launches_n,
+            "launches_per_forward": 5 if name == "corr" else 0,
+            "launches_per_train_step": per_step,
+            "max_abs_err": err,
+            "ms": t["kernel_ms"],
+            "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "bfloat16": {k: corr_times[f"{name}_bfloat16"][k] for k in
+                         ("kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+            "shape": list(CORR_SHAPES[-1]),
+            "md": 4,
+            "card": smi,
+        })
+    kernels[0]["launches"] += upflow_serving["warp2d"] + upflow_launches["warp2d"]
+    kernels[0]["launches_upflow_paths"] = upflow_serving["warp2d"] + upflow_launches["warp2d"]
+    kernels[1]["launches"] += upflow_launches["warp2d_bwd"]
+    kernels[1]["launches_upflow_paths"] = upflow_launches["warp2d_bwd"]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

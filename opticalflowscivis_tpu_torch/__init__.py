@@ -3,16 +3,21 @@
 The JAX package beside this one is the reference; this package mirrors its
 module layout so that each counterpart is found under the same path:
 
-- ``ops``        — plain PyTorch warp / resize / SSIM, and ``ops.kernels``:
-  the hand-written Hopper kernels (CUDA C++ in ``csrc/``) with their wrappers.
-- ``models``     — IFNet (RIFE student/teacher), 2-D and 3-D, as ``nn.Module``s.
-- ``bridge``     — flax params → this package's ``state_dict``.
-- ``losses``     — the RIFE training losses.
-- ``training``   — config, schedule, checkpoint and the ``Trainer``.
-- ``cli``        — the RIFE verbs: generate, train, test, inference_img / _video.
+- ``ops``        — plain PyTorch warp / resize / cost volume / occlusion /
+  census / SSIM, and ``ops.kernels``: the hand-written Hopper kernels (CUDA
+  C++ in ``csrc/``) with their wrappers.
+- ``models``     — IFNet (RIFE student/teacher), 2-D and 3-D, and UPFlowNet
+  (pyramid flow network), as ``nn.Module``s.
+- ``bridge``     — flax params → this package's ``state_dict``s.
+- ``losses``     — the RIFE training losses, the UPFlow unsupervised losses
+  and the self-supervised transform losses.
+- ``training``   — config, schedule, checkpoint, the ``Trainer`` and the
+  ``UPFlowTrainer``.
+- ``cli``        — the verbs: generate, train, test, inference_img / _video,
+  train_upflow, test_upflow.
 - ``scripts``    — ``train256`` (256³ training) and ``forward3d`` (forward timing).
 - ``inference``  — ``Interpolator`` and the series / recursive interpolators.
-- ``evalsuite``  — PSNR / SSIM metrics and the linear baseline.
+- ``evalsuite``  — PSNR / SSIM metrics, the linear baseline, flow EPE / F1.
 - ``data``       — numpy generators, pipeline and dataset registry.
 
 Conventions at the public functions are the reference's: channels-last

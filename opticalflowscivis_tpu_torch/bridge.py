@@ -1,4 +1,4 @@
-"""Weights bridge: the reference's flax ``IFNet`` params → this port's ``state_dict``.
+"""Weights bridge: the reference's flax params → this port's ``state_dict``s.
 
 ``ifnet_params_from_flax(tree)`` takes the params as a nested dict of numpy
 arrays (``{"params": {...}}`` or the inner dict) and returns a ``state_dict``
@@ -22,6 +22,19 @@ them) map to torch keys as follows, per block (``block{i}`` or ``block_tea``):
 | ``DeconvPReLU_0/PReLU_0``              | ``flow_head.up.prelu``        |
 | ``ConvTranspose_0``                    | ``flow_head.out``             |
 | ``DeconvPReLU_1/...``, ``ConvTranspose_1`` | ``mask_head.up...``, ``mask_head.out`` |
+
+``upflow_params_from_flax(tree)`` does the same for ``models.upflow.UPFlowNet``
+(conv kernels HWIO → OIHW, biases as they are).  Flax names its
+``nn.compact`` children ``ConvLeaky_{k}/Conv_0`` in call order:
+
+| flax                                              | torch                                        |
+| ------------------------------------------------- | -------------------------------------------- |
+| ``FeatureExtractor_0/ConvLeaky_{k}/Conv_0``       | ``feature_extractor.convs.{k}.conv``         |
+| ``conv_1x1_{l}/Conv_0``                           | ``conv_1x1.{l}.conv``                        |
+| ``flow_estimators/ConvLeaky_{k}/Conv_0``          | ``flow_estimators.convs.{k}.conv``           |
+| ``context_networks/ConvLeaky_{k}/Conv_0``         | ``context_networks.convs.{k}.conv``          |
+| ``sgi_model/dense_estimator_mask/ConvLeaky_{k}/Conv_0`` | ``sgi_model.dense_estimator_mask.convs.{k}.conv`` |
+| ``sgu_output_conv/ConvLeaky_{k}/Conv_0``          | ``sgu_output_conv.convs.{k}.conv``           |
 
 Every flax leaf is used exactly once; an unknown path or a collision raises.
 """
@@ -96,6 +109,36 @@ def ifnet_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     state: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree):
         key = _torch_key(path)
+        if key in state:
+            raise KeyError(f"flax leaf {'/'.join(path)} collides on {key}")
+        state[key] = torch.tensor(_convert(path, arr))
+    return state
+
+
+_UPFLOW_RULES = [
+    (re.compile(r"^FeatureExtractor_0/ConvLeaky_(\d+)/Conv_0$"), r"feature_extractor.convs.\1.conv"),
+    (re.compile(r"^conv_1x1_(\d+)/Conv_0$"), r"conv_1x1.\1.conv"),
+    (re.compile(r"^flow_estimators/ConvLeaky_(\d+)/Conv_0$"), r"flow_estimators.convs.\1.conv"),
+    (re.compile(r"^context_networks/ConvLeaky_(\d+)/Conv_0$"), r"context_networks.convs.\1.conv"),
+    (re.compile(r"^sgi_model/dense_estimator_mask/ConvLeaky_(\d+)/Conv_0$"),
+     r"sgi_model.dense_estimator_mask.convs.\1.conv"),
+    (re.compile(r"^sgu_output_conv/ConvLeaky_(\d+)/Conv_0$"), r"sgu_output_conv.convs.\1.conv"),
+]
+
+
+def upflow_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Convert flax ``UPFlowNet`` params (nested numpy dict) to a torch ``state_dict``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    state: dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(tree):
+        module, leaf = "/".join(path[:-1]), path[-1]
+        for pattern, repl in _UPFLOW_RULES:
+            if pattern.match(module) and leaf in ("kernel", "bias"):
+                key = f"{pattern.sub(repl, module)}.{_LEAF[leaf]}"
+                break
+        else:
+            raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
         if key in state:
             raise KeyError(f"flax leaf {'/'.join(path)} collides on {key}")
         state[key] = torch.tensor(_convert(path, arr))

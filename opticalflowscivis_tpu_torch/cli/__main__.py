@@ -1,8 +1,9 @@
 """CLI dispatcher: ``python -m opticalflowscivis_tpu_torch.cli <verb> [flags]``.
 
 The RIFE verbs of ``opticalflowscivis_tpu.cli`` with the same flags, on 2-D and
-3-D datasets.  ``--cpu`` selects ``device="cpu"``; without it every verb runs
-on the GPU and raises when there is none.
+3-D datasets, and the UPFlow verbs ``train_upflow`` / ``test_upflow`` on the
+SciVis datasets.  ``--cpu`` selects ``device="cpu"``; without it every verb
+runs on the GPU and raises when there is none.
 """
 
 from __future__ import annotations
@@ -13,10 +14,10 @@ import json
 import os
 import sys
 
+import numpy as np
+
 # verbs that wait for a later slice, with the ROADMAP item that brings them
 WAITING_VERBS = {
-    "train_upflow": "UPFlow is ported with its slice (ROADMAP A.9)",
-    "test_upflow": "UPFlow is ported with its slice (ROADMAP A.9)",
     "select": "time-step selection (evalsuite/selection.py) is ported with the "
               "remaining tooling (ROADMAP A.11)",
     "bench": "the port's bench comes with the first benchmark (ROADMAP A.7)",
@@ -309,12 +310,172 @@ def cmd_generate(argv):
     print(f"wrote {arr.shape} -> {path}", flush=True)
 
 
+def _upflow_bfloat16(args) -> bool:
+    """UPFlow's features compute in bfloat16 on the GPU (the training default)
+    and in float32 with ``--cpu``: PyTorch's bf16 convolutions on the CPU are
+    slow, and their backward now and then returns NaN weight gradients from
+    finite inputs."""
+    return not args.cpu
+
+
+def _upflow_exp_dir(args, exp_name: str = "") -> str:
+    return os.path.join(args.results_dir, args.dataset,
+                        "upflow" if not exp_name else f"upflow_{exp_name}")
+
+
+def cmd_train_upflow(argv):
+    p = argparse.ArgumentParser(prog="train_upflow")
+    _add_common(p)
+    p.add_argument("--epochs", type=int, default=1000)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--census_weight", type=float, default=0.0)
+    p.add_argument("--msd_weight", type=float, default=0.0)
+    p.add_argument("--photo_loss_type", default="abs_robust",
+                   choices=["abs_robust", "charbonnier", "L1", "SSIM"],
+                   help="photometric penalty (SSIM = weighted SSIM, a wider "
+                        "basin for global shifts)")
+    p.add_argument("--photo_use_occ", action="store_true",
+                   help="occlusion-normalize the photometric and census terms")
+    p.add_argument("--smooth1_weight", type=float, default=1.0,
+                   help="edge-aware first-order smoothness; on localized motion "
+                        "over a static textured background weight 1.0 can pin the "
+                        "flow at zero, 0 with census=1 converges")
+    p.add_argument("--lr", type=float, default=None,
+                   help="AdamW lr (default: the recipe's own, 1e-4 for simple, "
+                        "1e-2 for ex_runner)")
+    p.add_argument("--grad_clip", type=float, default=0.0,
+                   help="global-norm gradient clip (0 = off; needed for lr >= 1e-3)")
+    p.add_argument("--ckpt_every", type=int, default=1,
+                   help="save the checkpoint every K epochs")
+    p.add_argument("--exp_name", default="",
+                   help="suffix for the run dir (<results_dir>/<dataset>/upflow_<name>) "
+                        "so that A-B arms do not overwrite the baseline run")
+    p.add_argument("--sgu", action="store_true", help="SGU: upsample the flow under the guidance of the features")
+    p.add_argument("--recipe", default="simple", choices=["simple", "ex_runner"],
+                   help="ex_runner adds the eq / oi spatial-transform distillation")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--device_gen", type=int, default=0, metavar="PAIRS",
+                   help="train on PAIRS device-generated pan pairs per epoch "
+                        "(not ported yet)")
+    p.add_argument("--kitti_image_dir", default=None,
+                   help="KITTI multiview image dir, with --dataset kitti (not ported yet)")
+    p.add_argument("--steps_per_epoch", type=int, default=0, help="KITTI path")
+    p.add_argument("--hbm_cache", type=int, default=1000, help="KITTI path")
+    p.add_argument("--prefetch_workers", type=int, default=2, help="KITTI path")
+    args = p.parse_args(argv)
+    if args.dataset == "kitti":
+        raise SystemExit(
+            "--dataset kitti: the KITTI data paths (data/kitti.py, fit_kitti, "
+            "fit_kitti_hbm) are not ported yet (ROADMAP A.9b)"
+        )
+    if args.device_gen:
+        raise SystemExit(
+            "--device_gen: the on-device generators (data/device_synthetic.py) are "
+            "ported with the remaining data tooling (ROADMAP A.11)"
+        )
+
+    from opticalflowscivis_tpu_torch.data import load_raw_series
+    from opticalflowscivis_tpu_torch.losses.upflow import UPFlowLossConfig
+    from opticalflowscivis_tpu_torch.training.upflow_trainer import (
+        UPFlowTrainConfig,
+        UPFlowTrainer,
+        frames_to_pairs,
+    )
+
+    kw = dict(
+        batch_size=args.batch_size,
+        bfloat16=_upflow_bfloat16(args),
+        n_epoch=args.epochs,
+        grad_clip=args.grad_clip,
+        ckpt_every=args.ckpt_every,
+        exp_dir=_upflow_exp_dir(args, args.exp_name),
+        loss=UPFlowLossConfig(census_weight=args.census_weight,
+                              msd_weight=args.msd_weight,
+                              smooth_order_1_weight=args.smooth1_weight,
+                              photo_loss_type=args.photo_loss_type,
+                              photo_loss_use_occ=args.photo_use_occ),
+    )
+    if args.lr is not None:  # only override the recipe's own lr when asked
+        kw["lr"] = args.lr
+    if args.sgu:
+        kw["model"] = dataclasses.replace(UPFlowTrainConfig().model, if_sgu_upsample=True)
+    cfg = (UPFlowTrainConfig.preset_ex_runner(**kw)
+           if args.recipe == "ex_runner" else UPFlowTrainConfig(**kw))
+    spec = _spec(args.dataset)
+    tr = UPFlowTrainer(cfg, device=_device(args))
+    frames = load_raw_series(args.dataset, args.data_dir, "train")[..., :1]
+    pairs = frames_to_pairs(frames, in_channels=3)
+    # per-epoch validation EPE against the true flow where the dataset has it
+    # (loss.json gains val_epe beside val_epe_zero_flow)
+    val_pairs = val_flow = None
+    series_val = load_raw_series(args.dataset, args.data_dir, "val")
+    if (spec.has_flow and series_val.shape[-1] == 1 + spec.ndim
+            and series_val.shape[0] >= 2):
+        k = min(65, series_val.shape[0])
+        val_pairs = frames_to_pairs(series_val[:k, ..., :1], in_channels=3)
+        val_flow = series_val[: k - 1, ..., 1 : 1 + spec.ndim] * spec.gt_flow_stride
+    hist = tr.fit(pairs, epochs=args.epochs, resume=args.resume,
+                  val_pairs=val_pairs, val_flow=val_flow)
+    print(json.dumps({"final": hist[-1] if hist else None}), flush=True)
+
+
+def cmd_test_upflow(argv):
+    """Predict the flow of a SciVis test series and report its magnitude and,
+    where the dataset has ground truth, its EPE beside the zero-flow baseline."""
+    p = argparse.ArgumentParser(prog="test_upflow")
+    _add_common(p)
+    p.add_argument("--kitti_root", default=None,
+                   help="KITTI-2015 root for the Evaluation_bench protocol (not ported yet)")
+    p.add_argument("--max_frames", type=int, default=16)
+    args = p.parse_args(argv)
+    if args.kitti_root:
+        raise SystemExit(
+            "--kitti_root: the KITTI readers (data/kitti.py) are not ported yet "
+            "(ROADMAP A.9b)"
+        )
+
+    from opticalflowscivis_tpu_torch.data import load_raw_series
+    from opticalflowscivis_tpu_torch.training.upflow_trainer import (
+        UPFlowTrainConfig,
+        UPFlowTrainer,
+        frames_to_pairs,
+    )
+
+    spec = _spec(args.dataset)
+    cfg = UPFlowTrainConfig(exp_dir=_upflow_exp_dir(args), bfloat16=_upflow_bfloat16(args))
+    tr = UPFlowTrainer(cfg, device=_device(args))
+    tr.init_state()
+    tr.load_checkpoint()
+    series = load_raw_series(args.dataset, args.data_dir, "test")[: args.max_frames]
+    frames = series[..., :1]
+    pairs = frames_to_pairs(frames, in_channels=3)
+    _, extras = tr.predict(pairs)
+    flow = extras["flow_f"].float().cpu().numpy()[:, : frames.shape[1], : frames.shape[2]]
+    # the reference also draws quiver panels here; the plotting module is not
+    # ported yet (ROADMAP A.11)
+    report = {"scivis": {
+        "mean_flow_mag": float(np.mean(np.linalg.norm(flow, axis=-1))),
+        "frames": int(frames.shape[0]),
+    }}
+    if spec.has_flow and series.shape[-1] == 1 + spec.ndim:
+        # stored flow units → frame-to-frame displacement (spec.gt_flow_stride)
+        gt = series[:-1, ..., 1 : 1 + spec.ndim] * spec.gt_flow_stride
+        report["scivis"]["epe"] = float(np.linalg.norm(flow - gt, axis=-1).mean())
+        report["scivis"]["epe_zero_flow_baseline"] = float(np.linalg.norm(gt, axis=-1).mean())
+    os.makedirs(cfg.exp_dir, exist_ok=True)
+    with open(os.path.join(cfg.exp_dir, "test_report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps(report), flush=True)
+
+
 VERBS = {
     "train": cmd_train,
     "test": cmd_test,
     "inference_img": cmd_inference_img,
     "inference_video": cmd_inference_video,
     "generate": cmd_generate,
+    "train_upflow": cmd_train_upflow,
+    "test_upflow": cmd_test_upflow,
 }
 
 

@@ -31,8 +31,10 @@
 //
 // Design (simple first): one thread per output pixel (b, y, x), consecutive
 // threads on consecutive x so reads of g and writes of out / dflow coalesce; a
-// loop over C; f32 arithmetic, stored in the dtype of image and flow (f32 or
-// bf16).  Forward and backward share `make_taps`, so the backward recomputes
+// loop over C; f32 arithmetic, stored in the dtype of the image (f32 or
+// bf16).  The flow and dflow share the image's dtype, or are f32 beside a bf16
+// image: UPFlow keeps its flows in f32 while its features run in bf16, and
+// rounding a 40-pixel flow to bf16 would move the taps by a quarter pixel.  Forward and backward share `make_taps`, so the backward recomputes
 // exactly the forward's clip, coordinate clamp, corners and weights.  dflow is
 // written once per pixel with no atomics.  dimg is accumulated with f32
 // atomicAdd into an f32 buffer that the wrapper zero-fills and casts
@@ -114,9 +116,9 @@ __device__ __forceinline__ Taps make_taps(float dy, float dx, int64_t y,
   return t;
 }
 
-template <typename T>
+template <typename T, typename F>
 __global__ void warp2d_kernel(const T* __restrict__ img,
-                              const T* __restrict__ flow,
+                              const F* __restrict__ flow,
                               T* __restrict__ out, int64_t B, int64_t C,
                               int64_t H, int64_t W, int64_t fsb, int64_t fsc,
                               int64_t fsh, int64_t fsw, float r, int zeros) {
@@ -128,7 +130,7 @@ __global__ void warp2d_kernel(const T* __restrict__ img,
   const int64_t y = t % H;
   const int64_t b = t / H;
 
-  const T* f = flow + b * fsb + y * fsh + x * fsw;
+  const F* f = flow + b * fsb + y * fsh + x * fsw;
   const Taps k = make_taps(load_f32(f), load_f32(f + fsc), y, x, H, W, r, zeros);
   const float w00 = (1.f - k.ay) * (1.f - k.ax) * k.m00;
   const float w01 = (1.f - k.ay) * k.ax * k.m01;
@@ -150,10 +152,10 @@ __global__ void warp2d_kernel(const T* __restrict__ img,
 
 // NEED_DIMG = false compiles the image-gradient scatter away: the model's
 // warps sample input frames, which carry no gradient.
-template <typename T, bool NEED_DIMG>
+template <typename T, typename F, bool NEED_DIMG>
 __global__ void warp2d_bwd_kernel(
-    const T* __restrict__ img, const T* __restrict__ flow,
-    const T* __restrict__ g, T* __restrict__ dflow, float* __restrict__ dimg,
+    const T* __restrict__ img, const F* __restrict__ flow,
+    const T* __restrict__ g, F* __restrict__ dflow, float* __restrict__ dimg,
     int64_t B, int64_t C, int64_t H, int64_t W, int64_t fsb, int64_t fsc,
     int64_t fsh, int64_t fsw, int64_t gsb, int64_t gsc, int64_t gsh,
     int64_t gsw, float r, int zeros) {
@@ -165,7 +167,7 @@ __global__ void warp2d_bwd_kernel(
   const int64_t y = t % H;
   const int64_t b = t / H;
 
-  const T* f = flow + b * fsb + y * fsh + x * fsw;
+  const F* f = flow + b * fsb + y * fsh + x * fsw;
   const Taps k = make_taps(load_f32(f), load_f32(f + fsc), y, x, H, W, r, zeros);
   const float w00 = (1.f - k.ay) * (1.f - k.ax) * k.m00;
   const float w01 = (1.f - k.ay) * k.ax * k.m01;
@@ -194,24 +196,24 @@ __global__ void warp2d_bwd_kernel(
       if (w11 != 0.f) atomicAdd(d + k.o11, w11 * gc);
     }
   }
-  T* df = dflow + b * 2 * plane + y * W + x;
+  F* df = dflow + b * 2 * plane + y * W + x;
   store(df, k.live_y ? gy : 0.f);
   store(df + plane, k.live_x ? gx : 0.f);
 }
 
-template <typename T>
+template <typename T, typename F>
 void launch(const void* img, const void* flow, void* out, int64_t B, int64_t C,
             int64_t H, int64_t W, int64_t fsb, int64_t fsc, int64_t fsh,
             int64_t fsw, int64_t r, int zeros, cudaStream_t stream) {
   const int threads = 256;
   const int64_t n = B * H * W;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  warp2d_kernel<T><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(img), static_cast<const T*>(flow),
+  warp2d_kernel<T, F><<<blocks, threads, 0, stream>>>(
+      static_cast<const T*>(img), static_cast<const F*>(flow),
       static_cast<T*>(out), B, C, H, W, fsb, fsc, fsh, fsw, (float)r, zeros);
 }
 
-template <typename T>
+template <typename T, typename F>
 void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
                 void* dimg, int64_t B, int64_t C, int64_t H, int64_t W,
                 const int64_t* fs, const int64_t* gs, int64_t r, int zeros,
@@ -220,16 +222,16 @@ void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
   const int64_t n = B * H * W;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   const T* i = static_cast<const T*>(img);
-  const T* f = static_cast<const T*>(flow);
+  const F* f = static_cast<const F*>(flow);
   const T* gg = static_cast<const T*>(g);
-  T* df = static_cast<T*>(dflow);
+  F* df = static_cast<F*>(dflow);
   float* di = static_cast<float*>(dimg);
   if (dimg)
-    warp2d_bwd_kernel<T, true><<<blocks, threads, 0, stream>>>(
+    warp2d_bwd_kernel<T, F, true><<<blocks, threads, 0, stream>>>(
         i, f, gg, df, di, B, C, H, W, fs[0], fs[1], fs[2], fs[3], gs[0], gs[1],
         gs[2], gs[3], (float)r, zeros);
   else
-    warp2d_bwd_kernel<T, false><<<blocks, threads, 0, stream>>>(
+    warp2d_bwd_kernel<T, F, false><<<blocks, threads, 0, stream>>>(
         i, f, gg, df, di, B, C, H, W, fs[0], fs[1], fs[2], fs[3], gs[0], gs[1],
         gs[2], gs[3], (float)r, zeros);
 }
@@ -237,7 +239,8 @@ void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
 }  // namespace
 
 // img [B, C, H, W] contiguous; flow [B, 2, H, W] with strides (fsb, fsc, fsh, fsw);
-// out [B, C, H, W] contiguous.  All three are bf16 (bf16 = 1) or f32 (0).
+// out [B, C, H, W] contiguous.  bf16 = 0: all three f32; 1: all three bf16;
+// 2: img and out bf16, flow f32.
 extern "C" int warp2d_forward(const void* img, const void* flow, void* out,
                               int64_t B, int64_t C, int64_t H, int64_t W,
                               int64_t fsb, int64_t fsc, int64_t fsh,
@@ -245,16 +248,19 @@ extern "C" int warp2d_forward(const void* img, const void* flow, void* out,
                               int64_t bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int z = zeros ? 1 : 0;
-  if (bf16)
-    launch<__nv_bfloat16>(img, flow, out, B, C, H, W, fsb, fsc, fsh, fsw, r, z, s);
+  if (bf16 == 2)
+    launch<__nv_bfloat16, float>(img, flow, out, B, C, H, W, fsb, fsc, fsh, fsw, r, z, s);
+  else if (bf16)
+    launch<__nv_bfloat16, __nv_bfloat16>(img, flow, out, B, C, H, W, fsb, fsc, fsh, fsw, r, z, s);
   else
-    launch<float>(img, flow, out, B, C, H, W, fsb, fsc, fsh, fsw, r, z, s);
+    launch<float, float>(img, flow, out, B, C, H, W, fsb, fsc, fsh, fsw, r, z, s);
   return (int)cudaGetLastError();
 }
 
 // img [B, C, H, W] contiguous; flow [B, 2, H, W] and g [B, C, H, W] with the
-// given strides; dflow [B, 2, H, W] contiguous, every element written.  img,
-// flow, g and dflow are bf16 (bf16 = 1) or f32 (0).  dimg is null (no image
+// given strides; dflow [B, 2, H, W] contiguous, every element written.  bf16 =
+// 0: img, flow, g and dflow f32; 1: all bf16; 2: img and g bf16, flow and dflow
+// f32.  dimg is null (no image
 // gradient wanted) or a zero-filled contiguous f32 [B, C, H, W] buffer that
 // the kernel adds into.
 extern "C" int warp2d_backward(const void* img, const void* flow, const void* g,
@@ -267,9 +273,11 @@ extern "C" int warp2d_backward(const void* img, const void* flow, const void* g,
   const int z = zeros ? 1 : 0;
   const int64_t fs[4] = {fsb, fsc, fsh, fsw};
   const int64_t gs[4] = {gsb, gsc, gsh, gsw};
-  if (bf16)
-    launch_bwd<__nv_bfloat16>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
+  if (bf16 == 2)
+    launch_bwd<__nv_bfloat16, float>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
+  else if (bf16)
+    launch_bwd<__nv_bfloat16, __nv_bfloat16>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
   else
-    launch_bwd<float>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
+    launch_bwd<float, float>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,7 @@ channels 1..ndim the optional GT flow.
   on the device, from one numpy shuffle stream.
 
 The background-thread ``PrefetchSampler`` is ported with the datasets that
-decode per sample (ROADMAP A.9).
+decode per sample (ROADMAP A.9b).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Loss library of the RIFE training path, as plain functions.
+"""Loss library of the RIFE and UPFlow training paths, as plain functions.
 
 Counterpart of ``opticalflowscivis_tpu/losses``.  ``lap_loss`` and SSIM live
-in ``ops`` (shared with the metrics).  The perceptual (VGG), UPFlow and
-self-supervised losses are ported with their models (ROADMAP A.9, A.10).
+in ``ops`` (shared with the metrics).  The perceptual (VGG) loss is ported
+with the remaining models (ROADMAP A.10).
 """
 
 from opticalflowscivis_tpu_torch.losses.basic import (
@@ -15,8 +15,17 @@ from opticalflowscivis_tpu_torch.losses.basic import (
     sobel_loss,
 )
 from opticalflowscivis_tpu_torch.losses.rife import RIFELossWeights, rife_losses
+from opticalflowscivis_tpu_torch.losses.selfsup import (
+    SPTransformConfig,
+    eq_loss,
+    oi_loss,
+    sp_transform_pair,
+)
+from opticalflowscivis_tpu_torch.losses.upflow import UPFlowLossConfig, upflow_losses
 
 __all__ = [
     "charbonnier", "epe", "l1_loss", "photometric_loss", "smoothness_loss",
     "sobel_loss", "flow_supervision", "RIFELossWeights", "rife_losses",
+    "UPFlowLossConfig", "upflow_losses",
+    "SPTransformConfig", "sp_transform_pair", "eq_loss", "oi_loss",
 ]

@@ -11,12 +11,16 @@ with ``reset_launches`` before driving the path and reads them after).
 | `warp2d_bwd` | `csrc/warp2d.cu` | `ops/pallas/warp.py::_backward_fused` (its VJP)     |
 | `warp3d`     | `csrc/warp3d.cu` | `ops/warp.py::backward_warp3d_slab` (scan of `warp2d` over z-taps) |
 | `warp3d_bwd` | `csrc/warp3d.cu` | its VJP (scan of `_backward_fused` over z-taps)      |
+| `corr`       | `csrc/corr.cu`   | `ops/pallas/correlation.py::cost_volume_pallas` forward |
+| `corr_bwd`   | `csrc/corr.cu`   | its VJP (`_forward_bwd`, jnp on the TPU)            |
 
-A backward call is one launch of one kernel, with or without the image
-gradient.
+A backward call is one launch of one kernel: of a warp with or without the
+image gradient, of the cost volume for one feature map's gradient or both.
 """
 
-LAUNCHES: dict[str, int] = {"warp2d": 0, "warp2d_bwd": 0, "warp3d": 0, "warp3d_bwd": 0}
+LAUNCHES: dict[str, int] = {
+    "warp2d": 0, "warp2d_bwd": 0, "warp3d": 0, "warp3d_bwd": 0, "corr": 0, "corr_bwd": 0,
+}
 
 
 def reset_launches() -> None:

@@ -9,8 +9,10 @@ kernel over z-taps on the TPU, one 8-corner gather here).  Both dispatch by
 the tensors' device:
 
 - CUDA tensors launch the forward kernel (image and flow both f32 or both
-  bf16), or raise on anything the kernel does not take; a gradient through it
-  launches the backward kernel.  There is no fallback to the plain version;
+  bf16; ``warp2d`` also takes a bf16 image with an f32 flow, as UPFlow warps
+  its features), or raise on anything the kernel does not take; a gradient
+  through it launches the backward kernel.  There is no fallback to the plain
+  version;
 - CPU tensors go to the plain version, ``ops.warp.warp2d_plain`` /
   ``warp3d_plain``, whose backward is PyTorch's autograd.
 
@@ -57,6 +59,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _type_code(img: torch.Tensor, flow: torch.Tensor) -> int:
+    """The 2-D kernels' type flag: 0 all f32, 1 all bf16, 2 bf16 image with an
+    f32 flow (and an f32 ``dflow``)."""
+    if img.dtype == torch.float32:
+        return 0
+    return 1 if flow.dtype == torch.bfloat16 else 2
+
+
 def _launch(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str) -> torch.Tensor:
     b, c, h, w = img.shape
     out = torch.empty_like(img, memory_format=torch.contiguous_format)
@@ -66,7 +76,7 @@ def _launch(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str) -> torc
         err = fn(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
             b, c, h, w, *flow.stride(),
-            r, int(padding == "zeros"), int(img.dtype == torch.bfloat16), stream,
+            r, int(padding == "zeros"), _type_code(img, flow), stream,
         )
     if err:
         raise RuntimeError(f"warp2d kernel launch failed with CUDA error {err}")
@@ -103,7 +113,7 @@ def _launch_backward(
             img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), dflow.data_ptr(),
             acc.data_ptr() if need_dimg else None,
             b, c, h, w, *flow.stride(), *grad_out.stride(),
-            r, int(padding == "zeros"), int(img.dtype == torch.bfloat16), stream,
+            r, int(padding == "zeros"), _type_code(img, flow), stream,
         )
     if err:
         raise RuntimeError(f"warp2d backward kernel launch failed with CUDA error {err}")
@@ -130,10 +140,13 @@ class _Warp2dKernel(torch.autograd.Function):
 def _check_cuda_args(img: torch.Tensor, flow: torch.Tensor, name: str = "warp2d") -> None:
     if flow.device != img.device:
         raise ValueError(f"img on {img.device} but flow on {flow.device}")
-    if img.dtype not in _DTYPES or flow.dtype != img.dtype:
+    same = img.dtype in _DTYPES and flow.dtype == img.dtype
+    mixed = name == "warp2d" and img.dtype == torch.bfloat16 and flow.dtype == torch.float32
+    if not (same or mixed):
         raise TypeError(
-            f"{name} kernel takes img and flow both float32 or both bfloat16, "
-            f"got {img.dtype} and {flow.dtype}"
+            f"{name} kernel takes img and flow both float32 or both bfloat16"
+            + (", or a bfloat16 img with a float32 flow" if name == "warp2d" else "")
+            + f", got {img.dtype} and {flow.dtype}"
         )
     if not img.is_contiguous():
         raise ValueError(f"{name} kernel needs a contiguous channels-first image")
@@ -147,7 +160,8 @@ def warp2d(
     """Warp ``img [B, C, H, W]`` by ``flow [B, 2, H, W]`` (dy, dx), clipped to ±r.
 
     ``r = 0`` is unbounded.  Returns ``[B, C, H, W]`` in ``img``'s dtype;
-    on CUDA, image and flow share one dtype, float32 or bfloat16.
+    on CUDA, image and flow share one dtype, float32 or bfloat16, or the
+    image is bfloat16 and the flow float32 (its gradient then float32 too).
     Differentiable in ``img`` and ``flow``; a flow component with
     ``|flow| >= r`` gets no gradient.
     """
@@ -169,6 +183,24 @@ def warp2d(
         raise ValueError(f"warp2d runs on cuda or cpu tensors, got {img.device}")
     _check_cuda_args(img, flow)
     return _Warp2dKernel.apply(img, flow, r, padding)
+
+
+def warp2d_with_mask(
+    img: torch.Tensor, flow: torch.Tensor, padding: str = "zeros"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unbounded ``warp2d`` and its validity mask ``[B, 1, H, W]``: the share of
+    bilinear weight that fell inside the image, in ``img``'s dtype.
+
+    The mask is the warp of an image of ones under ``'zeros'`` padding (a
+    second launch on the card) and carries no gradient: callers compare it
+    with a threshold.
+    """
+    warped = warp2d(img, flow, 0, padding)
+    with torch.no_grad():
+        ones = torch.ones((img.shape[0], 1) + tuple(img.shape[2:]), dtype=img.dtype,
+                          device=img.device)
+        mask = warp2d(ones, flow, 0, "zeros")
+    return warped, mask
 
 
 # -- 3-D ------------------------------------------------------------------------

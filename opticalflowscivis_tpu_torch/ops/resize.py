@@ -8,10 +8,20 @@ computes.
 Flow fields are pixel displacements, so ``resize_flow`` also scales each flow
 channel by the size ratio of its own axis.
 
+``align_corners=True`` is the endpoint-aligned resize of the UPFlow path
+(out coord ``i`` samples in coord ``i * (src - 1) / (dst - 1)``), which is
+``F.interpolate(align_corners=True)`` wherever source and target have more
+than one sample per axis.  Along an axis of size 1 the reference
+(``jax.image.scale_and_translate``) differs from PyTorch, and the port follows
+the reference: a source of size 1 gives its value at index 0 and zero beyond
+(PyTorch repeats it), a target of size 1 gives zero (PyTorch takes index 0).
+UPFlow meets the first at 64 x 64 inputs, where its coarsest plane is 1 x 1.
+``method="nearest"`` picks ``floor((i + 0.5) * src / dst)``
+(``F.interpolate(mode="nearest-exact")``), as ``jax.image.resize`` does.
+
 The public functions take channels-last ``[B, *S, C]``; the ``*_nchw`` forms
-take the channels-first tensors the model carries (``[B, C, H, W]`` or
-``[B, C, Z, Y, X]``).  The align-corners branch is
-UPFlow's and is ported with it (ROADMAP A.9).
+take the channels-first tensors the models carry (``[B, C, H, W]`` or
+``[B, C, Z, Y, X]``).
 """
 
 from __future__ import annotations
@@ -33,51 +43,91 @@ def _check_rank(x: torch.Tensor, spatial) -> int:
     return ndim
 
 
-def resize_nchw(x: torch.Tensor, spatial: tuple[int, ...]) -> torch.Tensor:
-    """Half-pixel linear resize of ``[B, C, *S]`` to ``[B, C, *spatial]``."""
+def _resize_align_corners(x: torch.Tensor, spatial: tuple[int, ...], ndim: int) -> torch.Tensor:
+    src = tuple(x.shape[2:])
+    # an axis that keeps its size 1 is an identity for both frameworks; one
+    # that grows from 1 or shrinks to 1 follows the reference (module docstring)
+    grow = [s == 1 and d > 1 for s, d in zip(src, spatial)]
+    shrink = [s > 1 and d == 1 for s, d in zip(src, spatial)]
+    out = F.interpolate(x, size=tuple(spatial), mode=_MODES[ndim], align_corners=True)
+    if any(shrink):
+        return torch.zeros_like(out)
+    for axis, g in enumerate(grow):
+        if g:
+            keep = torch.zeros(spatial[axis], dtype=out.dtype, device=out.device)
+            keep[0] = 1
+            shape = [1] * out.dim()
+            shape[2 + axis] = -1
+            out = out * keep.view(shape)
+    return out
+
+
+def resize_nchw(x: torch.Tensor, spatial: tuple[int, ...], method: str = "linear",
+                align_corners: bool = False) -> torch.Tensor:
+    """Resize ``[B, C, *S]`` to ``[B, C, *spatial]``: linear (half-pixel, or
+    endpoint-aligned with ``align_corners``) or ``"nearest"``."""
     ndim = _check_rank(x, spatial)
+    if method not in ("linear", "nearest"):
+        raise ValueError(f"method must be 'linear' or 'nearest', got {method!r}")
     if tuple(x.shape[2:]) == tuple(spatial):
         return x
+    if align_corners:
+        if method != "linear":
+            raise ValueError("align_corners=True is a linear resize")
+        return _resize_align_corners(x, tuple(spatial), ndim)
+    if method == "nearest":
+        return F.interpolate(x, size=tuple(spatial), mode="nearest-exact")
     return F.interpolate(x, size=tuple(spatial), mode=_MODES[ndim], align_corners=False)
 
 
-def resize_flow_nchw(flow: torch.Tensor, spatial: tuple[int, ...]) -> torch.Tensor:
+def resize_flow_nchw(flow: torch.Tensor, spatial: tuple[int, ...], method: str = "linear",
+                     align_corners: bool = False) -> torch.Tensor:
     """Resize ``[B, k * ndim, *S]`` displacement groups and rescale the values
     of each channel by the size ratio of its own axis."""
     ndim = flow.dim() - 2
     if flow.shape[1] % ndim:
         raise ValueError(f"flow channels {flow.shape[1]} not a multiple of ndim {ndim}")
     src = flow.shape[2:]
-    out = resize_nchw(flow, spatial)
+    out = resize_nchw(flow, spatial, method, align_corners)
     ratios = torch.tensor(
         [t / s for t, s in zip(spatial, src)], dtype=out.dtype, device=out.device
     )
     return out * ratios.repeat(flow.shape[1] // ndim).view((1, -1) + (1,) * ndim)
 
 
-def _check_align(align_corners: bool) -> None:
-    if align_corners:
-        raise NotImplementedError(
-            "align_corners=True is UPFlow's resize and is ported with it "
-            "(ROADMAP A.9)"
-        )
+def upsample_flow_as_nchw(flow: torch.Tensor, ref: torch.Tensor,
+                          method: str = "linear") -> torch.Tensor:
+    """Channels-first ``upsample_flow_as``: match ``ref``'s spatial shape with
+    ``align_corners=True`` and rescale the values."""
+    return resize_flow_nchw(flow, tuple(ref.shape[2:]), method, align_corners=True)
 
 
 def resize_spatial(
-    x: torch.Tensor, spatial: tuple[int, ...], align_corners: bool = False
+    x: torch.Tensor, spatial: tuple[int, ...], method: str = "linear",
+    align_corners: bool = False,
 ) -> torch.Tensor:
-    """Resize channels-last ``[B, *S, C]`` to ``[B, *spatial, C]``."""
-    _check_align(align_corners)
-    return resize_nchw(x.movedim(-1, 1), spatial).movedim(1, -1)
+    """Resize channels-last ``[B, *S, C]`` to ``[B, *spatial, C]``.
+
+    ``align_corners=False`` is half-pixel (the RIFE path); ``align_corners=True``
+    is endpoint-aligned (the UPFlow path).
+    """
+    return resize_nchw(x.movedim(-1, 1), spatial, method, align_corners).movedim(1, -1)
 
 
-def resize_like(x: torch.Tensor, ref: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
-    return resize_spatial(x, tuple(ref.shape[1:-1]), align_corners)
+def resize_like(x: torch.Tensor, ref: torch.Tensor, method: str = "linear",
+                align_corners: bool = False) -> torch.Tensor:
+    return resize_spatial(x, tuple(ref.shape[1:-1]), method, align_corners)
 
 
 def resize_flow(
-    flow: torch.Tensor, spatial: tuple[int, ...], align_corners: bool = False
+    flow: torch.Tensor, spatial: tuple[int, ...], method: str = "linear",
+    align_corners: bool = False,
 ) -> torch.Tensor:
     """Resize a channels-last displacement field and rescale it per axis."""
-    _check_align(align_corners)
-    return resize_flow_nchw(flow.movedim(-1, 1), spatial).movedim(1, -1)
+    return resize_flow_nchw(flow.movedim(-1, 1), spatial, method, align_corners).movedim(1, -1)
+
+
+def upsample_flow_as(flow: torch.Tensor, ref: torch.Tensor, method: str = "linear") -> torch.Tensor:
+    """UPFlow's ``upsample2d_flow_as(if_rate=True)``: match channels-last
+    ``ref``'s spatial shape with ``align_corners=True`` and rescale the values."""
+    return resize_flow(flow, tuple(ref.shape[1:-1]), method, align_corners=True)

@@ -21,6 +21,14 @@ in-plane flow unbounded), then one 8-corner gather.  In ``'zeros'`` mode
 dropping out-of-range corners on all three axes equals the slab's
 ``in-plane zeros x clip(sum of in-range z weights)``.
 
+On CUDA tensors the public 2-D ``backward_warp`` goes through the ``warp2d``
+kernel with ``r = 0`` (UPFlow's warps are unbounded); its validity mask is then
+a second launch on an image of ones under ``'zeros'`` padding, the same
+function as the sum of in-range weights, and carries no gradient (every caller
+only compares it with a threshold).  ``boundary_dilated_warp`` samples an image
+larger than the flow's grid, which is not ``warp2d``'s shape: it is a plain
+gather on any device.
+
 Flow convention: ``flow[..., i]`` displaces along spatial axis ``i``
 (row-major): (dy, dx) in 2-D, (dz, dy, dx) in 3-D.  The public functions take
 channels-last ``[B, *S, C]`` images; ``sample_channels_first`` /
@@ -222,12 +230,49 @@ def backward_warp(
     (dz, dy, dx).  Unbounded: the counterpart of the reference's
     ``ops.warp.backward_warp``.
     """
-    _check_rank(img, flow, "flow")
+    ndim = _check_rank(img, flow, "flow")
+    if ndim == 2 and img.device.type == "cuda":
+        return _backward_warp_kernel(img, flow, padding, return_mask)
     compute = torch.promote_types(img.dtype, torch.float32)
     base = _base_grid(tuple(img.shape[1:-1]), compute, img.device)
     fl = flow.to(compute)
     coords = torch.stack([g + fl[..., i] for i, g in enumerate(base)], dim=-1)
     return multilinear_sample(img, coords, padding, return_mask)
+
+
+def _backward_warp_kernel(img: torch.Tensor, flow: torch.Tensor, padding: str,
+                          return_mask: bool):
+    """The 2-D ``backward_warp`` through ``ops.kernels.warp.warp2d(r=0)``:
+    channels-last in and out.  The kernel reads a contiguous channels-first
+    image, so a truly channels-last image (a batch's frames, 1-3 channels) is
+    copied once; a channels-last view of a channels-first tensor is not."""
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp2d_with_mask
+
+    im, fl = img.movedim(-1, 1).contiguous(), flow.movedim(-1, 1)
+    if not return_mask:
+        return warp2d(im, fl, 0, padding).movedim(1, -1)
+    warped, mask = warp2d_with_mask(im, fl, padding)
+    return warped.movedim(1, -1), mask.movedim(1, -1)
+
+
+def boundary_dilated_warp(img_raw: torch.Tensor, flow: torch.Tensor,
+                          start: torch.Tensor) -> torch.Tensor:
+    """Warp the *uncropped* channels-last image for a crop-sized flow field.
+
+    The training crop sits at offset ``start [B, ndim]`` inside ``img_raw``;
+    sampling at (crop grid + start + flow) lets flow vectors that point
+    outside the crop (but inside the raw image) hit real pixels instead of
+    padding.  Returns a crop-shaped warped image ``[B, *S_crop, C]``.
+    """
+    ndim = _check_rank(img_raw, flow, "flow")
+    if start.shape != (flow.shape[0], ndim):
+        raise ValueError(f"start {tuple(start.shape)} is not [B, {ndim}]")
+    compute = torch.promote_types(img_raw.dtype, torch.float32)
+    base = _base_grid(tuple(flow.shape[1:-1]), compute, flow.device)
+    fl = flow.to(compute)
+    offset = start.to(compute).view((-1,) + (1,) * ndim + (ndim,))
+    coords = tuple(g + offset[..., i] + fl[..., i] for i, g in enumerate(base))
+    return sample_channels_first(_channels_first(img_raw), coords, "border").movedim(1, -1)
 
 
 def backward_warp_bounded(

@@ -9,8 +9,14 @@ from opticalflowscivis_tpu_torch.training.trainer import (
     make_train_step,
     split_batch,
 )
+from opticalflowscivis_tpu_torch.training.upflow_trainer import (
+    UPFlowTrainConfig,
+    UPFlowTrainer,
+    frames_to_pairs,
+)
 
 __all__ = [
     "ModelConfig", "OptimConfig", "TrainConfig", "warmup_cosine",
     "Trainer", "TrainState", "build_model", "make_train_step", "split_batch",
+    "UPFlowTrainConfig", "UPFlowTrainer", "frames_to_pairs",
 ]

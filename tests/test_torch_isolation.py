@@ -44,7 +44,9 @@ def test_importing_every_module_loads_no_jax():
     names = _module_names()
     assert len(names) >= 29
     for module in ("losses.rife", "training.trainer", "training.checkpoint", "cli.__main__",
-                   "ops.pyramid", "scripts.train256"):
+                   "ops.pyramid", "scripts.train256", "ops.kernels.correlation",
+                   "models.upflow", "losses.upflow", "losses.selfsup",
+                   "training.upflow_trainer", "evalsuite.flow_eval"):
         assert f"opticalflowscivis_tpu_torch.{module}" in names
 
 

@@ -7,7 +7,8 @@ This file imports no JAX, so it also runs on a GPU host without JAX:
 
 Tests marked ``cuda`` skip without a CUDA device: a CUDA kernel has no CPU
 mode.  Tolerances: f32 1e-5 (the same 4 taps summed in another order), bf16
-one ulp of the output (the f32 sums may round to neighbouring bf16 values).
+one ulp of the output (the f32 sums may round to neighbouring bf16 values);
+the cost volume's sums cancel, so its bf16 cases get the f32 tolerance on top.
 The backward is held against autograd through the plain version: float32
 within 1e-4 of the largest gradient (``dimg`` sums up to a few dozen
 contributions per source pixel with atomics, in an order that changes from
@@ -414,3 +415,192 @@ def test_3d_train_step_on_card_goes_through_both_kernels(remat):
             assert LAUNCHES == before
     for key, ref in parts["cpu"].items():
         assert float(parts["cuda"][key]) == pytest.approx(float(ref), abs=1e-4), key
+
+
+# -- corr -------------------------------------------------------------------------
+
+
+def test_cost_volume_wrapper_cpu_runs_plain_and_checks_its_arguments():
+    """CPU tensors take the plain version (no launch); what the kernel does
+    not take raises before any device is asked for."""
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
+
+    f1, f2 = torch.randn(2, 5, 7, 9), torch.randn(2, 5, 7, 9)
+    before = dict(LAUNCHES)
+    out = cost_volume_kernel(f1, f2, 2)
+    assert LAUNCHES == before and out.shape == (2, 25, 7, 9)
+    assert torch.equal(out, cost_volume_plain(f1, f2, 2))
+    for bad in ((f1, f2[:, :4], 2), (f1, f2, -1), (f1[0], f2[0], 2)):
+        with pytest.raises(ValueError):
+            cost_volume_kernel(*bad)
+
+
+def _corr_inputs(seed, shape, dt, layout):
+    rng = np.random.default_rng(seed)
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+    f1 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(dt)
+    f2 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(dt)
+    return f1.contiguous(memory_format=fmt), f2.contiguous(memory_format=fmt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("md", [0, 1, 2, 4, 5])
+def test_corr_kernel_matches_plain_on_card(md, dtype, layout):
+    """Ragged shapes (tiles cut on both axes, channels not a multiple of the
+    staging step), the tiled kernels (md 1-4) and the one-thread-per-element
+    ones (md 0 and 5)."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
+
+    dt = getattr(torch, dtype)
+    for shape in ((2, 13, 7, 11), (3, 20, 19, 45)):
+        f1, f2 = _corr_inputs(md, shape, dt, layout)
+        before = dict(LAUNCHES)
+        out = cost_volume_kernel(f1, f2, md)
+        torch.cuda.synchronize()
+        assert LAUNCHES["corr"] == before["corr"] + 1
+        ref = cost_volume_plain(f1, f2, md)
+        assert LAUNCHES["corr"] == before["corr"] + 1  # the plain version launches nothing
+        assert out.dtype == dt and out.is_contiguous() and out.shape == ref.shape
+        diff = (out.float() - ref.float()).abs()
+        if dt == torch.float32:
+            assert float(diff.max()) <= VAL_TOL, shape
+        else:
+            # one bf16 ulp at the larger of the two magnitudes (frexp and ldexp
+            # are exact) on top of the float32 tolerance: the sums cancel, so
+            # their float32 error is absolute and near zero exceeds any ulp
+            mag = torch.maximum(out.float().abs(), ref.float().abs()).clamp_min(2.0**-126)
+            ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+            assert bool((diff <= ulp + VAL_TOL).all()), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", ["both", "f1", "f2"])
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("md", [0, 2, 4, 5])
+def test_corr_kernel_backward_matches_plain_on_card(md, dtype, layout, needs):
+    """``df1`` / ``df2`` against autograd through the plain version, each alone
+    and both (one launch each time); float32 within 1e-4 and bfloat16 within
+    2e-2 of the largest gradient (sums of up to 121 terms, rounded once)."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
+
+    dt = getattr(torch, dtype)
+    shape = (2, 20, 11, 37)
+    f1, f2 = _corr_inputs(20 + md, shape, dt, layout)
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, (2 * md + 1) ** 2, 11, 37)).astype(np.float32)).cuda().to(dt)
+    g = g.contiguous(memory_format=fmt)
+
+    def through(fn):
+        a = f1.detach().clone(memory_format=torch.preserve_format).requires_grad_(needs != "f2")
+        b = f2.detach().clone(memory_format=torch.preserve_format).requires_grad_(needs != "f1")
+        fn(a, b, md).backward(g)
+        return a.grad, b.grad
+
+    before = dict(LAUNCHES)
+    got = through(cost_volume_kernel)
+    torch.cuda.synchronize()
+    assert LAUNCHES["corr"] == before["corr"] + 1
+    assert LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1
+    want = through(cost_volume_plain)
+    assert LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    for name, x, y in zip(("df1", "df2"), got, want):
+        if y is None:
+            assert x is None, name
+            continue
+        assert x.dtype == dt and x.shape == shape
+        assert float((x.float() - y.float()).abs().max()) <= rel * float(y.float().abs().max()), name
+
+
+@pytest.mark.cuda
+def test_corr_on_card_raises_on_what_the_kernel_does_not_take():
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
+
+    f = torch.zeros(1, 4, 8, 8, device="cuda")
+    with pytest.raises(TypeError):
+        cost_volume_kernel(f, f.bfloat16(), 2)
+    with pytest.raises(TypeError):
+        cost_volume_kernel(f.half(), f.half(), 2)
+    with pytest.raises(ValueError):
+        cost_volume_kernel(f, f.cpu(), 2)
+    with pytest.raises(ValueError, match="empty"):
+        cost_volume_kernel(f[:0], f[:0], 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+def test_warp2d_bf16_image_with_float32_flow_on_card(padding):
+    """UPFlow's feature warps: a bf16 image under a float32 flow of up to 40 px,
+    forward within one bf16 ulp, ``dimg`` bf16 and ``dflow`` float32 within
+    2e-2 of the largest gradient."""
+    _cuda_or_skip()
+    img, flow = _inputs(11, (2, 24, 72, 5), 20.0)
+    g = np.random.default_rng(12).standard_normal(img.shape).astype(np.float32)
+    img_t = torch.from_numpy(img).permute(0, 3, 1, 2).contiguous().cuda().bfloat16()
+    flow_t = torch.from_numpy(np.round(flow * 4) / 4 + 0.11).permute(0, 3, 1, 2).cuda()
+    g_t = torch.from_numpy(g).permute(0, 3, 1, 2).cuda().bfloat16()
+
+    def through(fn):
+        im = img_t.detach().clone().requires_grad_(True)
+        fl = flow_t.detach().clone().requires_grad_(True)
+        out = fn(im, fl, 0, padding)
+        out.backward(g_t)
+        return out.detach(), im.grad, fl.grad
+
+    before = dict(LAUNCHES)
+    out, dimg, dflow = through(warp2d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp2d"] == before["warp2d"] + 1
+    assert LAUNCHES["warp2d_bwd"] == before["warp2d_bwd"] + 1
+    ref, dimg_ref, dflow_ref = through(tw.warp2d_plain)
+    assert out.dtype == torch.bfloat16 and dimg.dtype == torch.bfloat16
+    assert dflow.dtype == torch.float32
+    assert bool(((out.float() - ref.float()).abs() <= _ulp_bf16(ref)).all())
+    for x, y in ((dimg, dimg_ref), (dflow, dflow_ref)):
+        assert float((x.float() - y.float()).abs().max()) <= 2e-2 * float(y.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bfloat16", [False, True], ids=["f32", "bf16"])
+def test_upflow_train_step_on_card_goes_through_the_kernels(bfloat16, tmp_path):
+    """One narrow UPFlow train step on the card: 5 + 5 cost-volume launches,
+    12 warps (4 feature warps with their masks, 2 occlusion, 2 photometric)
+    and 6 warp backwards; in float32 its parts agree with the CPU (1e-3)."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.models import UPFlowConfig
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainConfig, UPFlowTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = UPFlowConfig(num_chs=(3, 4, 8, 8, 12, 16, 16), estimator_f_channels=(16, 16, 12, 8, 8),
+                         context_f_channels=(16, 16, 16, 12, 8, 8, 2), search_range=2,
+                         if_norm_before_cost_volume=True, norm_moments_across_channels=False,
+                         norm_moments_across_images=False)
+    cfg = UPFlowTrainConfig(batch_size=2, bfloat16=bfloat16, exp_dir=str(tmp_path), model=model)
+    rng = np.random.default_rng(0)
+    im = rng.uniform(0.05, 1, (2, 64, 128, 3)).astype(np.float32)
+    pairs = np.stack([im, np.roll(im, 2, axis=2)], axis=1)
+    parts = {}
+    for device in ("cuda", "cpu"):
+        tr = UPFlowTrainer(cfg, device=device)
+        tr.init_state()
+        before = dict(LAUNCHES)
+        parts[device] = tr.train_step(tr._batch(tr.upload(pairs)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            delta = {k: LAUNCHES[k] - before[k] for k in before if LAUNCHES[k] != before[k]}
+            assert delta == {"corr": 5, "corr_bwd": 5, "warp2d": 12, "warp2d_bwd": 6}
+        else:
+            assert LAUNCHES == before
+    if not bfloat16:
+        for key, ref in parts["cpu"].items():
+            assert float(parts["cuda"][key]) == pytest.approx(float(ref), rel=1e-3, abs=1e-6), key

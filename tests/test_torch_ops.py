@@ -52,8 +52,11 @@ def test_resize_like_and_identity():
     )
     same = torch.from_numpy(x)
     assert tresize.resize_spatial(same, (20, 30)).data_ptr() == same.data_ptr()
-    with pytest.raises(NotImplementedError):
-        tresize.resize_spatial(same, (10, 15), align_corners=True)
+    np.testing.assert_allclose(
+        tresize.resize_spatial(same, (10, 15), align_corners=True).numpy(),
+        np.asarray(jresize.resize_spatial(jnp.asarray(x), (10, 15), align_corners=True)),
+        atol=1e-5,
+    )
 
 
 @pytest.mark.parametrize("valid", [False, True])
