@@ -17,7 +17,8 @@ the same weights on the CPU, and times them.
 Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time;
   2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
-     case against a stated tolerance;
+     case against a stated tolerance; the 2-D warp also at UPFlow's feature
+     shapes, in float32 and with a bf16 image under a float32 flow;
   3. 2-D serving path at full width, f32 and bf16, with launch counts, the CPU
      comparison and the series metrics against the linear baseline;
   4. 2-D training path at full width, f32 and bf16: ``fit`` lowers ``loss_G``,
@@ -34,7 +35,8 @@ Phases, printed in order:
   7. the cost volume kernels against ``cost_volume_plain`` and autograd through
      it, at the five shapes UPFlow gives them and odd ones;
   8. UPFlow at full width at 256 x 832: ``predict`` on 8 pairs (5 ``corr``
-     launches per forward), the CPU comparison; ``fit`` in f32 and bf16 (5 + 5
+     launches per forward), the bf16 model's flow within a bound of the
+     float32 model's, the CPU comparison; ``fit`` in f32 and bf16 (5 + 5
      ``corr`` / ``corr_bwd`` launches per train step, 10 + 10 with the
      ex_runner recipe), one train step against the CPU, checkpoint round trip,
      both decode forms, the CLI verbs;
@@ -64,7 +66,8 @@ sys.path.insert(0, REPO)
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+F32_FLOPS_PER_S = 67e12  # float32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # bf16 operands, dense, on the tensor cores
 
 WARP_SHAPE = (32, 160, 224, 1)  # [B, H, W, C] of the serving path's warps
 TRAIN_SHAPE = (64, 128, 128, 1)  # [B, H, W, C] of the training path's warps
@@ -90,6 +93,22 @@ UPFLOW_BATCH = 8
 CORR_SHAPES = ((16, 196, 4, 13), (16, 128, 8, 26), (16, 96, 16, 52), (16, 64, 32, 104),
                (16, 32, 64, 208))
 CORR_ODD_SHAPE = (2, 7, 11, 13)
+# [B, H, W, C] of UPFlow's feature warps at the finest and the coarsest decoded
+# level of the same forward; the features are bf16 by default, the flow float32
+UPFLOW_WARP_SHAPES = ((16, 64, 208, 32), (16, 4, 13, 196))
+# bf16 model against the float32 one from the same seed-0 weights, on flow_f:
+# the largest difference as a share of the float32 flow's largest component
+# (bf16 rounding of the features through five decode levels, each doubling the
+# flow it takes over; a validity mask may flip at a pixel on the threshold),
+# and the mean difference as a share of the mean flow magnitude.  Both about
+# twice what an H100 measured (0.044 and 0.0044).
+UPFLOW_BF16_FLOW_MAX_TOL = 0.1
+UPFLOW_BF16_FLOW_MEAN_TOL = 0.01
+
+
+# launches of one call of each path as this run counted them (kernel -> count),
+# filled by the phases and written into the kernels line
+PER_CALL: dict[str, dict[str, int]] = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -181,16 +200,18 @@ def within_one_bf16_ulp(out, ref, slack: float = 0.0):
     return (out - ref).abs() <= bf16_ulp(torch.maximum(out.abs(), ref.abs())) + slack
 
 
-def warp_inputs(shape, dtype, seed: int, scale: float = 10.0, channels_last=False):
+def warp_inputs(shape, dtype, seed: int, scale: float = 10.0, channels_last=False,
+                flow_dtype=None):
     """Image and a (dy, dx) flow that is a channel slice of a 4-channel flow,
     as the model passes it (NCHW, or the channels-last layout cuDNN may
-    produce); N(0, scale) flows, some beyond ±16."""
+    produce); N(0, scale) flows, some beyond ±16.  ``flow_dtype``: the flow's
+    type where it is not the image's."""
     import torch
 
     b, h, w, c = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     img = torch.rand((b, c, h, w), generator=g, device="cuda").to(dtype)
-    flow4 = (torch.randn((b, 4, h, w), generator=g, device="cuda") * scale).to(dtype)
+    flow4 = (torch.randn((b, 4, h, w), generator=g, device="cuda") * scale).to(flow_dtype or dtype)
     if channels_last:
         flow4 = flow4.contiguous(memory_format=torch.channels_last)
     return img, flow4[:, 2:4]
@@ -243,6 +264,33 @@ def phase_kernel_vs_plain(torch):
                     print(f"warp2d {list(shape)} {padding:6s} r={r:2d} {name:8s} "
                           f"max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
                     check(ok, f"warp2d kernel disagrees with plain ({shape}, {padding}, r={r}, {name})")
+    # UPFlow's warps: unbounded, at its feature shapes, float32 and the mixed
+    # form (bf16 image under a float32 flow), contiguous and channels-last flows
+    for shape in UPFLOW_WARP_SHAPES:
+        for padding in ("border", "zeros"):
+            for dtype in (torch.float32, torch.bfloat16):
+                for cl in (False, True):
+                    seed += 1
+                    # flows of the plane's own size, so that taps fall on both sides of its edge
+                    img, flow = warp_inputs(shape, dtype, seed, scale=min(10.0, shape[1] / 2),
+                                            channels_last=cl, flow_dtype=torch.float32)
+                    out = warp2d(img, flow, 0, padding)
+                    ref = warp2d_plain(img, flow, 0, padding)
+                    torch.cuda.synchronize()
+                    check(out.dtype == dtype and out.shape == ref.shape, "kernel output type")
+                    diff = (out.float() - ref.float()).abs()
+                    err = float(diff.max())
+                    if dtype == torch.float32:
+                        ok, tol = err <= F32_TOL, f"{F32_TOL:g}"
+                        worst_f32 = max(worst_f32, err)
+                    else:
+                        ok = bool((diff <= bf16_ulp(ref.float())).all())
+                        tol = "1 bf16 ulp"
+                    name = "float32" if dtype == torch.float32 else "bf16 img, f32 flow"
+                    print(f"warp2d {list(shape)} {padding:6s} r= 0 {name:18s} "
+                          f"{'nhwc' if cl else 'nchw'} max_abs_err={err:.3e} tol={tol} "
+                          f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"warp2d kernel disagrees with plain ({shape}, {padding}, r=0, {name})")
     return worst_f32
 
 
@@ -279,6 +327,7 @@ def phase_main_path(torch):
         (merged, flow, mask), n = launches_of(lambda: interp.pair(a, z))
         print(f"pair {name} [{b},{h},{w},{c}]: warp2d launches={n}")
         check(n == 6, f"{name} forward launched warp2d {n} times, expected 6")
+        PER_CALL["ifnet_2d_forward"] = {"warp2d": n}
         check(merged.shape == (b, h, w, c) and flow.shape == (b, h, w, 4)
               and mask.shape == (b, h, w, 1), f"{name} output shapes")
         check(all(np.isfinite(x).all() for x in (merged, flow, mask)), f"{name} not finite")
@@ -431,16 +480,19 @@ def phase_times(torch, interps):
     return times, warp
 
 
-def backward_inputs(torch, shape, dtype, seed: int, channels_last: bool):
+def backward_inputs(torch, shape, dtype, seed: int, channels_last: bool, scale: float = 10.0,
+                    flow_dtype=None):
     """Image, 4-channel flow (the warp takes its last two channels) and an
-    incoming gradient; flow and gradient in NCHW or channels-last layout."""
+    incoming gradient; flow and gradient in NCHW or channels-last layout.
+    ``flow_dtype``: the flow's type where it is not the image's."""
     b, h, w, c = shape
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     gen = torch.Generator(device="cuda").manual_seed(seed)
     img = torch.rand((b, c, h, w), generator=gen, device="cuda").to(dtype)
     # off-integer flows: at an integer coordinate the bilinear weights have a kink
-    flow4 = torch.randn((b, 4, h, w), generator=gen, device="cuda") * 10.0
-    flow4 = (torch.round(flow4 * 4) / 4 + 0.11).to(dtype).contiguous(memory_format=fmt)
+    flow4 = torch.randn((b, 4, h, w), generator=gen, device="cuda") * scale
+    flow4 = (torch.round(flow4 * 4) / 4 + 0.11).to(flow_dtype or dtype).contiguous(
+        memory_format=fmt)
     g = torch.randn((b, c, h, w), generator=gen, device="cuda").to(dtype)
     return img, flow4, g.contiguous(memory_format=fmt)
 
@@ -507,6 +559,41 @@ def phase_backward_vs_plain(torch):
                               f"tol={tol:g}*max|ref| {'ok' if ok else 'FAIL'}")
                         check(ok, f"warp2d backward disagrees with plain ({shape}, {padding}, "
                                   f"r={r}, {name}, img_grad={img_grad})")
+    # UPFlow's feature warps: unbounded, with the image's gradient, float32 and
+    # the mixed form, whose dimg is bf16 and whose dflow stays float32
+    for shape in UPFLOW_WARP_SHAPES:
+        for padding in ("border", "zeros"):
+            for dtype in (torch.float32, torch.bfloat16):
+                for cl in (False, True):
+                    seed += 1
+                    img, flow4, g = backward_inputs(torch, shape, dtype, seed, cl,
+                                                    scale=min(10.0, shape[1] / 2),
+                                                    flow_dtype=torch.float32)
+                    before = LAUNCHES["warp2d_bwd"]
+                    dimg, dflow = warp_grads(torch, warp2d, img, flow4, g, 0, padding, True)
+                    torch.cuda.synchronize()
+                    check(LAUNCHES["warp2d_bwd"] == before + 1, "backward launch count")
+                    dimg_ref, dflow_ref = warp_grads(torch, warp2d_plain, img, flow4, g, 0,
+                                                     padding, True)
+                    check(LAUNCHES["warp2d_bwd"] == before + 1, "the plain version launched")
+                    check(dimg.dtype == dtype and dflow.dtype == torch.float32
+                          and dimg.shape == dimg_ref.shape and dflow.shape == dflow_ref.shape,
+                          "gradient types")
+                    tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+                    ok, shown = True, []
+                    for what, out, ref in (("dflow", dflow, dflow_ref), ("dimg", dimg, dimg_ref)):
+                        err = float((out.float() - ref.float()).abs().max())
+                        scale = float(ref.float().abs().max())
+                        ok = ok and err <= tol * scale
+                        shown.append(f"{what}_err={err:.3e} (max|ref|={scale:.3e})")
+                        if dtype == torch.float32:
+                            worst_f32 = max(worst_f32, err)
+                    name = "float32" if dtype == torch.float32 else "bf16 img, f32 flow"
+                    print(f"warp2d_bwd {list(shape)} {padding:6s} r= 0 {name:18s} "
+                          f"{'nhwc' if cl else 'nchw'} img_grad=1 {' '.join(shown)} "
+                          f"tol={tol:g}*max|ref| {'ok' if ok else 'FAIL'}")
+                    check(ok, f"warp2d backward disagrees with plain ({shape}, {padding}, r=0, "
+                              f"{name})")
     return worst_f32
 
 
@@ -622,6 +709,8 @@ def phase_train_step_vs_cpu(torch, tmp: str):
         delta = {k: LAUNCHES[k] - before[k] for k in before if LAUNCHES[k] != before[k]}
         check(delta == ({"warp2d": 10, "warp2d_bwd": 10} if device == "cuda" else {}),
               f"{device} step launches {delta}")
+        if device == "cuda":
+            PER_CALL["ifnet_2d_train_step"] = delta
         grads[device] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
     for key, ref in parts["cpu"].items():
         err = abs(parts["cuda"][key] - ref)
@@ -906,6 +995,7 @@ def phase_serving3d(torch):
         (merged, flow, mask), n = launches_of(lambda: interp.pair(a, e))
         print(f"pair3d {name} {list(VOLUME_SHAPE)}: warp3d launches={n}")
         check(n == 6, f"{name} 3-D forward launched warp3d {n} times, expected 6")
+        PER_CALL["ifnet_3d_forward"] = {"warp3d": n}
         check(merged.shape == VOLUME_SHAPE and flow.shape == (b, z, y, x, 6)
               and mask.shape == VOLUME_SHAPE, f"{name} 3-D output shapes")
         check(all(np.isfinite(v).all() for v in (merged, flow, mask)), f"{name} 3-D not finite")
@@ -1084,6 +1174,7 @@ def phase_train3d_step_checks(torch, tmp: str):
     remat = one_step(train3d_config(tmp, False, remat=True), "cuda", tuples4)
     print(f"train3d step launches: plain {plain[2]} remat {remat[2]}")
     check(plain[2] == expected, f"3-D train step launches {plain[2]}")
+    PER_CALL["ifnet_3d_train_step"] = plain[2]
     # the warps lie outside the recomputed blocks: remat reruns none of them
     check(remat[2] == expected, f"3-D train step launches with remat {remat[2]}")
     # the same arithmetic, but cuDNN may pick other algorithms for the recomputation
@@ -1305,8 +1396,8 @@ def corr_inputs(torch, shape, dtype, seed: int, channels_last: bool):
 def phase_corr_vs_plain(torch):
     """``corr`` against ``cost_volume_plain`` and ``corr_bwd`` against autograd
     through it: the five model shapes and an odd one, md 4 and 2 (the odd shape
-    also md 0 and 5, which take the untiled kernels), f32 and bf16, contiguous
-    and channels-last; the odd shape also with each gradient alone."""
+    also md 1 and 3: every md the kernels are built for), f32 and bf16,
+    contiguous and channels-last; the odd shape also with each gradient alone."""
     from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
     from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
     from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
@@ -1323,7 +1414,7 @@ def phase_corr_vs_plain(torch):
     seed = 700
     for shape in CORR_SHAPES + (CORR_ODD_SHAPE,):
         odd = shape == CORR_ODD_SHAPE
-        for md in ((4, 2, 0, 5) if odd else (4, 2)):
+        for md in ((4, 2, 1, 3) if odd else (4, 2)):
             for dtype in (torch.float32, torch.bfloat16):
                 for cl in (False, True):
                     seed += 1
@@ -1386,6 +1477,17 @@ def phase_corr_vs_plain(torch):
                         print(f"corr_bwd {tag} needs={needs:4s} {' '.join(shown)} "
                               f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
                         check(ok, f"corr backward disagrees with plain ({tag}, {needs})")
+    # a max_disp the kernels are not built for is refused, not served another way
+    f1, f2, _ = corr_inputs(torch, CORR_ODD_SHAPE, torch.float32, seed, False)
+    for md in (0, 5):
+        before = dict(LAUNCHES)
+        try:
+            cost_volume_kernel(f1, f2, md)
+        except ValueError as e:
+            print(f"corr md={md}: refused ({e})")
+        else:
+            check(False, f"corr took max_disp {md}")
+        check(dict(LAUNCHES) == before, "a refused cost volume counted a launch")
     print("corr vs plain " + json.dumps(worst))
     return worst
 
@@ -1464,8 +1566,14 @@ def phase_upflow_serving(torch, tmp: str):
     counts = {k: LAUNCHES[k] for k in ("corr", "warp2d")}  # read just after the run
     print(f"UPFlow serving path: launches={counts}")
     check(counts["corr"] == 10, "the UPFlow serving path missed the cost volume kernel")
-    d16 = float((flows["bf16"] - flows["f32"]).abs().max())
-    print(f"flow_f bf16 vs f32 max_abs_diff={d16:.3e} (max|f32|={float(flows['f32'].abs().max()):.3e})")
+    diff = (flows["bf16"] - flows["f32"]).abs()
+    d_max, d_mean = float(diff.max()), float(diff.mean())
+    top, mag = float(flows["f32"].abs().max()), float(flows["f32"].norm(dim=-1).mean())
+    print(f"flow_f bf16 vs f32 max_abs_diff={d_max:.3e} (max|f32|={top:.3e}, "
+          f"tol={UPFLOW_BF16_FLOW_MAX_TOL:g}*max) mean_abs_diff={d_mean:.3e} "
+          f"(mean|f32|={mag:.3e}, tol={UPFLOW_BF16_FLOW_MEAN_TOL:g}*mean)")
+    check(d_max <= UPFLOW_BF16_FLOW_MAX_TOL * top and d_mean <= UPFLOW_BF16_FLOW_MEAN_TOL * mag,
+          "the bf16 UPFlow model's flow_f is too far from the float32 model's")
 
     # the same weights on the CPU (the plain path) at batch 1: the model alone,
     # on a 128 x 416 pair (a quarter of the plane keeps the CPU's share of this
@@ -1481,6 +1589,7 @@ def phase_upflow_serving(torch, tmp: str):
         delta = launch_delta(before)
         want = cpu._forward(*(cpu.upload(one)[:, i] for i in (0, 1)))
     check(delta == {"corr": 5, "warp2d": 8}, f"batch-1 forward launches {delta}")
+    PER_CALL["upflow_forward"] = delta
     close_enough(got["flow_f"], want["flow_f"], "cuda vs cpu UPFlow flow_f")
     close_enough(got["flow_b"], want["flow_b"], "cuda vs cpu UPFlow flow_b")
     for level, ((gf, _), (wf, _)) in enumerate(zip(got["flows"], want["flows"])):
@@ -1598,6 +1707,8 @@ def phase_upflow_step_vs_cpu(torch, tmp: str):
         delta = launch_delta(before)
         check(delta == ({"corr": 5, "corr_bwd": 5, "warp2d": 12, "warp2d_bwd": 6}
                         if device == "cuda" else {}), f"{device} upflow step launches {delta}")
+        if device == "cuda":
+            PER_CALL["upflow_train_step"] = delta
         grads[device] = {n: p.grad.detach().cpu() for n, p in tr.net.named_parameters()}
     for key, ref in parts["cpu"].items():
         print(f"upflow train step cuda vs cpu {key}: cuda={parts['cuda'][key]:.6e} "
@@ -1686,7 +1797,11 @@ def phase_upflow_times(torch, serving, training):
     bb, c, h, w = shape
     d = (2 * md + 1) ** 2
     out = {}
-    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+    # the operations bound takes the card's peak for the operands' type: bf16
+    # products have the tensor cores' rate as their limit, whether or not the
+    # kernel uses them
+    for dtype, size, peak in ((torch.float32, 4, F32_FLOPS_PER_S),
+                              (torch.bfloat16, 2, BF16_FLOPS_PER_S)):
         name = str(dtype).replace("torch.", "")
         sets = []
         for i in range(4):
@@ -1720,7 +1835,7 @@ def phase_upflow_times(torch, serving, training):
                                             ("corr_bwd", bwd_kernel, bwd_plain, bwd_bytes,
                                              2 * fwd_flops)):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / F32_FLOPS_PER_S * 1e3
+            ops_ms = flops / peak * 1e3
             kernel_ms = device_ms(fn, 40, only="corr_")
             out[f"{tag}_{name}"] = {
                 "kernel_ms": kernel_ms, "call_ms": cuda_ms(fn, 40),
@@ -1734,7 +1849,7 @@ def phase_upflow_times(torch, serving, training):
                 "library_ms": None,  # no single PyTorch call computes a cost volume
             }
     print("corr times " + json.dumps(out) + f"  (shape {list(shape)} md {md}; bound: H100 SXM "
-          "3.35 TB/s, 67 TFLOP/s f32)")
+          "3.35 TB/s, 67 TFLOP/s f32, 989 TFLOP/s bf16)")
     # the five model shapes, forward and backward, by CUDA events (with the host's call cost)
     levels = {}
     for shape in CORR_SHAPES:
@@ -1797,8 +1912,10 @@ def main() -> int:
         "launches": launches + train_launches["warp2d"],
         "launches_serving_path": launches,
         "launches_training_path": train_launches["warp2d"],
-        "launches_per_forward": 6,
-        "launches_per_train_step": 10,
+        "launches_per_forward": PER_CALL["ifnet_2d_forward"]["warp2d"],
+        "launches_per_train_step": PER_CALL["ifnet_2d_train_step"]["warp2d"],
+        "launches_per_upflow_forward": PER_CALL["upflow_forward"]["warp2d"],
+        "launches_per_upflow_train_step": PER_CALL["upflow_train_step"]["warp2d"],
         "max_abs_err": worst_f32,
         "ms": warp["kernel_ms"],
         "plain_ms": warp["plain_ms"],
@@ -1815,7 +1932,8 @@ def main() -> int:
         "source": source,
         "replaces": "opticalflowscivis_tpu/ops/pallas/warp.py:274",
         "launches": train_launches["warp2d_bwd"],
-        "launches_per_train_step": 10,
+        "launches_per_train_step": PER_CALL["ifnet_2d_train_step"]["warp2d_bwd"],
+        "launches_per_upflow_train_step": PER_CALL["upflow_train_step"]["warp2d_bwd"],
         "max_abs_err": worst_bwd_f32,
         "ms": bwd["dflow_only"]["kernel_ms"],
         "plain_ms": bwd["dflow_only"]["plain_ms"],
@@ -1835,8 +1953,8 @@ def main() -> int:
         "launches": launches3d + train_launches3d["warp3d"],
         "launches_serving_path": launches3d,
         "launches_training_path": train_launches3d["warp3d"],
-        "launches_per_forward": 6,
-        "launches_per_train_step": 8,
+        "launches_per_forward": PER_CALL["ifnet_3d_forward"]["warp3d"],
+        "launches_per_train_step": PER_CALL["ifnet_3d_train_step"]["warp3d"],
         "max_abs_err": worst3d["fwd"],
         "ms": warp3["kernel_ms"],
         "plain_ms": warp3["plain_ms"],
@@ -1853,7 +1971,7 @@ def main() -> int:
         "source": "opticalflowscivis_tpu_torch/csrc/warp3d.cu",
         "replaces": "opticalflowscivis_tpu/ops/warp.py:144",
         "launches": train_launches3d["warp3d_bwd"],
-        "launches_per_train_step": 8,
+        "launches_per_train_step": PER_CALL["ifnet_3d_train_step"]["warp3d_bwd"],
         "max_abs_err": worst3d["bwd"],
         "ms": bwd3["dflow_only"]["kernel_ms"],
         "plain_ms": bwd3["dflow_only"]["plain_ms"],
@@ -1868,9 +1986,9 @@ def main() -> int:
     }]
     corr_source = "opticalflowscivis_tpu_torch/csrc/corr.cu"
     corr_replaces = "opticalflowscivis_tpu/ops/pallas/correlation.py:126"
-    for name, err, launches_n, per_step in (
-            ("corr", worst_corr["fwd"], upflow_serving["corr"] + upflow_launches["corr"], 5),
-            ("corr_bwd", worst_corr["bwd"], upflow_launches["corr_bwd"], 5)):
+    for name, err, launches_n in (
+            ("corr", worst_corr["fwd"], upflow_serving["corr"] + upflow_launches["corr"]),
+            ("corr_bwd", worst_corr["bwd"], upflow_launches["corr_bwd"])):
         t = corr_times[f"{name}_float32"]
         kernels.append({
             # ms, bound and plain_ms in float32 at the finest level's shape; bf16 beside
@@ -1879,8 +1997,8 @@ def main() -> int:
             "source": corr_source,
             "replaces": corr_replaces,
             "launches": launches_n,
-            "launches_per_forward": 5 if name == "corr" else 0,
-            "launches_per_train_step": per_step,
+            "launches_per_forward": PER_CALL["upflow_forward"].get(name, 0),
+            "launches_per_train_step": PER_CALL["upflow_train_step"][name],
             "max_abs_err": err,
             "ms": t["kernel_ms"],
             "call_ms": t["call_ms"],

@@ -22,7 +22,7 @@
 // matters too.  The backward reads f1, f2 and g and writes two tensors of the
 // inputs' size, with twice the forward's operations.
 //
-// Design (md 1..4, the tiled kernels).  One launch covers the batch; a block
+// Design (md 1..4).  One launch covers the batch; a block
 // owns a tile of 8 x 32 pixels of one sample.
 //   Forward: f1's tile and f2's (8 + 2 md) x (32 + 2 md) window are staged in
 //   shared memory for 8 channels at a time, zero outside the plane, so every
@@ -38,8 +38,10 @@
 //   a time; a thread owns one pixel and 16 channel sums, reads g from global
 //   memory (coalesced over x, reread once per 16 channels, from L2) and the
 //   window from shared memory.
-// md = 0 and md > 4 take two plain kernels (one thread per output element,
-// everything through L1 / L2): the same function, no tiling.
+// Other md have no kernel: the entries return cudaErrorInvalidValue and the
+// wrapper refuses them before the launch.  Every configuration of the package
+// uses md <= 4; from md 6 on the backward's window of CB channels would exceed
+// the 48 KB of static shared memory and need a smaller channel step.
 //
 // All tensors are channels-first.  f1, f2 and g are read through their four
 // strides, so channels-last tensors from cuDNN and autograd's views need no
@@ -60,7 +62,7 @@ constexpr int TW = 32;   // tile columns: one warp spans a tile row
 constexpr int PY = 4;    // forward: pixels (rows) per thread
 constexpr int CF = 8;    // forward: channels staged per step
 constexpr int CB = 16;   // backward: channels staged per step = sums per thread
-constexpr int MAX_TILED_MD = 4;
+constexpr int MAX_MD = 4;  // the kernels are instantiated for md 1..MAX_MD
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -212,71 +214,6 @@ corr_bwd_kernel(const T* __restrict__ f1,
   }
 }
 
-// md = 0 or md > MAX_TILED_MD: one thread per output element.
-template <typename T>
-__global__ void corr_fwd_plain_kernel(const T* __restrict__ f1,
-                                      const T* __restrict__ f2,
-                                      T* __restrict__ out, int64_t B, int64_t C,
-                                      int64_t H, int64_t W, int md, Strides s1,
-                                      Strides s2, float inv_c) {
-  const int64_t nd = 2 * md + 1;
-  const int64_t n = B * nd * nd * H * W;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t x = i % W;
-  int64_t t = i / W;
-  const int64_t y = t % H;
-  t /= H;
-  const int64_t k = t % (nd * nd);
-  const int64_t b = t / (nd * nd);
-  const int64_t y2 = y + k / nd - md, x2 = x + k % nd - md;
-  float acc = 0.f;
-  if (y2 >= 0 && y2 < H && x2 >= 0 && x2 < W) {
-    const T* p1 = f1 + b * s1.b + y * s1.h + x * s1.w;
-    const T* p2 = f2 + b * s2.b + y2 * s2.h + x2 * s2.w;
-    for (int64_t c = 0; c < C; ++c)
-      acc += load_f32(p1 + c * s1.c) * load_f32(p2 + c * s2.c);
-  }
-  store(out + i, acc * inv_c);
-}
-
-template <typename T>
-__global__ void corr_bwd_plain_kernel(const T* __restrict__ f1,
-                                      const T* __restrict__ f2,
-                                      const T* __restrict__ g,
-                                      T* __restrict__ df1, T* __restrict__ df2,
-                                      int64_t B, int64_t C, int64_t H,
-                                      int64_t W, int md, Strides s1, Strides s2,
-                                      Strides sg, float inv_c, int first) {
-  const int64_t nd = 2 * md + 1;
-  const int64_t n = B * C * H * W;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const bool second = first + (int)blockIdx.y == 1;
-  const int64_t x = i % W;
-  int64_t t = i / W;
-  const int64_t y = t % H;
-  t /= H;
-  const int64_t c = t % C;
-  const int64_t b = t / C;
-  const T* other = second ? f1 + b * s1.b + c * s1.c : f2 + b * s2.b + c * s2.c;
-  const Strides so = second ? s1 : s2;
-  const T* gb = g + b * sg.b;
-  float acc = 0.f;
-  for (int64_t dy = 0; dy < nd; ++dy) {
-    for (int64_t dx = 0; dx < nd; ++dx) {
-      // the pixel of g, and the pixel of the other feature map
-      const int64_t gy = second ? y - dy + md : y, gx = second ? x - dx + md : x;
-      const int64_t oy = second ? gy : y + dy - md, ox = second ? gx : x + dx - md;
-      if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
-      if (oy < 0 || oy >= H || ox < 0 || ox >= W) continue;
-      acc += load_f32(gb + (dy * nd + dx) * sg.c + gy * sg.h + gx * sg.w) *
-             load_f32(other + oy * so.h + ox * so.w);
-    }
-  }
-  store((second ? df2 : df1) + i, acc * inv_c);
-}
-
 Strides strides(const int64_t* s) { return Strides{s[0], s[1], s[2], s[3]}; }
 
 dim3 tile_grid(int64_t B, int64_t H, int64_t W, int copies) {
@@ -313,22 +250,13 @@ template <typename T>
 int forward(const void* f1, const void* f2, void* out, int64_t B, int64_t C,
             int64_t H, int64_t W, int md, Strides s1, Strides s2,
             cudaStream_t stream) {
-  if (md >= 1 && md <= MAX_TILED_MD) {
-    if (!grid_fits(B, H, 1)) return (int)cudaErrorInvalidValue;
-    switch (md) {
-      case 1: launch_fwd_tiled<T, 1>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
-      case 2: launch_fwd_tiled<T, 2>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
-      case 3: launch_fwd_tiled<T, 3>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
-      default: launch_fwd_tiled<T, 4>(f1, f2, out, B, C, H, W, s1, s2, stream);
-    }
-  } else {
-    const int64_t nd = 2 * md + 1;
-    const int64_t n = B * nd * nd * H * W;
-    const int64_t blocks = (n + 255) / 256;
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    corr_fwd_plain_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-        static_cast<const T*>(f1), static_cast<const T*>(f2),
-        static_cast<T*>(out), B, C, H, W, md, s1, s2, 1.f / (float)C);
+  if (md < 1 || md > MAX_MD || !grid_fits(B, H, 1))
+    return (int)cudaErrorInvalidValue;
+  switch (md) {
+    case 1: launch_fwd_tiled<T, 1>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
+    case 2: launch_fwd_tiled<T, 2>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
+    case 3: launch_fwd_tiled<T, 3>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
+    default: launch_fwd_tiled<T, 4>(f1, f2, out, B, C, H, W, s1, s2, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -339,22 +267,13 @@ int backward(const void* f1, const void* f2, const void* g, void* df1,
              Strides s1, Strides s2, Strides sg, cudaStream_t stream) {
   const int first = df1 ? 0 : 1;
   const int copies = (df1 ? 1 : 0) + (df2 ? 1 : 0);
-  if (copies == 0) return (int)cudaErrorInvalidValue;
-  if (md >= 1 && md <= MAX_TILED_MD) {
-    if (!grid_fits(B, H, copies)) return (int)cudaErrorInvalidValue;
-    switch (md) {
-      case 1: launch_bwd_tiled<T, 1>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
-      case 2: launch_bwd_tiled<T, 2>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
-      case 3: launch_bwd_tiled<T, 3>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
-      default: launch_bwd_tiled<T, 4>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream);
-    }
-  } else {
-    const int64_t blocks = (B * C * H * W + 255) / 256;
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    corr_bwd_plain_kernel<T><<<dim3((unsigned)blocks, (unsigned)copies), 256, 0, stream>>>(
-        static_cast<const T*>(f1), static_cast<const T*>(f2),
-        static_cast<const T*>(g), static_cast<T*>(df1), static_cast<T*>(df2), B,
-        C, H, W, md, s1, s2, sg, 1.f / (float)C, first);
+  if (copies == 0 || md < 1 || md > MAX_MD || !grid_fits(B, H, copies))
+    return (int)cudaErrorInvalidValue;
+  switch (md) {
+    case 1: launch_bwd_tiled<T, 1>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
+    case 2: launch_bwd_tiled<T, 2>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
+    case 3: launch_bwd_tiled<T, 3>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
+    default: launch_bwd_tiled<T, 4>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream);
   }
   return (int)cudaGetLastError();
 }

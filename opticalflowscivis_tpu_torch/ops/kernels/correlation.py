@@ -6,7 +6,8 @@ forward and VJP (the TPU package's VJP is jnp; here it is a kernel too).  It
 dispatches by the tensors' device:
 
 - CUDA tensors launch ``corr_forward`` (``f1`` and ``f2`` both float32 or both
-  bfloat16, any strides), or raise on anything the kernel does not take; a
+  bfloat16, any strides, ``max_disp`` 1 to 4: every configuration of the
+  package uses at most 4), or raise on anything the kernel does not take; a
   gradient through it launches ``corr_backward`` once, which writes ``df1``,
   ``df2`` or both, whichever inputs need one.  There is no fallback to the
   plain version;
@@ -30,6 +31,7 @@ from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
 from opticalflowscivis_tpu_torch.ops.kernels.build import load
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL_MAX_DISP = (1, 4)  # csrc/corr.cu instantiates its kernels for these max_disp
 _I64x4 = ctypes.c_int64 * 4
 
 
@@ -125,8 +127,8 @@ def cost_volume_kernel(f1: torch.Tensor, f2: torch.Tensor, max_disp: int = 4) ->
     ``out[b, dy * (2 md + 1) + dx, y, x]`` is the channel mean of
     ``f1[b, :, y, x] * f2[b, :, y + dy - md, x + dx - md]``, zero outside
     ``f2``.  On CUDA both inputs are float32 or both bfloat16, in any memory
-    layout (they are read through their strides).  Differentiable in ``f1``
-    and ``f2``.
+    layout (they are read through their strides), and ``max_disp`` is 1 to 4.
+    Differentiable in ``f1`` and ``f2``.
     """
     if not isinstance(max_disp, int) or max_disp < 0:
         raise ValueError(f"max_disp must be an int >= 0, got {max_disp!r}")
@@ -148,4 +150,7 @@ def cost_volume_kernel(f1: torch.Tensor, f2: torch.Tensor, max_disp: int = 4) ->
         )
     if f1.numel() == 0:
         raise ValueError(f"corr kernel got empty feature maps {tuple(f1.shape)}")
+    lo, hi = _KERNEL_MAX_DISP
+    if not lo <= max_disp <= hi:
+        raise ValueError(f"corr kernel is built for max_disp {lo} to {hi}, got {max_disp}")
     return _CorrKernel.apply(f1, f2, max_disp)
