@@ -18,7 +18,10 @@ Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time;
   2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
      case against a stated tolerance; the 2-D warp also at UPFlow's feature
-     shapes, in float32 and with a bf16 image under a float32 flow;
+     shapes, in float32 and with a bf16 image under a float32 flow, its fused
+     validity mask bit for bit against the warp of ones; the forwards' vector
+     and element paths (ragged rows, misaligned and channels-last flows, all
+     type modes) and their grid-stride loops on thin shapes;
   3. 2-D serving path at full width, f32 and bf16, with launch counts, the CPU
      comparison and the series metrics against the linear baseline;
   4. 2-D training path at full width, f32 and bf16: ``fit`` lowers ``loss_G``,
@@ -35,13 +38,16 @@ Phases, printed in order:
   7. the cost volume kernels against ``cost_volume_plain`` and autograd through
      it, at the five shapes UPFlow gives them and odd ones;
   8. UPFlow at full width at 256 x 832: ``predict`` on 8 pairs (5 ``corr``
-     launches per forward), the bf16 model's flow within a bound of the
+     and 4 ``warp2d`` launches per forward, 4 more in the losses), the bf16
+     model's flow within a bound of the
      float32 model's, the CPU comparison; ``fit`` in f32 and bf16 (5 + 5
      ``corr`` / ``corr_bwd`` launches per train step, 10 + 10 with the
      ex_runner recipe), one train step against the CPU, checkpoint round trip,
      both decode forms, the CLI verbs;
   9. times (CUDA events, warm-up, inputs that vary from call to call) and
-     profiles of all paths;
+     profiles of all paths; each forward warp kernel against ``F.grid_sample``
+     in turns (the median of 5 profiler windows of 40 calls each), also at
+     UPFlow's finest feature warp;
  10. one ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
@@ -54,6 +60,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -176,6 +183,30 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
     raise RuntimeError("chip_smoke failed: the profiler recorded no device time in 3 windows")
 
 
+def interleaved_device_ms(fns: dict, windows: int = 5, iters: int = 40) -> dict:
+    """Median device ms per call of each of ``fns`` (name -> ``fn(i)``) over
+    ``windows`` profiler windows of ``iters`` calls, the functions' windows
+    taken in turns (a, b, a, b, ...) so that the card's clocks and its
+    neighbours weigh on each alike; with each window's time."""
+    samples = {name: [] for name in fns}
+    for _ in range(windows):
+        for name, fn in fns.items():
+            samples[name].append(device_ms(fn, iters))
+    return {name: {"median_ms": statistics.median(v), "windows_ms": v}
+            for name, v in samples.items()}
+
+
+def kernel_against_library(fns: dict, bound_ms: float) -> dict:
+    """``interleaved_device_ms`` of a kernel (``fns["kernel"]``) and the
+    library call (``fns["library"]``), their ratio, and the kernel's share of
+    its bound."""
+    timed = interleaved_device_ms(fns)
+    kernel, library = timed["kernel"]["median_ms"], timed["library"]["median_ms"]
+    return {"kernel_ms": kernel, "library_ms": library, "kernel_over_library": kernel / library,
+            "below_library": kernel < library, "bound_share": bound_ms / kernel,
+            "windows_ms": {name: t["windows_ms"] for name, t in timed.items()}}
+
+
 def bf16_ulp(x):
     """One bf16 ulp at the magnitude of each element of ``x`` (float32 tensor).
     ``frexp`` and ``ldexp`` are exact; the card's ``pow(2, -10)`` is not (it
@@ -217,6 +248,29 @@ def warp_inputs(shape, dtype, seed: int, scale: float = 10.0, channels_last=Fals
     return img, flow4[:, 2:4]
 
 
+def smooth_flow(torch, shape, scale: float, seed: int):
+    """A flow ``[B, n, *S]`` that varies smoothly, as a model's does: N(0,
+    scale) on a grid 16 times coarser, upsampled.  Neighbouring pixels' taps
+    then share cache lines, which iid flows deny them."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    coarse = torch.randn(tuple(shape[:2]) + tuple(max(2, n // 16) for n in shape[2:]),
+                         generator=gen, device="cuda")
+    mode = "bilinear" if len(shape) == 4 else "trilinear"
+    return F.interpolate(coarse, size=tuple(shape[2:]), mode=mode, align_corners=True) * scale
+
+
+def grid2d(torch, flow, r: int):
+    """``F.grid_sample``'s (x, y) grid in [-1, 1] for a (dy, dx) flow clipped to ±r."""
+    _, _, h, w = flow.shape
+    fl = flow.float().clamp(-r, r) if r else flow.float()
+    ys = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
+    xs = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
+    return torch.stack([2.0 * (xs + fl[:, 1]) / (w - 1) - 1.0,
+                        2.0 * (ys + fl[:, 0]) / (h - 1) - 1.0], dim=-1)
+
+
 def phase_card(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -232,11 +286,45 @@ def phase_card(torch):
     libs = build(["warp2d", "warp3d", "corr"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s  "
           f"{[str(p.relative_to(REPO)) for p in libs.values()]}")
+    print("ptxas " + json.dumps(ptxas_report(["warp2d", "warp3d"])))
     return smi
 
 
+def ptxas_report(names: list) -> dict:
+    """Registers and spill stores of each kernel of ``csrc/<name>.cu`` (kernel
+    name and its mangled template arguments), from ``nvcc -Xptxas -v`` with
+    the build's flags, one nvcc per source in parallel."""
+    import re
+
+    from opticalflowscivis_tpu_torch.ops.kernels.build import CSRC_DIR, NVCC_FLAGS, _nvcc
+
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="ptxas_") as tmp:
+        procs = {name: subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, f"{name}.so"),
+             str(CSRC_DIR / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for name in names}
+        for name, proc in procs.items():
+            log = proc.communicate(timeout=600)[0]
+            check(proc.returncode == 0, f"nvcc -Xptxas -v of {name}.cu failed:\n{log[-2000:]}")
+            kernel = None
+            for line in log.splitlines():
+                entry = re.search(r"Compiling entry function '\w*?\d(warp[23]d(?:_bwd)?_kernel)I"
+                                  r"(\w*?)EEv", line)
+                if entry:
+                    kernel = f"{entry.group(1)}<{entry.group(2)}>"
+                spills = re.search(r"(\d+) bytes spill stores", line)
+                if kernel and spills:
+                    report.setdefault(kernel, {})["spill_stores"] = int(spills.group(1))
+                used = re.search(r"Used (\d+) registers", line)
+                if kernel and used:
+                    report.setdefault(kernel, {})["registers"] = int(used.group(1))
+    return report
+
+
 def phase_kernel_vs_plain(torch):
-    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp2d_with_mask
     from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
 
     worst_f32 = 0.0
@@ -287,10 +375,105 @@ def phase_kernel_vs_plain(torch):
                         ok = bool((diff <= bf16_ulp(ref.float())).all())
                         tol = "1 bf16 ulp"
                     name = "float32" if dtype == torch.float32 else "bf16 img, f32 flow"
+                    # UPFlow's masked warp: one launch writes the warp and the
+                    # validity mask, which is the warp of ones bit for bit
+                    before = LAUNCHES["warp2d"]
+                    warped, mask = warp2d_with_mask(img, flow, padding)
+                    torch.cuda.synchronize()
+                    check(LAUNCHES["warp2d"] == before + 1, "warp2d_with_mask launch count")
+                    ones = torch.ones_like(mask)
+                    fused = (torch.equal(mask, warp2d(ones, flow, 0, "zeros"))
+                             and torch.equal(warped, out))
                     print(f"warp2d {list(shape)} {padding:6s} r= 0 {name:18s} "
                           f"{'nhwc' if cl else 'nchw'} max_abs_err={err:.3e} tol={tol} "
-                          f"{'ok' if ok else 'FAIL'}")
+                          f"fused mask bit-equal={fused} {'ok' if ok else 'FAIL'}")
                     check(ok, f"warp2d kernel disagrees with plain ({shape}, {padding}, r=0, {name})")
+                    check(fused, f"warp2d's fused mask differs from the warp of ones ({shape}, "
+                                 f"{padding}, {name})")
+    return worst_f32
+
+
+# [B, C, H, W]: ragged rows (W = 1, 13, 37, 53), single rows and pixels, one
+# plane whose rows the vector path takes; H * W odd but in the last, so that
+# the [:, 1:3] slice of a 4-channel flow starts on an odd element
+LAYOUT_SHAPES = ((2, 3, 5, 1), (2, 2, 7, 13), (1, 3, 1, 37), (3, 1, 9, 53), (2, 1, 1, 1),
+                 (2, 2, 8, 16))
+TYPE_MODES = (("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32"))
+
+
+def flow_views(torch, flow):
+    """``flow [B, 2, H, W]`` as the kernel may be handed it: the slice
+    ``[:, 2:4]`` of a 4-channel NCHW flow, the slice ``[:, 1:3]`` (misaligned
+    where H * W is odd), and a slice of a channels-last one."""
+    nchw = torch.cat([flow * 0.5, flow], 1)[:, 2:4]
+    misaligned = torch.cat([flow[:, :1], flow, flow[:, :1]], 1)[:, 1:3]
+    nhwc = torch.cat([flow * 0.5, flow], 1).contiguous(memory_format=torch.channels_last)[:, 2:4]
+    return {"nchw": nchw, "misaligned": misaligned, "nhwc": nhwc}
+
+
+def phase_warp2d_layouts_vs_plain(torch):
+    """The forward's vector and element paths against the plain version:
+    ragged rows, single rows, aligned and misaligned NCHW flow slices and
+    channels-last flows, both paddings, r 16 and 0, all three type modes; the
+    fused validity mask against the warp of ones; and the grid-stride loops
+    on thin shapes beyond the grid's 65535 limit."""
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import (
+        launch_geometry,
+        warp2d,
+        warp2d_with_mask,
+    )
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    worst_f32, cases = 0.0, 0
+    gen = torch.Generator(device="cuda").manual_seed(1000)
+    for img_type, flow_type in TYPE_MODES:
+        dt, ft = getattr(torch, img_type), getattr(torch, flow_type)
+        name = f"{img_type} img, {flow_type} flow"
+        for padding in ("border", "zeros"):
+            for r in (16, 0):
+                err, masks_equal = 0.0, True
+                for b, c, h, w in LAYOUT_SHAPES:
+                    img = torch.rand((b, c, h, w), generator=gen, device="cuda").to(dt)
+                    flow = torch.randn((b, 2, h, w), generator=gen, device="cuda") * 10
+                    flow[:, :, ::3] = torch.round(flow[:, :, ::3]) + 1e-3  # edges hit exactly
+                    for layout, view in flow_views(torch, flow.to(ft)).items():
+                        out = warp2d(img, view, r, padding)
+                        ref = warp2d_plain(img, view, r, padding)
+                        torch.cuda.synchronize()
+                        diff = (out.float() - ref.float()).abs()
+                        ok = (float(diff.max()) <= F32_TOL if dt == torch.float32
+                              else bool((diff <= bf16_ulp(ref.float())).all()))
+                        check(ok and out.dtype == dt and out.shape == ref.shape,
+                              f"warp2d disagrees with plain ({(b, c, h, w)}, {layout}, {padding}, "
+                              f"r={r}, {name}): {float(diff.max()):.3e}")
+                        err = max(err, float(diff.max()))
+                        cases += 1
+                        if r == 0:
+                            warped, mask = warp2d_with_mask(img, view, padding)
+                            ones = torch.ones((b, 1, h, w), dtype=dt, device="cuda")
+                            masks_equal &= (torch.equal(mask, warp2d(ones, view, 0, "zeros"))
+                                            and torch.equal(warped, out))
+                if dt == torch.float32:
+                    worst_f32 = max(worst_f32, err)
+                tol = f"{F32_TOL:g}" if dt == torch.float32 else "1 bf16 ulp"
+                shown = f" fused mask bit-equal={masks_equal}" if r == 0 else ""
+                print(f"warp2d layouts {padding:6s} r={r:2d} {name}: {len(LAYOUT_SHAPES)} shapes x "
+                      f"nchw / misaligned / nhwc max_abs_err={err:.3e} tol={tol}{shown} ok")
+                check(masks_equal, f"warp2d's fused mask differs from the warp of ones ({name})")
+    for shape in ((70000, 1, 1, 5), (1, 2, 65535 * 256 + 3, 1)):
+        check(launch_geometry(shape).strided, f"{shape} takes no grid-stride loop")
+        b, c, h, w = shape
+        img = torch.rand(shape, generator=gen, device="cuda")
+        flow = torch.randn((b, 2, h, w), generator=gen, device="cuda") * 3
+        for padding in ("border", "zeros"):
+            err = float((warp2d(img, flow, 16, padding)
+                         - warp2d_plain(img, flow, 16, padding)).abs().max())
+            print(f"warp2d grid-stride {list(shape)} {padding:6s} r=16 float32 "
+                  f"grid={launch_geometry(shape).grid} max_abs_err={err:.3e} tol={F32_TOL:g}")
+            check(err <= F32_TOL, f"warp2d's grid-stride loop disagrees with plain ({shape})")
+            worst_f32 = max(worst_f32, err)
+            cases += 1
+    print(f"warp2d layout cases: {cases}")
     return worst_f32
 
 
@@ -445,19 +628,12 @@ def phase_times(torch, interps):
     def plain(i):
         return warp2d_plain(*sets[i % 4], 16, "border")
 
-    ys = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
-    xs = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
-    grids = []
-    for img, flow in sets:
-        gx = 2.0 * (xs + flow[:, 1]) / (w - 1) - 1.0
-        gy = 2.0 * (ys + flow[:, 0]) / (h - 1) - 1.0
-        grids.append((img, torch.stack([gx, gy], dim=-1)))
+    grids = [(img, grid2d(torch, flow, 16)) for img, flow in sets]
 
-    def library(i):
+    def library(i, grids=grids):
         return F.grid_sample(*grids[i % 4], mode="bilinear", padding_mode="border",
                              align_corners=True)
 
-    kernel_ms, plain_ms, library_ms = (device_ms(f, 40) for f in (kernel, plain, library))
     # back-to-back calls timed by CUDA events: device time or the host's
     # per-call cost, whichever is larger
     call_ms = {name: cuda_ms(f, 40) for name, f in
@@ -467,17 +643,116 @@ def phase_times(torch, interps):
     flops = px * (24 + 7 * c)  # clip, coords, floor, fractions, 4 weights; 4 taps/ch
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    warp = {
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    # the kernel and F.grid_sample in turns: median of 5 windows of 40 calls each
+    warp = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms))
+    warp.update({
+        "plain_ms": device_ms(plain, 40),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": bytes_moved,
         "back_to_back_call_ms": call_ms,
-        "achieved_GBps": bytes_moved / (kernel_ms / 1e3) / 1e9,
-    }
+        "achieved_GBps": bytes_moved / (warp["kernel_ms"] / 1e3) / 1e9,
+    })
+    # the same images under smooth flows of the same scale, in turns again
+    smooth = [(img, smooth_flow(torch, (b, 4, h, w), 10.0, 210 + i)[:, 2:4])
+              for i, (img, _) in enumerate(sets)]
+    smooth_grids = [(img, grid2d(torch, flow, 16)) for img, flow in smooth]
+    warp["smooth_flow"] = kernel_against_library({
+        "kernel": lambda i: warp2d(*smooth[i % 4], 16, "border"),
+        "library": lambda i: library(i, smooth_grids)}, warp["bound_ms"])
     print("times " + json.dumps(times))
     print("warp2d times " + json.dumps(warp) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
     return times, warp
+
+
+def phase_warp2d_widths(torch):
+    """The forward kernel's two row widths against each other, in turns: 4 or
+    2 consecutive pixels a thread, at IFNet's warp (one channel) and UPFlow's
+    finest feature warp (32), on iid and on smooth flows, each call with a
+    fresh output as the wrapper allocates it."""
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import (
+        _library,
+        _type_code,
+        launch_geometry,
+    )
+
+    def launch(img, flow, r, padding, per_thread):
+        out = torch.empty_like(img)
+        geometry = launch_geometry(img.shape, per_thread)
+        err = _library().warp2d_forward(
+            img.data_ptr(), flow.data_ptr(), out.data_ptr(), None, *img.shape, *flow.stride(), r,
+            int(padding == "zeros"), _type_code(img, flow), *geometry.grid, *geometry.block,
+            per_thread, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"warp2d launch failed with CUDA error {err}")
+        return out
+
+    out = {}
+    for shape, r, padding in ((WARP_SHAPE, 16, "border"), (UPFLOW_WARP_SHAPES[0], 0, "zeros")):
+        b, h, w, c = shape
+        for flows in ("iid", "smooth"):
+            sets = []
+            for i in range(4):
+                img, flow = warp_inputs(shape, torch.float32, 1200 + i, scale=min(10.0, h / 2))
+                if flows == "smooth":
+                    flow = smooth_flow(torch, (b, 4, h, w), min(10.0, h / 2), 1210 + i)[:, 2:4]
+                sets.append((img, flow))
+            check(torch.equal(launch(*sets[0], r, padding, 4), launch(*sets[0], r, padding, 2)),
+                  "the two widths compute different results")
+            timed = interleaved_device_ms({
+                f"per_thread_{v}": (lambda i, v=v, sets=sets: launch(*sets[i % 4], r, padding, v))
+                for v in (4, 2)})
+            out[f"{list(shape)} {flows}"] = {k: t["median_ms"] for k, t in timed.items()}
+    print("warp2d widths " + json.dumps(out) + "  ([B,H,W,C] float32)")
+    return out
+
+
+def phase_upflow_warp_times(torch):
+    """``warp2d`` at UPFlow's finest feature warp, [16, 32, 64, 208], r = 0,
+    zeros, in float32 and in the bf16 default's mixed form (bf16 image under a
+    float32 flow), without and with the fused validity mask, against
+    ``F.grid_sample`` in turns.  ``F.grid_sample`` takes one dtype, so in the
+    mixed form its grid is bf16."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp2d_with_mask
+
+    shape = UPFLOW_WARP_SHAPES[0]
+    b, h, w, c = shape
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bf16_img_f32_flow", torch.bfloat16)):
+        sets = [warp_inputs(shape, dtype, 1100 + i, scale=min(10.0, h / 2),
+                            flow_dtype=torch.float32) for i in range(4)]
+        grids = [(img, grid2d(torch, flow, 0).to(dtype)) for img, flow in sets]
+
+        def kernel(i, sets=sets):
+            return warp2d(*sets[i % 4], 0, "zeros")
+
+        def masked(i, sets=sets):
+            return warp2d_with_mask(*sets[i % 4], "zeros")
+
+        def library(i, grids=grids):
+            return F.grid_sample(*grids[i % 4], mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        size = 4 if dtype == torch.float32 else 2
+        px = b * h * w
+        bytes_moved = px * (size * c + 8 + size * c)  # img read, f32 (dy, dx) read, out written
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = px * (24 + 7 * c) / F32_FLOPS_PER_S * 1e3
+        res = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms))
+        masked_ms = device_ms(masked, 40)
+        res.update({
+            "with_mask_ms": masked_ms,
+            "with_mask_bound_ms": (bytes_moved + px * size) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_moved,
+            "achieved_GBps": bytes_moved / (res["kernel_ms"] / 1e3) / 1e9,
+        })
+        out[name] = res
+    print("warp2d upflow times " + json.dumps(out) + f"  (shape {list(shape)} [B,H,W,C], r=0, "
+          "zeros; bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+    return out
 
 
 def backward_inputs(torch, shape, dtype, seed: int, channels_last: bool, scale: float = 10.0,
@@ -671,8 +946,11 @@ def phase_training(torch, tmp: str):
         ours = tr.evaluate(val, b)
         again, theirs = rel_diff(ours, tr.evaluate(val, b)), rel_diff(ours, fresh.evaluate(val, b))
         # the same trainer evaluated twice sets the scale: in bf16 the card's
-        # convolutions do not repeat bit for bit from run to run
-        tol = 1e-6 if not bfloat16 else 1e-3
+        # convolutions do not repeat bit for bit from run to run, and in f32
+        # cuDNN may pick another algorithm from one call to the next (seen once
+        # on an H100: 1.5e-5 for the same trainer twice); the weights are
+        # compared bit for bit above
+        tol = max(1e-6 if not bfloat16 else 1e-3, 2 * again)
         print(f"checkpoint {name}: restored step {fresh.state.step}, weights equal, evaluate "
               f"rel diff {theirs:.3e} (same trainer twice: {again:.3e}) tol={tol:g}")
         check(theirs <= tol, f"{name}: the restored trainer evaluates differently")
@@ -957,6 +1235,43 @@ def phase_warp3d_vs_plain(torch):
                               f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
                         check(ok, f"warp3d backward disagrees with plain ({tag}, "
                                   f"img_grad={img_grad})")
+    # the forward's element paths: ragged rows (X = 1, 5, 13, 62) and single
+    # rows, contiguous and channels-last-3d flows; then planes (B * Z) and rows
+    # beyond the grid's 65535 limit
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import launch_geometry
+
+    for dtype in (torch.float32, torch.bfloat16):
+        err = 0.0
+        for shape in ((2, 6, 7, 1, 1), (1, 5, 3, 5, 2), (2, 4, 1, 13, 3), (1, 9, 10, 62, 1)):
+            for cl in (False, True):
+                seed += 1
+                img, flow6, _ = warp3d_inputs(torch, shape, dtype, seed, cl)
+                for padding in ("border", "zeros"):
+                    for radii in RADII_3D:
+                        out = warp3d(img, flow6[:, 3:], *radii, padding)
+                        ref = warp3d_plain(img, flow6[:, 3:], *radii, padding)
+                        diff = (out.float() - ref.float()).abs()
+                        ok = (float(diff.max()) <= F32_TOL if dtype == torch.float32
+                              else bool((diff <= bf16_ulp(ref.float())).all()))
+                        check(ok, f"warp3d disagrees with plain ({shape}, ndhwc={cl}, {padding}, "
+                                  f"{radii}, {dtype})")
+                        err = max(err, float(diff.max()))
+        if dtype == torch.float32:
+            worst["fwd"] = max(worst["fwd"], err)
+        print(f"warp3d ragged rows {str(dtype).replace('torch.', '')}: 4 shapes x ncdhw / ndhwc "
+              f"x both paddings x radii {RADII_3D} max_abs_err={err:.3e} ok")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for shape in ((2, 1, 40000, 2, 3), (1, 1, 1, 65535 * 256 + 1, 1)):
+        check(launch_geometry(shape).strided, f"{shape} takes no grid-stride loop")
+        img = torch.rand(shape, generator=gen, device="cuda")
+        flow = torch.randn((shape[0], 3) + shape[2:], generator=gen, device="cuda") * 3
+        for padding in ("border", "zeros"):
+            err = float((warp3d(img, flow, 8, 8, padding)
+                         - warp3d_plain(img, flow, 8, 8, padding)).abs().max())
+            print(f"warp3d grid-stride {list(shape)} {padding:6s} r=(8, 8) float32 "
+                  f"grid={launch_geometry(shape).grid} max_abs_err={err:.3e} tol={F32_TOL:g}")
+            check(err <= F32_TOL, f"warp3d's grid-stride loop disagrees with plain ({shape})")
+            worst["fwd"] = max(worst["fwd"], err)
     return worst
 
 
@@ -1116,7 +1431,7 @@ def phase_training3d(torch, tmp: str):
 
         ours = tr.evaluate(val, b)
         again, theirs = rel_diff(ours, tr.evaluate(val, b)), rel_diff(ours, fresh.evaluate(val, b))
-        tol = 1e-6 if not bfloat16 else 1e-3  # as in 2-D: bf16 convs do not repeat bit for bit
+        tol = max(1e-6 if not bfloat16 else 1e-3, 2 * again)  # as in 2-D
         print(f"checkpoint3d {name}: restored step {fresh.state.step}, weights equal, evaluate "
               f"rel diff {theirs:.3e} (same trainer twice: {again:.3e}) tol={tol:g}")
         check(theirs <= tol, f"{name}: the restored 3-D trainer evaluates differently")
@@ -1314,18 +1629,30 @@ def phase_times3d(torch, interps, trainers):
     vox = b * z * y * x
     fwd_bytes = vox * (4 * c + 12 + 4 * c)  # image read, (dz, dy, dx) read, out written
     fwd_flops = vox * (45 + 24 + 16 * c)  # clips, coords, 8 weights; 8 taps per channel
-    fwd = {
-        "kernel_ms": device_ms(kernel, 40), "plain_ms": device_ms(plain, 20),
-        "library_ms": device_ms(library, 40),
-        "bytes_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
-        "operations_bound_ms": fwd_flops / F32_FLOPS_PER_S * 1e3,
+    bytes_ms = fwd_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = fwd_flops / F32_FLOPS_PER_S * 1e3
+    # the kernel and F.grid_sample in turns: median of 5 windows of 40 calls each
+    fwd = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms))
+    fwd.update({
+        "plain_ms": device_ms(plain, 20),
+        "bytes_bound_ms": bytes_ms,
+        "operations_bound_ms": ops_ms,
         "bytes": fwd_bytes,
         "back_to_back_call_ms": {"kernel": cuda_ms(kernel, 40), "plain": cuda_ms(plain, 20),
                                  "library": cuda_ms(library, 40)},
-    }
-    fwd["bound_ms"] = max(fwd["bytes_bound_ms"], fwd["operations_bound_ms"])
-    fwd["bound_by"] = "bytes" if fwd["bytes_bound_ms"] >= fwd["operations_bound_ms"] else "operations"
+    })
+    fwd["bound_ms"] = max(bytes_ms, ops_ms)
+    fwd["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     fwd["achieved_GBps"] = fwd_bytes / (fwd["kernel_ms"] / 1e3) / 1e9
+    # the same volumes under smooth flows of the same scale, in turns again
+    smooth = [(img, smooth_flow(torch, (b, 3, z, y, x), 6.0, 610 + i))
+              for i, (img, _, _) in enumerate(sets)]
+    smooth_grids = [(img, clipped_grid(flow)) for img, flow in smooth]
+    fwd["smooth_flow"] = kernel_against_library({
+        "kernel": lambda i: warp3d(*smooth[i % 4], r_z, r_yx, "border"),
+        "library": lambda i: F.grid_sample(*smooth_grids[i % 4], mode="bilinear",
+                                           padding_mode="border", align_corners=True)},
+        fwd["bound_ms"])
     print("warp3d times " + json.dumps(fwd) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
 
     bwd = {}
@@ -1554,9 +1881,10 @@ def phase_upflow_serving(torch, tmp: str):
         print(f"predict {name} [{UPFLOW_BATCH},{h},{w},3]: launches={delta} "
               f"mean|flow_f|={float(flows[name].norm(dim=-1).mean()):.3f} "
               f"loss_total={float(parts['loss_total']):.5f}")
-        # 5 cost volumes; 4 feature warps with their masks in the model, then the
-        # occlusion check's 2 warps and the photometric term's 2 in the losses
-        check(delta == {"corr": 5, "warp2d": 12}, f"{name} predict launches {delta}")
+        # 5 cost volumes; 4 feature warps in the model (each writes its validity
+        # mask in the same launch), then the occlusion check's 2 warps and the
+        # photometric term's 2 in the losses
+        check(delta == {"corr": 5, "warp2d": 8}, f"{name} predict launches {delta}")
         check(extras["flow_f"].shape == (UPFLOW_BATCH, h, w, 2)
               and extras["flow_b"].shape == (UPFLOW_BATCH, h, w, 2), f"{name} flow shapes")
         check(bool(torch.isfinite(extras["flow_f"]).all())
@@ -1588,7 +1916,7 @@ def phase_upflow_serving(torch, tmp: str):
         torch.cuda.synchronize()
         delta = launch_delta(before)
         want = cpu._forward(*(cpu.upload(one)[:, i] for i in (0, 1)))
-    check(delta == {"corr": 5, "warp2d": 8}, f"batch-1 forward launches {delta}")
+    check(delta == {"corr": 5, "warp2d": 4}, f"batch-1 forward launches {delta}")
     PER_CALL["upflow_forward"] = delta
     close_enough(got["flow_f"], want["flow_f"], "cuda vs cpu UPFlow flow_f")
     close_enough(got["flow_b"], want["flow_b"], "cuda vs cpu UPFlow flow_b")
@@ -1628,11 +1956,11 @@ def phase_upflow_training(torch, tmp: str):
               f"{name} upflow losses not finite")
         check(hist[-1]["loss_total"] < hist[0]["loss_total"],
               f"{name} upflow fit did not lower loss_total")
-        # a train step: 5 cost volumes and their 5 backwards, 12 warps (see
+        # a train step: 5 cost volumes and their 5 backwards, 8 warps (see
         # predict) of which the 4 feature warps and the 2 photometric ones carry a
-        # gradient; a validation: the model alone, 5 cost volumes and 8 warps
+        # gradient; a validation: the model alone, 5 cost volumes and 4 warps
         expect = {"corr": 5 * (steps + epochs), "corr_bwd": 5 * steps,
-                  "warp2d": 12 * steps + 8 * epochs, "warp2d_bwd": 6 * steps}
+                  "warp2d": 8 * steps + 4 * epochs, "warp2d_bwd": 6 * steps}
         check(counts == expect, f"{name}: launches {counts}, expected {expect}")
         for k in keys:
             launches[k] += counts[k]
@@ -1668,7 +1996,7 @@ def phase_upflow_training(torch, tmp: str):
     both = launch_delta(before)
     second = {k: both[k] - mid[k] for k in both}
     print(f"decode forms: stacked launches {mid}, two streams {second}")
-    check(mid == {"corr": 5, "warp2d": 8} and second == {"corr": 10, "warp2d": 16},
+    check(mid == {"corr": 5, "warp2d": 4} and second == {"corr": 10, "warp2d": 8},
           f"decode forms launches {mid} {second}")
     close_enough(c["flow_f"], a["flow_f"], "two-stream vs stacked flow_f")
     close_enough(c["flow_b"], a["flow_b"], "two-stream vs stacked flow_b")
@@ -1683,7 +2011,8 @@ def phase_upflow_training(torch, tmp: str):
     delta = launch_delta(before)
     print(f"ex_runner train step: launches={delta} eq_loss={float(parts['eq_loss']):.5f} "
           f"oi_loss={float(parts['oi_loss']):.5f}")
-    check(delta == {"corr": 10, "corr_bwd": 10, "warp2d": 23, "warp2d_bwd": 11},
+    # two forwards' 4 + 4 feature warps, the losses' 4, the transform's 3
+    check(delta == {"corr": 10, "corr_bwd": 10, "warp2d": 15, "warp2d_bwd": 11},
           f"ex_runner step launches {delta}")
     check(all(math.isfinite(float(v)) for v in parts.values()), "ex_runner parts not finite")
     return launches, trainers
@@ -1705,7 +2034,7 @@ def phase_upflow_step_vs_cpu(torch, tmp: str):
         parts[device] = {k: float(v) for k, v in
                          tr.train_step(tr._batch(tr.upload(pairs))).items()}
         delta = launch_delta(before)
-        check(delta == ({"corr": 5, "corr_bwd": 5, "warp2d": 12, "warp2d_bwd": 6}
+        check(delta == ({"corr": 5, "corr_bwd": 5, "warp2d": 8, "warp2d_bwd": 6}
                         if device == "cuda" else {}), f"{device} upflow step launches {delta}")
         if device == "cuda":
             PER_CALL["upflow_train_step"] = delta
@@ -1878,6 +2207,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_card(torch)
     worst_f32 = phase_kernel_vs_plain(torch)
+    worst_f32 = max(worst_f32, phase_warp2d_layouts_vs_plain(torch))
     worst_bwd_f32 = phase_backward_vs_plain(torch)
     worst3d = phase_warp3d_vs_plain(torch)
     launches, interps = phase_main_path(torch)
@@ -1886,6 +2216,8 @@ def main() -> int:
         phase_train_step_vs_cpu(torch, tmp)
         phase_cli(torch, tmp)
         times, warp = phase_times(torch, interps)
+        upflow_warp = phase_upflow_warp_times(torch)
+        phase_warp2d_widths(torch)
         train_times, bwd = phase_train_times(torch, trainers)
         del interps, trainers  # free the 2-D models before the volumes
         torch.cuda.empty_cache()
@@ -1922,6 +2254,11 @@ def main() -> int:
         "bound_ms": warp["bound_ms"],
         "bound_by": warp["bound_by"],
         "library_ms": warp["library_ms"],
+        "kernel_over_library": warp["kernel_over_library"],
+        "upflow_finest_warp": {
+            name: {k: t[k] for k in ("kernel_ms", "with_mask_ms", "library_ms",
+                                     "kernel_over_library", "bound_ms", "bound_share")}
+            for name, t in upflow_warp.items()},
         "shape": list(WARP_SHAPE),
         "card": smi,
     }, {
@@ -1961,6 +2298,7 @@ def main() -> int:
         "bound_ms": warp3["bound_ms"],
         "bound_by": warp3["bound_by"],
         "library_ms": warp3["library_ms"],
+        "kernel_over_library": warp3["kernel_over_library"],
         "shape": list(VOLUME_SHAPE),
         "card": smi,
     }, {
@@ -2016,6 +2354,8 @@ def main() -> int:
     kernels[0]["launches_upflow_paths"] = upflow_serving["warp2d"] + upflow_launches["warp2d"]
     kernels[1]["launches"] += upflow_launches["warp2d_bwd"]
     kernels[1]["launches_upflow_paths"] = upflow_launches["warp2d_bwd"]
+    for k in kernels:
+        k["bound_share"] = k["bound_ms"] / k["ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,40 +32,44 @@
 // the image's size.  The 8 taps of a voxel lie within +-(r+1) of it on each
 // axis, so neighbouring threads' gathers and atomics hit L1 and L2.
 //
-// Design (simple first): one thread per output voxel (b, z, y, x), consecutive
-// threads on consecutive x so reads of g and writes of out / dflow coalesce; a
-// loop over C; f32 arithmetic, stored in the dtype of image and flow (f32 or
-// bf16).  Forward and backward share `make_taps`, so the backward recomputes
-// exactly the forward's clips, coordinate clamp, corners and weights.  dflow is
-// written once per voxel with no atomics.  dimg is accumulated with f32
-// atomicAdd into an f32 buffer that the wrapper zero-fills and casts afterwards;
-// the kernel is compiled without that part for calls whose image needs no
-// gradient (every warp of a training step: the model warps input frames).  The
-// flow and g are read through their five strides, so the model's channel
-// slices of a 6-channel flow, and tensors in the channels-last-3d layout cuDNN
-// may hand back, need no copy.
+// Forward design.  At 20 B per voxel, per-thread instructions and bytes in
+// flight set the time, not DRAM.  The grid is (x tiles, row tiles, B * Z),
+// computed by the wrapper; a thread holds kV = 2 consecutive x of one row, so
+// the only index arithmetic is one 32-bit division of the plane index by Z
+// per plane, and a grid-stride loop over rows and planes takes over beyond the
+// grid's 65535 limit.  The forward holds the eight corner offsets in 32 bits
+// (the wrapper refuses a volume of 2^31 voxels or more); only the (b, c) base
+// is 64-bit.  Each flow channel of a row is one 8 B (bf16: 4 B) load where it
+// is contiguous in x and aligned, else read element by element (the
+// channels-last-3d layout, ragged rows); the output row is one vector store
+// where aligned; the image is gathered through the read-only path, 16 loads in
+// flight per thread.  At most 80 registers, so that 3 blocks of 256 threads
+// share an SM.  On iid random flows the gathers are the limit: each touches
+// its own cache line, as in F.grid_sample, which the kernel then only ties.
 //
-// Index arithmetic: every element offset is a 64-bit integer, so a volume of
-// any size that fits the card addresses correctly; the launch refuses only a
-// voxel count beyond the 1-D grid limit (2^31 - 1 blocks of 256 threads).
+// Backward design (simple first): one thread per output voxel (b, z, y, x),
+// consecutive threads on consecutive x so reads of g and writes of dflow
+// coalesce; a loop over C; f32 arithmetic, stored in the dtype of image and
+// flow (f32 or bf16).  Forward and backward share `make_taps`, so the backward
+// recomputes exactly the forward's clips, coordinate clamp, corners and
+// weights.  dflow is written once per voxel with no atomics.  dimg is
+// accumulated with f32 atomicAdd into an f32 buffer that the wrapper
+// zero-fills and casts afterwards; the kernel is compiled without that part
+// for calls whose image needs no gradient (every warp of a training step: the
+// model warps input frames).  The flow and g are read through their five
+// strides, so the model's channel slices of a 6-channel flow, and tensors in
+// the channels-last-3d layout cuDNN may hand back, need no copy.  Its offsets
+// are 64-bit; the launch refuses only a voxel count beyond the 1-D grid limit
+// (2^31 - 1 blocks of 256 threads).
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError() after
 // the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_io.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int kV = 2;  // consecutive output voxels of one row per forward thread
 
 struct Dims {
   int64_t B, C, Z, Y, X;
@@ -79,7 +83,10 @@ struct Strides {
 // The eight corners of one output voxel, indexed k = 4*hz + 2*hy + hx (the
 // corner order of the plain version): trilinear fractions, per-corner validity
 // (always 1 in border mode), clamped offsets into one image volume, and whether
-// each flow component passes a gradient through its clip.
+// each flow component passes a gradient through its clip.  The offsets are
+// 64-bit: with 32-bit ones the backward, which holds them across its channel
+// loop, took more registers and ran slower on the H100; the forward narrows
+// them to 32 bits (the wrappers refuse volumes of 2^31 voxels or more).
 struct Taps {
   float az, ay, ax;
   float m[8];
@@ -91,9 +98,8 @@ struct Taps {
 // one voxel outside the volume, split it into floor and fraction.  Coordinates
 // further outside sample the same values (border) or nothing (zeros) wherever
 // they lie; the clamp keeps the integer conversion in range for unbounded flows.
-__device__ __forceinline__ void axis_taps(float d, int64_t i, int64_t n, float r,
-                                          int zeros, float* frac, int64_t* c0,
-                                          int64_t* c1, float* v0, float* v1,
+__device__ __forceinline__ void axis_taps(float d, int i, int n, float r, int zeros,
+                                          float* frac, int* c0, int* c1, float* v0, float* v1,
                                           bool* live) {
   // strict <: a flow exactly on +-r is clamped and carries no gradient
   *live = !(r > 0.f) || fabsf(d) < r;
@@ -104,25 +110,24 @@ __device__ __forceinline__ void axis_taps(float d, int64_t i, int64_t n, float r
   const int i0 = (int)f, i1 = i0 + 1;
   *v0 = (!zeros || (i0 >= 0 && i0 < n)) ? 1.f : 0.f;
   *v1 = (!zeros || (i1 >= 0 && i1 < n)) ? 1.f : 0.f;
-  *c0 = min(max(i0, 0), (int)n - 1);
-  *c1 = min(max(i1, 0), (int)n - 1);
+  *c0 = min(max(i0, 0), n - 1);
+  *c1 = min(max(i1, 0), n - 1);
 }
 
-__device__ __forceinline__ Taps make_taps(float dz, float dy, float dx,
-                                          int64_t z, int64_t y, int64_t x,
-                                          const Dims& d, float r_z, float r_yx,
+__device__ __forceinline__ Taps make_taps(float dz, float dy, float dx, int z, int y,
+                                          int x, int Z, int Y, int X, float r_z, float r_yx,
                                           int zeros) {
   Taps t;
-  int64_t cz[2], cy[2], cx[2];
+  int cz[2], cy[2], cx[2];
   float vz[2], vy[2], vx[2];
-  axis_taps(dz, z, d.Z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1], &t.live_z);
-  axis_taps(dy, y, d.Y, r_yx, zeros, &t.ay, &cy[0], &cy[1], &vy[0], &vy[1], &t.live_y);
-  axis_taps(dx, x, d.X, r_yx, zeros, &t.ax, &cx[0], &cx[1], &vx[0], &vx[1], &t.live_x);
+  axis_taps(dz, z, Z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1], &t.live_z);
+  axis_taps(dy, y, Y, r_yx, zeros, &t.ay, &cy[0], &cy[1], &vy[0], &vy[1], &t.live_y);
+  axis_taps(dx, x, X, r_yx, zeros, &t.ax, &cx[0], &cx[1], &vx[0], &vx[1], &t.live_x);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int hz = k >> 2, hy = (k >> 1) & 1, hx = k & 1;
     t.m[k] = vz[hz] * vy[hy] * vx[hx];
-    t.o[k] = (cz[hz] * d.Y + cy[hy]) * d.X + cx[hx];
+    t.o[k] = ((int64_t)cz[hz] * Y + cy[hy]) * X + cx[hx];
   }
   return t;
 }
@@ -152,28 +157,49 @@ __device__ __forceinline__ bool voxel_of(int64_t i, const Dims& d, int64_t* b,
 }
 
 template <typename T>
-__global__ void warp3d_kernel(const T* __restrict__ img,
-                              const T* __restrict__ flow, T* __restrict__ out,
-                              Dims d, Strides fs, float r_z, float r_yx,
-                              int zeros) {
-  int64_t b, z, y, x;
-  if (!voxel_of((int64_t)blockIdx.x * blockDim.x + threadIdx.x, d, &b, &z, &y, &x))
-    return;
-  const T* f = flow + b * fs.b + z * fs.z + y * fs.y + x * fs.x;
-  const Taps k = make_taps(load_f32(f), load_f32(f + fs.c), load_f32(f + 2 * fs.c),
-                           z, y, x, d, r_z, r_yx, zeros);
-  float w[8];
-  corner_weights(k, w);
-
-  const int64_t vol = d.Z * d.Y * d.X;
-  const T* src = img + b * d.C * vol;
-  T* dst = out + b * d.C * vol + (z * d.Y + y) * d.X + x;
-  for (int64_t c = 0; c < d.C; ++c) {
-    const T* p = src + c * vol;
-    float acc = 0.f;
+__global__ void __launch_bounds__(256, 3)
+warp3d_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restrict__ out, int B,
+              int C, int Z, int Y, int X, Strides fs, float r_z, float r_yx, int zeros) {
+  const unsigned xt = blockIdx.x * blockDim.x + threadIdx.x;
+  if (xt >= ((unsigned)X + kV - 1) / kV) return;
+  const int x0 = (int)xt * kV;
+  const int n = min(kV, X - x0);
+  const int vol = Z * Y * X;
+  // unsigned: a stride past the last row or plane stays below 2^32 (B * Z < 2^31)
+  for (unsigned p = blockIdx.z; p < (unsigned)B * Z; p += gridDim.z) {
+    const unsigned b = p / Z, z = p - b * Z;
+    for (unsigned y = blockIdx.y * blockDim.y + threadIdx.y; y < (unsigned)Y;
+         y += gridDim.y * blockDim.y) {
+      const T* f = flow + (int64_t)b * fs.b + (int64_t)z * fs.z + (int64_t)y * fs.y + x0 * fs.x;
+      float dz[kV], dy[kV], dx[kV];
+      load_row<kV>(f, fs.x, n, dz);
+      load_row<kV>(f + fs.c, fs.x, n, dy);
+      load_row<kV>(f + 2 * fs.c, fs.x, n, dx);
+      float w[kV][8];
+      int o[kV][8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc += w[j] * load_f32(p + k.o[j]);
-    store(dst + c * vol, acc);
+      for (int j = 0; j < kV; ++j) {
+        const Taps k = make_taps(dz[j], dy[j], dx[j], (int)z, (int)y, x0 + j, Z, Y, X, r_z,
+                                 r_yx, zeros);
+        corner_weights(k, w[j]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[j][i] = (int)k.o[i];
+      }
+      const int64_t base = (int64_t)b * C * vol;
+      const int at = ((int)z * Y + (int)y) * X + x0;
+      for (int c = 0; c < C; ++c) {
+        const T* src = img + base + (int64_t)c * vol;
+        float acc[kV];
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          float a = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a += w[j][i] * ldg(src + o[j][i]);
+          acc[j] = a;
+        }
+        store_row<kV>(out + base + (int64_t)c * vol + at, acc, n);
+      }
+    }
   }
 }
 
@@ -189,8 +215,8 @@ __global__ void warp3d_bwd_kernel(const T* __restrict__ img,
   if (!voxel_of((int64_t)blockIdx.x * blockDim.x + threadIdx.x, d, &b, &z, &y, &x))
     return;
   const T* f = flow + b * fs.b + z * fs.z + y * fs.y + x * fs.x;
-  const Taps k = make_taps(load_f32(f), load_f32(f + fs.c), load_f32(f + 2 * fs.c),
-                           z, y, x, d, r_z, r_yx, zeros);
+  const Taps k = make_taps(load_f32(f), load_f32(f + fs.c), load_f32(f + 2 * fs.c), (int)z,
+                           (int)y, (int)x, (int)d.Z, (int)d.Y, (int)d.X, r_z, r_yx, zeros);
   float w[8];
   if (NEED_DIMG) corner_weights(k, w);
   const float az = k.az, ay = k.ay, ax = k.ax;
@@ -237,12 +263,11 @@ unsigned blocks_for(const Dims& d) {
 }
 
 template <typename T>
-void launch(const void* img, const void* flow, void* out, const Dims& d,
-            const Strides& fs, float r_z, float r_yx, int zeros,
-            cudaStream_t stream) {
-  warp3d_kernel<T><<<blocks_for(d), kThreads, 0, stream>>>(
-      static_cast<const T*>(img), static_cast<const T*>(flow),
-      static_cast<T*>(out), d, fs, r_z, r_yx, zeros);
+void launch(const void* img, const void* flow, void* out, const Dims& d, const Strides& fs,
+            float r_z, float r_yx, int zeros, dim3 grid, dim3 block, cudaStream_t stream) {
+  warp3d_kernel<T><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(img), static_cast<const T*>(flow), static_cast<T*>(out), (int)d.B,
+      (int)d.C, (int)d.Z, (int)d.Y, (int)d.X, fs, r_z, r_yx, zeros);
 }
 
 template <typename T>
@@ -267,20 +292,26 @@ void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
 
 // img [B, C, Z, Y, X] contiguous; flow [B, 3, Z, Y, X] with the element strides
 // fs[5] = (batch, channel, z, y, x); out [B, C, Z, Y, X] contiguous.  dims[5] =
-// (B, C, Z, Y, X).  All three tensors are bf16 (bf16 = 1) or f32 (0).
+// (B, C, Z, Y, X), Z * Y * X < 2^31 and B * Z < 2^31.  All three tensors are
+// bf16 (bf16 = 1) or f32 (0).  The launch geometry, (gx, gy, gz) blocks of (tx,
+// ty) threads with per_thread = 2 voxels each, comes from the wrapper
+// (ops/kernels/warp.py::launch_geometry): gx * tx * 2 >= X, and any gy, gz
+// within the grid's limits (rows and planes are grid-stride loops).
 extern "C" int warp3d_forward(const void* img, const void* flow, void* out,
                               const int64_t* dims, const int64_t* fs,
                               int64_t r_z, int64_t r_yx, int64_t zeros,
-                              int64_t bf16, void* stream) {
+                              int64_t bf16, int64_t gx, int64_t gy, int64_t gz,
+                              int64_t tx, int64_t ty, int64_t per_thread, void* stream) {
+  if (per_thread != kV) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dims d = {dims[0], dims[1], dims[2], dims[3], dims[4]};
   const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
-  if (blocks_for(d) == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
   const int z = zeros ? 1 : 0;
   if (bf16)
-    launch<__nv_bfloat16>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, s);
+    launch<__nv_bfloat16>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, grid, block, s);
   else
-    launch<float>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, s);
+    launch<float>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, grid, block, s);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/lib<name>-<hash>.so`` inside this package (the directory is
-git-ignored); the hash is of the source, so an edited source rebuilds.
+git-ignored); the hash is of the source and of the headers beside it
+(``csrc/*.cuh``), so an edited source or header rebuilds.
 Builds happen at first use, so running ``chip_smoke.py`` alone builds every
 kernel; ``build`` starts one ``nvcc`` per source, all at once.
 
@@ -41,9 +42,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> dict[str, Path]:

@@ -21,6 +21,15 @@ component and ``r_yx`` for the in-plane ones), and a flow component with
 ``|flow| >= r`` carries no gradient: the clip's adjoint is zero at the
 boundary too, as in the TPU kernel (``ops/pallas/warp.py:323``).
 
+The forward kernels run on a grid of (x tiles, row tiles, planes) that
+``launch_geometry`` computes from the image's shape alone, each thread on 4
+or 2 consecutive x of one row; their offsets inside one plane (2-D) or volume
+(3-D) are 32-bit, and so are the 2-D backward's, so a plane of 2^31 elements
+or more, or a volume of 2^31 voxels or more, is refused with a ``ValueError``
+before anything is allocated.
+``warp2d_with_mask`` gets UPFlow's validity mask from the same launch as the
+warp.
+
 The backward kernels write ``dflow`` once per pixel and accumulate ``dimg``
 with float32 atomics into a float32 buffer that is zero-filled here and cast
 to the image's dtype afterwards; atomics sum in an order that changes from run
@@ -34,6 +43,8 @@ without a copy.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -44,12 +55,77 @@ from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain, warp3d_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+_MAX_INDEX = 2**31  # 32-bit offsets inside one plane or volume, 32-bit plane counts
+_MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+_THREADS = 256  # per block: __launch_bounds__ of the forward kernels
+
+
+class Launch(NamedTuple):
+    """Grid ``(gx, gy, gz)`` and block ``(tx, ty)`` of one forward launch,
+    each thread on ``per_thread`` consecutive x of one row.
+
+    ``strided``: the rows or the planes exceed the grid, and the kernel's
+    grid-stride loops cover the rest."""
+
+    grid: tuple[int, int, int]
+    block: tuple[int, int]
+    per_thread: int
+    strided: bool
+
+
+def _check_extent(shape: Sequence[int]) -> None:
+    """Refuse an image whose plane (2-D) or volume (3-D) the kernels' 32-bit
+    offsets cannot address."""
+    elements = math.prod(shape[2:])
+    if elements >= _MAX_INDEX:
+        what = "plane" if len(shape) == 4 else "volume"
+        raise ValueError(
+            f"warp kernels address one {what} with 32-bit offsets: {tuple(shape)} has "
+            f"{elements} elements in one, the limit is {_MAX_INDEX - 1}"
+        )
+
+
+def launch_geometry(shape: Sequence[int], per_thread: int | None = None) -> Launch:
+    """The forward warp's launch over an image ``[B, C, H, W]`` (rows H,
+    planes B) or ``[B, C, Z, Y, X]`` (rows Y, planes B * Z), from its shape
+    alone.
+
+    A thread takes 4 consecutive x of a single-channel 2-D image (IFNet's
+    warps, where the flow's loads take the time) and 2 of a multi-channel
+    one or of a volume (gathers of neighbouring x by neighbouring threads hit
+    fewer cache lines), the faster of the two on an H100 at the model paths'
+    shapes (``PERF.md``).  A block holds ``tx`` threads along a row, enough
+    to cover it (at most 256), and as many rows ``ty`` as fit in 256 threads
+    (at most the plane's); rows and planes beyond the grid's 65535 limit are
+    left to the kernel's grid-stride loops.
+    ``per_thread`` overrides that choice (2-D: 2 or 4, 3-D: 2), for timing
+    the two against each other.  Raises ``ValueError`` for a plane or volume
+    of 2^31 elements or more, or 2^31 planes or more.
+    """
+    if len(shape) not in (4, 5):
+        raise ValueError(f"expected [B, C, H, W] or [B, C, Z, Y, X], got {tuple(shape)}")
+    _check_extent(shape)
+    width, rows = shape[-1], shape[-2]
+    planes = shape[0] * math.prod(shape[2:-2])
+    if planes >= _MAX_INDEX:
+        raise ValueError(f"warp kernels count planes in 32 bits: {tuple(shape)} has {planes}")
+    if per_thread is None:
+        per_thread = 4 if len(shape) == 4 and shape[1] == 1 else 2
+    elif per_thread not in ((2, 4) if len(shape) == 4 else (2,)):
+        raise ValueError(f"per_thread {per_thread} for {tuple(shape)}: 2-D takes 2 or 4, 3-D 2")
+    tx = min(_THREADS, -(-width // per_thread))
+    ty = min(_THREADS // tx, rows)
+    row_tiles = -(-rows // ty)
+    gx = -(-width // (per_thread * tx))
+    grid = (gx, min(row_tiles, _MAX_GRID_YZ), min(planes, _MAX_GRID_YZ))
+    return Launch(grid, (tx, ty), per_thread, row_tiles > _MAX_GRID_YZ or planes > _MAX_GRID_YZ)
+
 
 def _library() -> ctypes.CDLL:
     lib = load("warp2d")
     if lib.warp2d_forward.argtypes is None:
         lib.warp2d_forward.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 11 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 17 + [ctypes.c_void_p]
         )
         lib.warp2d_forward.restype = ctypes.c_int
         lib.warp2d_backward.argtypes = (
@@ -67,21 +143,27 @@ def _type_code(img: torch.Tensor, flow: torch.Tensor) -> int:
     return 1 if flow.dtype == torch.bfloat16 else 2
 
 
-def _launch(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str) -> torch.Tensor:
+def _launch(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str,
+            with_mask: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One launch of the forward kernel: ``(out, mask or None)``."""
+    geometry = launch_geometry(img.shape)
     b, c, h, w = img.shape
     out = torch.empty_like(img, memory_format=torch.contiguous_format)
+    mask = torch.empty((b, 1, h, w), dtype=img.dtype, device=img.device) if with_mask else None
     fn = _library().warp2d_forward
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = fn(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
+            mask.data_ptr() if with_mask else None,
             b, c, h, w, *flow.stride(),
-            r, int(padding == "zeros"), _type_code(img, flow), stream,
+            r, int(padding == "zeros"), _type_code(img, flow),
+            *geometry.grid, *geometry.block, geometry.per_thread, stream,
         )
     if err:
         raise RuntimeError(f"warp2d kernel launch failed with CUDA error {err}")
     LAUNCHES["warp2d"] += 1
-    return out
+    return out, mask
 
 
 def _check_grad(img: torch.Tensor, grad_out: torch.Tensor, name: str) -> None:
@@ -103,6 +185,7 @@ def _launch_backward(
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """One launch of the backward kernel: ``(dimg or None, dflow)``."""
     _check_grad(img, grad_out, "warp2d")
+    _check_extent(img.shape)
     b, c, h, w = img.shape
     dflow = torch.empty((b, 2, h, w), dtype=flow.dtype, device=flow.device)
     acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_dimg else None
@@ -122,19 +205,24 @@ def _launch_backward(
 
 
 class _Warp2dKernel(torch.autograd.Function):
+    """``(out, mask or None)``; the mask carries no gradient."""
+
     @staticmethod
-    def forward(ctx, img, flow, r, padding):
+    def forward(ctx, img, flow, r, padding, with_mask):
         ctx.save_for_backward(img, flow)
         ctx.r, ctx.padding = r, padding
-        return _launch(img, flow, r, padding)
+        out, mask = _launch(img, flow, r, padding, with_mask)
+        if with_mask:
+            ctx.mark_non_differentiable(mask)
+        return out, mask
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, grad_out):
+    def backward(ctx, grad_out, _grad_mask):
         img, flow = ctx.saved_tensors
         need_dimg, need_dflow = ctx.needs_input_grad[:2]
         dimg, dflow = _launch_backward(img, flow, grad_out, ctx.r, ctx.padding, need_dimg)
-        return dimg, (dflow if need_dflow else None), None, None
+        return dimg, (dflow if need_dflow else None), None, None, None
 
 
 def _check_cuda_args(img: torch.Tensor, flow: torch.Tensor, name: str = "warp2d") -> None:
@@ -154,17 +242,7 @@ def _check_cuda_args(img: torch.Tensor, flow: torch.Tensor, name: str = "warp2d"
         raise ValueError(f"{name} kernel got an empty image {tuple(img.shape)}")
 
 
-def warp2d(
-    img: torch.Tensor, flow: torch.Tensor, r: int = 16, padding: str = "border"
-) -> torch.Tensor:
-    """Warp ``img [B, C, H, W]`` by ``flow [B, 2, H, W]`` (dy, dx), clipped to ±r.
-
-    ``r = 0`` is unbounded.  Returns ``[B, C, H, W]`` in ``img``'s dtype;
-    on CUDA, image and flow share one dtype, float32 or bfloat16, or the
-    image is bfloat16 and the flow float32 (its gradient then float32 too).
-    Differentiable in ``img`` and ``flow``; a flow component with
-    ``|flow| >= r`` gets no gradient.
-    """
+def _check_args2d(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str) -> None:
     if padding not in ("border", "zeros"):
         raise ValueError(f"padding must be 'border' or 'zeros', got {padding!r}")
     if not isinstance(r, int) or r < 0:
@@ -177,12 +255,34 @@ def warp2d(
     b, _, h, w = img.shape
     if (flow.shape[0], flow.shape[2], flow.shape[3]) != (b, h, w):
         raise ValueError(f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}")
+
+
+def _on_cpu(img: torch.Tensor, flow: torch.Tensor, name: str) -> bool:
+    """True for CPU tensors (the plain version's), False for CUDA ones that
+    the kernel takes; raises on anything else."""
     if img.device.type == "cpu" and flow.device.type == "cpu":
-        return warp2d_plain(img, flow, r, padding)
+        return True
     if img.device.type != "cuda":
-        raise ValueError(f"warp2d runs on cuda or cpu tensors, got {img.device}")
-    _check_cuda_args(img, flow)
-    return _Warp2dKernel.apply(img, flow, r, padding)
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {img.device}")
+    _check_cuda_args(img, flow, name)
+    return False
+
+
+def warp2d(
+    img: torch.Tensor, flow: torch.Tensor, r: int = 16, padding: str = "border"
+) -> torch.Tensor:
+    """Warp ``img [B, C, H, W]`` by ``flow [B, 2, H, W]`` (dy, dx), clipped to ±r.
+
+    ``r = 0`` is unbounded.  Returns ``[B, C, H, W]`` in ``img``'s dtype;
+    on CUDA, image and flow share one dtype, float32 or bfloat16, or the
+    image is bfloat16 and the flow float32 (its gradient then float32 too).
+    Differentiable in ``img`` and ``flow``; a flow component with
+    ``|flow| >= r`` gets no gradient.
+    """
+    _check_args2d(img, flow, r, padding)
+    if _on_cpu(img, flow, "warp2d"):
+        return warp2d_plain(img, flow, r, padding)
+    return _Warp2dKernel.apply(img, flow, r, padding, False)[0]
 
 
 def warp2d_with_mask(
@@ -191,16 +291,19 @@ def warp2d_with_mask(
     """Unbounded ``warp2d`` and its validity mask ``[B, 1, H, W]``: the share of
     bilinear weight that fell inside the image, in ``img``'s dtype.
 
-    The mask is the warp of an image of ones under ``'zeros'`` padding (a
-    second launch on the card) and carries no gradient: callers compare it
-    with a threshold.
+    The mask equals the warp of an image of ones under ``'zeros'`` padding bit
+    for bit (on the card the same launch writes both) and carries no
+    gradient: callers compare it with a threshold.
     """
-    warped = warp2d(img, flow, 0, padding)
-    with torch.no_grad():
-        ones = torch.ones((img.shape[0], 1) + tuple(img.shape[2:]), dtype=img.dtype,
-                          device=img.device)
-        mask = warp2d(ones, flow, 0, "zeros")
-    return warped, mask
+    _check_args2d(img, flow, 0, padding)
+    if _on_cpu(img, flow, "warp2d"):
+        warped = warp2d_plain(img, flow, 0, padding)
+        with torch.no_grad():
+            ones = torch.ones((img.shape[0], 1) + tuple(img.shape[2:]), dtype=img.dtype,
+                              device=img.device)
+            mask = warp2d_plain(ones, flow, 0, "zeros")
+        return warped, mask
+    return _Warp2dKernel.apply(img, flow, 0, padding, True)
 
 
 # -- 3-D ------------------------------------------------------------------------
@@ -213,7 +316,7 @@ def _library3d() -> ctypes.CDLL:
     if lib.warp3d_forward.argtypes is None:
         ints = ctypes.POINTER(ctypes.c_int64)
         lib.warp3d_forward.argtypes = (
-            [ctypes.c_void_p] * 3 + [ints] * 2 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 3 + [ints] * 2 + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
         )
         lib.warp3d_forward.restype = ctypes.c_int
         lib.warp3d_backward.argtypes = (
@@ -225,6 +328,7 @@ def _library3d() -> ctypes.CDLL:
 
 def _launch3d(img: torch.Tensor, flow: torch.Tensor, r_z: int, r_yx: int,
               padding: str) -> torch.Tensor:
+    geometry = launch_geometry(img.shape)
     out = torch.empty_like(img, memory_format=torch.contiguous_format)
     fn = _library3d().warp3d_forward
     with torch.cuda.device(img.device):
@@ -232,7 +336,8 @@ def _launch3d(img: torch.Tensor, flow: torch.Tensor, r_z: int, r_yx: int,
         err = fn(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
             _I64x5(*img.shape), _I64x5(*flow.stride()),
-            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16), stream,
+            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16),
+            *geometry.grid, *geometry.block, geometry.per_thread, stream,
         )
     if err:
         raise RuntimeError(f"warp3d kernel launch failed with CUDA error {err}")
@@ -306,9 +411,6 @@ def warp3d(
         )
     if (flow.shape[0],) + tuple(flow.shape[2:]) != (img.shape[0],) + tuple(img.shape[2:]):
         raise ValueError(f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}")
-    if img.device.type == "cpu" and flow.device.type == "cpu":
+    if _on_cpu(img, flow, "warp3d"):
         return warp3d_plain(img, flow, r_z, r_yx, padding)
-    if img.device.type != "cuda":
-        raise ValueError(f"warp3d runs on cuda or cpu tensors, got {img.device}")
-    _check_cuda_args(img, flow, "warp3d")
     return _Warp3dKernel.apply(img, flow, r_z, r_yx, padding)
