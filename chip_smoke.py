@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --warp-times ROOT
 
 Builds every Hopper kernel of the port from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card, drives the
@@ -52,10 +53,17 @@ Phases, printed in order:
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
 CUDA device or without the port beside it.
+
+``--warp-times ROOT`` runs only the warp kernels' timings of phase 9, through
+the package of another checkout at ``ROOT`` (a commit unpacked with ``git
+archive``), and ends with one ``warp times {...}`` line of their medians.
+Two versions of the kernels are compared by running it on both checkouts in
+turns (A, B, B, A) in one session on one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -207,6 +215,20 @@ def kernel_against_library(fns: dict, bound_ms: float) -> dict:
             "windows_ms": {name: t["windows_ms"] for name, t in timed.items()}}
 
 
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN restricted to algorithms whose results repeat bit for bit, for
+    comparisons of two evaluations of the same weights.  Without it the same
+    f32 trainer evaluated twice differed by 8.5e-8 to 1.7e-7 (relative) on an
+    H100, once by 1.5e-5."""
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+
+
 def bf16_ulp(x):
     """One bf16 ulp at the magnitude of each element of ``x`` (float32 tensor).
     ``frexp`` and ``ldexp`` are exact; the card's ``pow(2, -10)`` is not (it
@@ -271,11 +293,16 @@ def grid2d(torch, flow, r: int):
                         2.0 * (ys + fl[:, 0]) / (h - 1) - 1.0], dim=-1)
 
 
-def phase_card(torch):
-    smi = subprocess.run(
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_card(torch):
+    smi = card_line()
     print(smi)
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}")
@@ -292,33 +319,26 @@ def phase_card(torch):
 
 def ptxas_report(names: list) -> dict:
     """Registers and spill stores of each kernel of ``csrc/<name>.cu`` (kernel
-    name and its mangled template arguments), from ``nvcc -Xptxas -v`` with
-    the build's flags, one nvcc per source in parallel."""
+    name and its mangled template arguments), from the build's ``-Xptxas -v``
+    output."""
     import re
 
-    from opticalflowscivis_tpu_torch.ops.kernels.build import CSRC_DIR, NVCC_FLAGS, _nvcc
+    from opticalflowscivis_tpu_torch.ops.kernels.build import ptxas_log
 
     report = {}
-    with tempfile.TemporaryDirectory(prefix="ptxas_") as tmp:
-        procs = {name: subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, f"{name}.so"),
-             str(CSRC_DIR / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for name in names}
-        for name, proc in procs.items():
-            log = proc.communicate(timeout=600)[0]
-            check(proc.returncode == 0, f"nvcc -Xptxas -v of {name}.cu failed:\n{log[-2000:]}")
-            kernel = None
-            for line in log.splitlines():
-                entry = re.search(r"Compiling entry function '\w*?\d(warp[23]d(?:_bwd)?_kernel)I"
-                                  r"(\w*?)EEv", line)
-                if entry:
-                    kernel = f"{entry.group(1)}<{entry.group(2)}>"
-                spills = re.search(r"(\d+) bytes spill stores", line)
-                if kernel and spills:
-                    report.setdefault(kernel, {})["spill_stores"] = int(spills.group(1))
-                used = re.search(r"Used (\d+) registers", line)
-                if kernel and used:
-                    report.setdefault(kernel, {})["registers"] = int(used.group(1))
+    for name in names:
+        kernel = None
+        for line in ptxas_log(name).splitlines():
+            entry = re.search(r"Compiling entry function '\w*?\d(warp[23]d(?:_bwd)?_kernel)I"
+                              r"(\w*?)EEv", line)
+            if entry:
+                kernel = f"{entry.group(1)}<{entry.group(2)}>"
+            spills = re.search(r"(\d+) bytes spill stores", line)
+            if kernel and spills:
+                report.setdefault(kernel, {})["spill_stores"] = int(spills.group(1))
+            used = re.search(r"Used (\d+) registers", line)
+            if kernel and used:
+                report.setdefault(kernel, {})["registers"] = int(used.group(1))
     return report
 
 
@@ -595,11 +615,6 @@ def profile_forward(torch, name: str, fn, iters: int = 3, unit: str = "forward")
 
 
 def phase_times(torch, interps):
-    import torch.nn.functional as F
-
-    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
-    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
-
     interp32, interp16, a, z = interps
     b, h, w, c = WARP_SHAPE
     times = {}
@@ -619,7 +634,21 @@ def phase_times(torch, interps):
         times[f"pair_call_pairs_per_sec_{name}"] = 5 * b / (time.perf_counter() - t0)
         profile_forward(torch, name, lambda i: interp.forward(*sets[i % 4]))
 
-    # warp at the main path's shape: f32, border, r=16, flow a 2-channel slice
+    print("times " + json.dumps(times))
+    warp = warp2d_forward_times(torch)
+    return times, warp
+
+
+def warp2d_forward_times(torch):
+    """The forward kernel at the serving path's warp, [32, 1, 160, 224] f32,
+    border, r = 16, flow a 2-channel slice: against ``F.grid_sample`` in
+    turns on iid and on smooth flows, its plain version and its bound."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    b, h, w, c = WARP_SHAPE
     sets = [warp_inputs(WARP_SHAPE, torch.float32, 200 + i) for i in range(4)]
 
     def kernel(i):
@@ -660,50 +689,8 @@ def phase_times(torch, interps):
     warp["smooth_flow"] = kernel_against_library({
         "kernel": lambda i: warp2d(*smooth[i % 4], 16, "border"),
         "library": lambda i: library(i, smooth_grids)}, warp["bound_ms"])
-    print("times " + json.dumps(times))
     print("warp2d times " + json.dumps(warp) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
-    return times, warp
-
-
-def phase_warp2d_widths(torch):
-    """The forward kernel's two row widths against each other, in turns: 4 or
-    2 consecutive pixels a thread, at IFNet's warp (one channel) and UPFlow's
-    finest feature warp (32), on iid and on smooth flows, each call with a
-    fresh output as the wrapper allocates it."""
-    from opticalflowscivis_tpu_torch.ops.kernels.warp import (
-        _library,
-        _type_code,
-        launch_geometry,
-    )
-
-    def launch(img, flow, r, padding, per_thread):
-        out = torch.empty_like(img)
-        geometry = launch_geometry(img.shape, per_thread)
-        err = _library().warp2d_forward(
-            img.data_ptr(), flow.data_ptr(), out.data_ptr(), None, *img.shape, *flow.stride(), r,
-            int(padding == "zeros"), _type_code(img, flow), *geometry.grid, *geometry.block,
-            per_thread, torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"warp2d launch failed with CUDA error {err}")
-        return out
-
-    out = {}
-    for shape, r, padding in ((WARP_SHAPE, 16, "border"), (UPFLOW_WARP_SHAPES[0], 0, "zeros")):
-        b, h, w, c = shape
-        for flows in ("iid", "smooth"):
-            sets = []
-            for i in range(4):
-                img, flow = warp_inputs(shape, torch.float32, 1200 + i, scale=min(10.0, h / 2))
-                if flows == "smooth":
-                    flow = smooth_flow(torch, (b, 4, h, w), min(10.0, h / 2), 1210 + i)[:, 2:4]
-                sets.append((img, flow))
-            check(torch.equal(launch(*sets[0], r, padding, 4), launch(*sets[0], r, padding, 2)),
-                  "the two widths compute different results")
-            timed = interleaved_device_ms({
-                f"per_thread_{v}": (lambda i, v=v, sets=sets: launch(*sets[i % 4], r, padding, v))
-                for v in (4, 2)})
-            out[f"{list(shape)} {flows}"] = {k: t["median_ms"] for k, t in timed.items()}
-    print("warp2d widths " + json.dumps(out) + "  ([B,H,W,C] float32)")
-    return out
+    return warp
 
 
 def phase_upflow_warp_times(torch):
@@ -943,14 +930,13 @@ def phase_training(torch, tmp: str):
         def rel_diff(x, y):
             return max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-12) for k in x)
 
-        ours = tr.evaluate(val, b)
-        again, theirs = rel_diff(ours, tr.evaluate(val, b)), rel_diff(ours, fresh.evaluate(val, b))
-        # the same trainer evaluated twice sets the scale: in bf16 the card's
-        # convolutions do not repeat bit for bit from run to run, and in f32
-        # cuDNN may pick another algorithm from one call to the next (seen once
-        # on an H100: 1.5e-5 for the same trainer twice); the weights are
-        # compared bit for bit above
-        tol = max(1e-6 if not bfloat16 else 1e-3, 2 * again)
+        with deterministic_cudnn(torch):
+            ours = tr.evaluate(val, b)
+            again = rel_diff(ours, tr.evaluate(val, b))
+            theirs = rel_diff(ours, fresh.evaluate(val, b))
+        # the weights are compared bit for bit above; in bf16 the card's
+        # convolutions do not repeat bit for bit from run to run
+        tol = 1e-6 if not bfloat16 else 1e-3
         print(f"checkpoint {name}: restored step {fresh.state.step}, weights equal, evaluate "
               f"rel diff {theirs:.3e} (same trainer twice: {again:.3e}) tol={tol:g}")
         check(theirs <= tol, f"{name}: the restored trainer evaluates differently")
@@ -1040,12 +1026,7 @@ def phase_cli(torch, tmp: str):
 def phase_train_times(torch, trainers):
     """Train steps per second, a profile of three steps, and the backward
     kernel alone against its plain version, its bound and ``F.grid_sample``."""
-    import torch.nn.functional as F
-
-    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch_backward
-    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
-
-    b, h, w, c = TRAIN_SHAPE
+    b = TRAIN_SHAPE[0]
     times = {}
     for name, (tr, train) in trainers.items():
         batches = [tr.upload(train[i * b : (i + 1) * b]) for i in range(4)]
@@ -1068,7 +1049,19 @@ def phase_train_times(torch, trainers):
         profile_forward(torch, f"train_{name}", step, unit="train_step")
     print("train times " + json.dumps(times))
 
-    # the backward kernel at the training path's shape: f32, border, r = 16
+    return times, warp2d_backward_times(torch)
+
+
+def warp2d_backward_times(torch):
+    """The backward kernel at the training path's shape, [64, 1, 128, 128]
+    f32, border, r = 16, without and with ``dimg``: alone, against autograd
+    through its plain version and through ``F.grid_sample``, and its bound."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch_backward
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    b, h, w, c = TRAIN_SHAPE
     sets = [backward_inputs(torch, TRAIN_SHAPE, torch.float32, 300 + i, False) for i in range(4)]
 
     def clipped_grid(flow):
@@ -1129,7 +1122,7 @@ def phase_train_times(torch, trainers):
         }
     print("warp2d_bwd times " + json.dumps(out)
           + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
-    return times, out
+    return out
 
 
 # -- 3-D: the trilinear warp kernels, ifnet_3d serving and training ------------------
@@ -1429,9 +1422,11 @@ def phase_training3d(torch, tmp: str):
         def rel_diff(p, q):
             return max(abs(p[k] - q[k]) / max(abs(p[k]), 1e-12) for k in p)
 
-        ours = tr.evaluate(val, b)
-        again, theirs = rel_diff(ours, tr.evaluate(val, b)), rel_diff(ours, fresh.evaluate(val, b))
-        tol = max(1e-6 if not bfloat16 else 1e-3, 2 * again)  # as in 2-D
+        with deterministic_cudnn(torch):
+            ours = tr.evaluate(val, b)
+            again = rel_diff(ours, tr.evaluate(val, b))
+            theirs = rel_diff(ours, fresh.evaluate(val, b))
+        tol = 1e-6 if not bfloat16 else 1e-3  # as in 2-D
         print(f"checkpoint3d {name}: restored step {fresh.state.step}, weights equal, evaluate "
               f"rel diff {theirs:.3e} (same trainer twice: {again:.3e}) tol={tol:g}")
         check(theirs <= tol, f"{name}: the restored 3-D trainer evaluates differently")
@@ -1553,11 +1548,6 @@ def phase_cli3d(torch, tmp: str):
 
 def phase_times3d(torch, interps, trainers):
     """Times of the 3-D paths and of the two 3-D kernels at the paths' shape."""
-    import torch.nn.functional as F
-
-    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch3d_backward, warp3d
-    from opticalflowscivis_tpu_torch.ops.warp import warp3d_plain
-
     b, z, y, x, c = VOLUME_SHAPE
     times = {}
     for name, interp in zip(("f32", "bf16"), interps):
@@ -1588,7 +1578,21 @@ def phase_times3d(torch, interps, trainers):
         profile_forward(torch, f"train3d_{name}", step, unit="train_step")
     print("times3d " + json.dumps(times))
 
-    # the kernels at the paths' shape: f32, border, radii (8, 8), flow a 3-channel slice
+    return (times, *warp3d_times(torch))
+
+
+def warp3d_times(torch):
+    """The two 3-D kernels at the paths' shape, [4, 1, 64, 64, 64] f32, border,
+    radii (8, 8), flow a 3-channel slice: the forward against ``F.grid_sample``
+    in turns on iid and smooth flows, the backward without and with ``dimg``
+    alone and against autograd through the plain version and the library
+    call; both against their plain versions and bounds."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch3d_backward, warp3d
+    from opticalflowscivis_tpu_torch.ops.warp import warp3d_plain
+
+    b, z, y, x, c = VOLUME_SHAPE
     r_z, r_yx = RADII_3D[0]
     sets = [warp3d_inputs(torch, VOLUME_SHAPE, torch.float32, 600 + i, False, off_integer=True)
             for i in range(4)]
@@ -1697,7 +1701,7 @@ def phase_times3d(torch, interps, trainers):
             "back_to_back_call_ms": cuda_ms(bwd_kernel, 40),
         }
     print("warp3d_bwd times " + json.dumps(bwd) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
-    return times, fwd, bwd
+    return fwd, bwd
 
 
 
@@ -2192,17 +2196,52 @@ def phase_upflow_times(torch, serving, training):
     return times, out
 
 
-def main() -> int:
+def warp_times_of(torch, root: str) -> int:
+    """``--warp-times ROOT``: the warp kernels' times alone, through the
+    package of the checkout at ``root``, by this script's harness."""
+    import opticalflowscivis_tpu_torch
+
+    package = os.path.dirname(os.path.abspath(opticalflowscivis_tpu_torch.__file__))
+    check(package == os.path.join(root, "opticalflowscivis_tpu_torch"),
+          f"imported {package}, not the package under {root}")
+    smi = card_line()
+    print(smi)
+    print(f"warp times of {package}")
+    fwd2, upflow = warp2d_forward_times(torch), phase_upflow_warp_times(torch)
+    bwd2 = warp2d_backward_times(torch)
+    fwd3, bwd3 = warp3d_times(torch)
+    medians = {
+        "warp2d": {k: fwd2[k] for k in ("kernel_ms", "library_ms")},
+        "warp2d_smooth": {k: fwd2["smooth_flow"][k] for k in ("kernel_ms", "library_ms")},
+        **{f"warp2d_upflow_{name}": {k: t[k] for k in ("kernel_ms", "with_mask_ms", "library_ms")}
+           for name, t in upflow.items()},
+        "warp3d": {k: fwd3[k] for k in ("kernel_ms", "library_ms")},
+        "warp3d_smooth": {k: fwd3["smooth_flow"][k] for k in ("kernel_ms", "library_ms")},
+        **{f"warp2d_bwd_{tag}": bwd2[tag]["kernel_ms"] for tag in bwd2},
+        **{f"warp3d_bwd_{tag}": bwd3[tag]["kernel_ms"] for tag in bwd3},
+    }
+    print("warp times " + json.dumps({"root": root, "card": smi, "ms": medians}))
+    return 0
+
+
+def main(argv: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device",
               file=sys.stderr)
         return 1
+    root = None
+    if argv:
+        check(len(argv) == 2 and argv[0] == "--warp-times", f"unknown arguments {argv}")
+        root = os.path.abspath(argv[1])
+        sys.path.insert(0, root)
     import opticalflowscivis_tpu_torch  # noqa: F401  (fails when run outside the repo)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if root is not None:
+        return warp_times_of(torch, root)
 
     t_start = time.perf_counter()
     smi = phase_card(torch)
@@ -2217,7 +2256,6 @@ def main() -> int:
         phase_cli(torch, tmp)
         times, warp = phase_times(torch, interps)
         upflow_warp = phase_upflow_warp_times(torch)
-        phase_warp2d_widths(torch)
         train_times, bwd = phase_train_times(torch, trainers)
         del interps, trainers  # free the 2-D models before the volumes
         torch.cuda.empty_cache()
@@ -2367,4 +2405,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

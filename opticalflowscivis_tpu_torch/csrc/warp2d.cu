@@ -34,21 +34,20 @@
 // Forward design.  At 16-20 B per pixel, per-thread instructions and bytes in
 // flight set the time, not DRAM, so the forward spends no instruction on index
 // decomposition: the grid is (x tiles, row tiles, batch), computed by the
-// wrapper, and a thread holds V = 4 (one channel) or 2 (more) consecutive x of
-// one row; a grid-stride loop over rows and batch takes over where either
-// exceeds the grid's 65535 limit.  Offsets inside a plane are 32-bit (the
-// wrapper refuses a plane of 2^31 elements or more); only the (b, c) base is
-// 64-bit.  Each flow plane's V values are one 4V-byte (bf16: 2V-byte) load
-// when the row is aligned and the flow's x stride is 1, a channels-last
-// (dy, dx) pair one 8 B (4 B) load, anything else (ragged row ends, misaligned
-// slices) element by element; the output row is one vector store where
-// aligned.  The image is gathered through the read-only path, 4 V loads in
-// flight per thread and channel; the channel loop is not unrolled, since its
-// registers would cost occupancy.  The validity mask, asked for by a non-null
-// pointer, is summed w00 + w01 + w10 + w11 in that order and rounded once,
-// which is what the accumulation of an image of ones rounds: the two are
-// bit-equal.  On iid random flows the gathers are the limit: each touches its
-// own cache line.
+// wrapper, and a thread holds kV = 4 consecutive x of one row, whatever the
+// number of channels; a grid-stride loop over rows and batch takes over where
+// either exceeds the grid's 65535 limit.  Offsets inside a plane are 32-bit
+// (the wrapper refuses a plane of 2^31 elements or more); only the (b, c) base
+// is 64-bit.  Each flow plane's 4 values are one 16 B (bf16: 8 B) load when
+// the row is aligned and the flow's x stride is 1, a channels-last (dy, dx)
+// pair one 8 B (4 B) load, anything else (ragged row ends, misaligned slices)
+// element by element; the output row is one vector store where aligned.  The
+// image is gathered through the read-only path, 16 loads in flight per thread
+// and channel; the channel loop is not unrolled, since its registers would
+// cost occupancy.  The validity mask, asked for by a non-null pointer, is
+// summed w00 + w01 + w10 + w11 in that order and rounded once, which is what
+// the accumulation of an image of ones rounds: the two are bit-equal.  On iid
+// random flows the gathers are the limit: each touches its own cache line.
 //
 // Backward design (simple first): one thread per output pixel (b, y, x),
 // consecutive threads on consecutive x so reads of g and writes of dflow
@@ -148,31 +147,30 @@ __device__ __forceinline__ void load_flow_row(const F* p, int64_t fsc, int64_t f
   load_row<V>(p + fsc, fsw, n, dx);
 }
 
-// V consecutive pixels of one row per thread: 4 for a single-channel image,
-// whose time goes to the flow's loads; 2 for many channels, whose gathers hit
-// fewer cache lines when neighbouring threads hold neighbouring x.  At most
-// 80 registers, so that 3 blocks of 256 threads share an SM.
-template <int V, typename T, typename F>
+constexpr int kV = 4;  // consecutive output pixels of one row per forward thread
+
+// At most 80 registers, so that 3 blocks of 256 threads share an SM.
+template <typename T, typename F>
 __global__ void __launch_bounds__(256, 3)
 warp2d_kernel(const T* __restrict__ img, const F* __restrict__ flow, T* __restrict__ out,
               T* __restrict__ mask, int B, int C, int H, int W, int64_t fsb, int64_t fsc,
               int64_t fsh, int64_t fsw, float r, int zeros) {
   const unsigned xt = blockIdx.x * blockDim.x + threadIdx.x;
-  if (xt >= ((unsigned)W + V - 1) / V) return;
-  const int x0 = (int)xt * V;
-  const int n = min(V, W - x0);
+  if (xt >= ((unsigned)W + kV - 1) / kV) return;
+  const int x0 = (int)xt * kV;
+  const int n = min(kV, W - x0);
   const int plane = H * W;
   // unsigned: a stride past the last row or batch stays below 2^32
   for (unsigned b = blockIdx.z; b < (unsigned)B; b += gridDim.z) {
     for (unsigned y = blockIdx.y * blockDim.y + threadIdx.y; y < (unsigned)H;
          y += gridDim.y * blockDim.y) {
-      float dy[V], dx[V];
-      load_flow_row<V>(flow + (int64_t)b * fsb + (int64_t)y * fsh + x0 * fsw, fsc, fsw, n, dy,
+      float dy[kV], dx[kV];
+      load_flow_row<kV>(flow + (int64_t)b * fsb + (int64_t)y * fsh + x0 * fsw, fsc, fsw, n, dy,
                     dx);
-      float w[V][4], valid[V];
-      int o[V][4];
+      float w[kV][4], valid[kV];
+      int o[kV][4];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
+      for (int j = 0; j < kV; ++j) {
         const Taps k = make_taps(dy[j], dx[j], (int)y, x0 + j, H, W, r, zeros);
         const float wy0 = 1.f - k.ay, wx0 = 1.f - k.ax;
         w[j][0] = wy0 * wx0 * k.m00;
@@ -189,18 +187,18 @@ warp2d_kernel(const T* __restrict__ img, const F* __restrict__ flow, T* __restri
       const int at = (int)y * W + x0;
       for (int c = 0; c < C; ++c) {
         const T* p = img + base + (int64_t)c * plane;
-        float acc[V];
+        float acc[kV];
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
+        for (int j = 0; j < kV; ++j) {
           float a = w[j][0] * ldg(p + o[j][0]);
           a += w[j][1] * ldg(p + o[j][1]);
           a += w[j][2] * ldg(p + o[j][2]);
           a += w[j][3] * ldg(p + o[j][3]);
           acc[j] = a;
         }
-        store_row<V>(out + base + (int64_t)c * plane + at, acc, n);
+        store_row<kV>(out + base + (int64_t)c * plane + at, acc, n);
       }
-      if (mask) store_row<V>(mask + (int64_t)b * plane + at, valid, n);
+      if (mask) store_row<kV>(mask + (int64_t)b * plane + at, valid, n);
     }
   }
 }
@@ -260,20 +258,10 @@ __global__ void warp2d_bwd_kernel(
 template <typename T, typename F>
 void launch(const void* img, const void* flow, void* out, void* mask, int64_t B, int64_t C,
             int64_t H, int64_t W, int64_t fsb, int64_t fsc, int64_t fsh, int64_t fsw,
-            int64_t r, int zeros, dim3 grid, dim3 block, int64_t per_thread,
-            cudaStream_t stream) {
-  const T* i = static_cast<const T*>(img);
-  const F* f = static_cast<const F*>(flow);
-  T* o = static_cast<T*>(out);
-  T* m = static_cast<T*>(mask);
-  if (per_thread == 4)
-    warp2d_kernel<4, T, F><<<grid, block, 0, stream>>>(i, f, o, m, (int)B, (int)C, (int)H,
-                                                       (int)W, fsb, fsc, fsh, fsw, (float)r,
-                                                       zeros);
-  else
-    warp2d_kernel<2, T, F><<<grid, block, 0, stream>>>(i, f, o, m, (int)B, (int)C, (int)H,
-                                                       (int)W, fsb, fsc, fsh, fsw, (float)r,
-                                                       zeros);
+            int64_t r, int zeros, dim3 grid, dim3 block, cudaStream_t stream) {
+  warp2d_kernel<T, F><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(img), static_cast<const F*>(flow), static_cast<T*>(out),
+      static_cast<T*>(mask), (int)B, (int)C, (int)H, (int)W, fsb, fsc, fsh, fsw, (float)r, zeros);
 }
 
 template <typename T, typename F>
@@ -305,28 +293,29 @@ void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
 // out [B, C, H, W] contiguous; mask null or [B, 1, H, W] contiguous in the
 // image's dtype.  bf16 = 0: all f32; 1: all bf16; 2: img, out and mask bf16,
 // flow f32.  H * W < 2^31.  The launch geometry, (gx, gy, gz) blocks of (tx,
-// ty) threads with per_thread (2 or 4) pixels each, comes from the wrapper
-// (ops/kernels/warp.py::launch_geometry): gx * tx * per_thread >= W, and any
-// gy, gz within the grid's limits (rows and batch are grid-stride loops).
+// ty) threads with kV = 4 pixels each, comes from the wrapper
+// (ops/kernels/warp.py::launch_geometry): gx * tx * 4 >= W, else the call is
+// refused, and any gy, gz within the grid's limits (rows and batch are
+// grid-stride loops).
 extern "C" int warp2d_forward(const void* img, const void* flow, void* out, void* mask,
                               int64_t B, int64_t C, int64_t H, int64_t W,
                               int64_t fsb, int64_t fsc, int64_t fsh,
                               int64_t fsw, int64_t r, int64_t zeros,
                               int64_t bf16, int64_t gx, int64_t gy, int64_t gz,
-                              int64_t tx, int64_t ty, int64_t per_thread, void* stream) {
-  if (per_thread != 2 && per_thread != 4) return (int)cudaErrorInvalidValue;
+                              int64_t tx, int64_t ty, void* stream) {
+  if (gx * tx * kV < W) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int z = zeros ? 1 : 0;
   const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
   if (bf16 == 2)
     launch<__nv_bfloat16, float>(img, flow, out, mask, B, C, H, W, fsb, fsc, fsh, fsw, r, z,
-                                 grid, block, per_thread, s);
+                                 grid, block, s);
   else if (bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(img, flow, out, mask, B, C, H, W, fsb, fsc, fsh, fsw,
-                                         r, z, grid, block, per_thread, s);
+                                         r, z, grid, block, s);
   else
     launch<float, float>(img, flow, out, mask, B, C, H, W, fsb, fsc, fsh, fsw, r, z, grid,
-                         block, per_thread, s);
+                         block, s);
   return (int)cudaGetLastError();
 }
 

@@ -294,15 +294,16 @@ void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
 // fs[5] = (batch, channel, z, y, x); out [B, C, Z, Y, X] contiguous.  dims[5] =
 // (B, C, Z, Y, X), Z * Y * X < 2^31 and B * Z < 2^31.  All three tensors are
 // bf16 (bf16 = 1) or f32 (0).  The launch geometry, (gx, gy, gz) blocks of (tx,
-// ty) threads with per_thread = 2 voxels each, comes from the wrapper
-// (ops/kernels/warp.py::launch_geometry): gx * tx * 2 >= X, and any gy, gz
-// within the grid's limits (rows and planes are grid-stride loops).
+// ty) threads with kV = 2 voxels each, comes from the wrapper
+// (ops/kernels/warp.py::launch_geometry): gx * tx * 2 >= X, else the call is
+// refused, and any gy, gz within the grid's limits (rows and planes are
+// grid-stride loops).
 extern "C" int warp3d_forward(const void* img, const void* flow, void* out,
                               const int64_t* dims, const int64_t* fs,
                               int64_t r_z, int64_t r_yx, int64_t zeros,
                               int64_t bf16, int64_t gx, int64_t gy, int64_t gz,
-                              int64_t tx, int64_t ty, int64_t per_thread, void* stream) {
-  if (per_thread != kV) return (int)cudaErrorInvalidValue;
+                              int64_t tx, int64_t ty, void* stream) {
+  if (gx * tx * kV < dims[4]) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dims d = {dims[0], dims[1], dims[2], dims[3], dims[4]};
   const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};

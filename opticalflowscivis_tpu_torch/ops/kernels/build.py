@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/lib<name>-<hash>.so`` inside this package (the directory is
-git-ignored); the hash is of the source and of the headers beside it
-(``csrc/*.cuh``), so an edited source or header rebuilds.
+git-ignored); the hash is of the flags, the source and the headers beside it
+(``csrc/*.cuh``), so an edited source or header rebuilds.  ``nvcc``'s output,
+with ptxas's registers and spills of each kernel, is kept beside the library
+as ``lib<name>-<hash>.log`` (``ptxas_log``).
 Builds happen at first use, so running ``chip_smoke.py`` alone builds every
 kernel; ``build`` starts one ``nvcc`` per source, all at once.
 
@@ -27,7 +29,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -42,7 +44,7 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -69,6 +71,7 @@ def build(names: list[str]) -> dict[str, Path]:
     for name, so, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            so.with_suffix(".log").write_bytes(log)
             os.replace(tmp, so)
         else:
             os.unlink(tmp)
@@ -76,6 +79,12 @@ def build(names: list[str]) -> dict[str, Path]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths
+
+
+def ptxas_log(name: str) -> str:
+    """``nvcc``'s output from the build of ``csrc/<name>.cu`` (built first if
+    needed): ptxas's registers, spills and shared memory of each kernel."""
+    return build([name])[name].with_suffix(".log").read_text(errors="replace")
 
 
 @functools.cache

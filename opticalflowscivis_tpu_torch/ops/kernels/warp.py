@@ -23,10 +23,10 @@ boundary too, as in the TPU kernel (``ops/pallas/warp.py:323``).
 
 The forward kernels run on a grid of (x tiles, row tiles, planes) that
 ``launch_geometry`` computes from the image's shape alone, each thread on 4
-or 2 consecutive x of one row; their offsets inside one plane (2-D) or volume
-(3-D) are 32-bit, and so are the 2-D backward's, so a plane of 2^31 elements
-or more, or a volume of 2^31 voxels or more, is refused with a ``ValueError``
-before anything is allocated.
+(2-D) or 2 (3-D) consecutive x of one row; their offsets inside one plane
+(2-D) or volume (3-D) are 32-bit, and so are the 2-D backward's, so a plane of
+2^31 elements or more, or a volume of 2^31 voxels or more, is refused with a
+``ValueError`` before anything is allocated.
 ``warp2d_with_mask`` gets UPFlow's validity mask from the same launch as the
 warp.
 
@@ -58,6 +58,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_INDEX = 2**31  # 32-bit offsets inside one plane or volume, 32-bit plane counts
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 _THREADS = 256  # per block: __launch_bounds__ of the forward kernels
+# consecutive x of one row per forward thread: kV of csrc/warp2d.cu and csrc/warp3d.cu
+_PER_THREAD = {4: 4, 5: 2}
 
 
 class Launch(NamedTuple):
@@ -85,22 +87,17 @@ def _check_extent(shape: Sequence[int]) -> None:
         )
 
 
-def launch_geometry(shape: Sequence[int], per_thread: int | None = None) -> Launch:
+def launch_geometry(shape: Sequence[int]) -> Launch:
     """The forward warp's launch over an image ``[B, C, H, W]`` (rows H,
     planes B) or ``[B, C, Z, Y, X]`` (rows Y, planes B * Z), from its shape
     alone.
 
-    A thread takes 4 consecutive x of a single-channel 2-D image (IFNet's
-    warps, where the flow's loads take the time) and 2 of a multi-channel
-    one or of a volume (gathers of neighbouring x by neighbouring threads hit
-    fewer cache lines), the faster of the two on an H100 at the model paths'
-    shapes (``PERF.md``).  A block holds ``tx`` threads along a row, enough
-    to cover it (at most 256), and as many rows ``ty`` as fit in 256 threads
-    (at most the plane's); rows and planes beyond the grid's 65535 limit are
-    left to the kernel's grid-stride loops.
-    ``per_thread`` overrides that choice (2-D: 2 or 4, 3-D: 2), for timing
-    the two against each other.  Raises ``ValueError`` for a plane or volume
-    of 2^31 elements or more, or 2^31 planes or more.
+    A thread takes 4 consecutive x of a 2-D image, whatever its channels,
+    and 2 of a volume.  A block holds ``tx`` threads along a row, enough to
+    cover it (at most 256), and as many rows ``ty`` as fit in 256 threads (at
+    most the plane's); rows and planes beyond the grid's 65535 limit are left
+    to the kernel's grid-stride loops.  Raises ``ValueError`` for a plane or
+    volume of 2^31 elements or more, or 2^31 planes or more.
     """
     if len(shape) not in (4, 5):
         raise ValueError(f"expected [B, C, H, W] or [B, C, Z, Y, X], got {tuple(shape)}")
@@ -109,10 +106,7 @@ def launch_geometry(shape: Sequence[int], per_thread: int | None = None) -> Laun
     planes = shape[0] * math.prod(shape[2:-2])
     if planes >= _MAX_INDEX:
         raise ValueError(f"warp kernels count planes in 32 bits: {tuple(shape)} has {planes}")
-    if per_thread is None:
-        per_thread = 4 if len(shape) == 4 and shape[1] == 1 else 2
-    elif per_thread not in ((2, 4) if len(shape) == 4 else (2,)):
-        raise ValueError(f"per_thread {per_thread} for {tuple(shape)}: 2-D takes 2 or 4, 3-D 2")
+    per_thread = _PER_THREAD[len(shape)]
     tx = min(_THREADS, -(-width // per_thread))
     ty = min(_THREADS // tx, rows)
     row_tiles = -(-rows // ty)
@@ -125,7 +119,7 @@ def _library() -> ctypes.CDLL:
     lib = load("warp2d")
     if lib.warp2d_forward.argtypes is None:
         lib.warp2d_forward.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 17 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
         )
         lib.warp2d_forward.restype = ctypes.c_int
         lib.warp2d_backward.argtypes = (
@@ -158,7 +152,7 @@ def _launch(img: torch.Tensor, flow: torch.Tensor, r: int, padding: str,
             mask.data_ptr() if with_mask else None,
             b, c, h, w, *flow.stride(),
             r, int(padding == "zeros"), _type_code(img, flow),
-            *geometry.grid, *geometry.block, geometry.per_thread, stream,
+            *geometry.grid, *geometry.block, stream,
         )
     if err:
         raise RuntimeError(f"warp2d kernel launch failed with CUDA error {err}")
@@ -316,7 +310,7 @@ def _library3d() -> ctypes.CDLL:
     if lib.warp3d_forward.argtypes is None:
         ints = ctypes.POINTER(ctypes.c_int64)
         lib.warp3d_forward.argtypes = (
-            [ctypes.c_void_p] * 3 + [ints] * 2 + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 3 + [ints] * 2 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
         )
         lib.warp3d_forward.restype = ctypes.c_int
         lib.warp3d_backward.argtypes = (
@@ -337,7 +331,7 @@ def _launch3d(img: torch.Tensor, flow: torch.Tensor, r_z: int, r_yx: int,
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
             _I64x5(*img.shape), _I64x5(*flow.stride()),
             r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16),
-            *geometry.grid, *geometry.block, geometry.per_thread, stream,
+            *geometry.grid, *geometry.block, stream,
         )
     if err:
         raise RuntimeError(f"warp3d kernel launch failed with CUDA error {err}")

@@ -4,8 +4,8 @@ mask, on the CPU.
 ``ops.kernels.warp.launch_geometry`` decides every forward launch of
 ``csrc/warp2d.cu`` and ``csrc/warp3d.cu`` from the image's shape alone: a
 grid of (x tiles, row tiles, planes), blocks of at most 256 threads that each
-own 4 (single-channel 2-D images) or 2 (the rest) consecutive x of one row, grid-stride loops where the rows or planes
-exceed CUDA's 65535 limit, and a refusal of any plane or volume that 32-bit
+own 4 (2-D images) or 2 (volumes) consecutive x of one row, grid-stride loops
+where the rows or planes exceed CUDA's 65535 limit, and a refusal of any plane or volume that 32-bit
 offsets cannot address.  These tests hold it at the shapes the model paths
 give the kernels and at the limits; the kernels themselves run in the
 ``cuda``-marked cases of ``tests/test_torch_kernels.py``.
@@ -34,7 +34,7 @@ def _few_torch_threads():
 
 
 def _per_thread(shape):
-    return 4 if len(shape) == 4 and shape[1] == 1 else 2
+    return 4 if len(shape) == 4 else 2
 
 
 def _covers(shape, launch):
@@ -52,9 +52,9 @@ def _covers(shape, launch):
     [
         ((32, 1, 160, 224), (1, 40, 32), (56, 4)),  # IFNet-2D serving
         ((64, 1, 128, 128), (1, 16, 64), (32, 8)),  # IFNet-2D training
-        ((16, 32, 64, 208), (1, 32, 16), (104, 2)),  # UPFlow's finest feature warp
-        ((16, 196, 4, 13), (1, 1, 16), (7, 4)),  # UPFlow's coarsest decoded level
-        ((8, 3, 256, 832), (2, 256, 8), (256, 1)),  # UPFlow's photometric warp
+        ((16, 32, 64, 208), (1, 16, 16), (52, 4)),  # UPFlow's finest feature warp
+        ((16, 196, 4, 13), (1, 1, 16), (4, 4)),  # UPFlow's coarsest decoded level
+        ((8, 3, 256, 832), (1, 256, 8), (208, 1)),  # UPFlow's photometric warp
         ((4, 1, 64, 64, 64), (1, 8, 256), (32, 8)),  # IFNet-3D at 64^3: planes B * Z
         ((1, 1, 256, 256, 256), (1, 128, 256), (128, 2)),  # train256
     ],
@@ -120,12 +120,13 @@ def test_launch_geometry_takes_the_largest_plane_and_volume():
         launch_geometry((1, 224))
 
 
-def test_launch_geometry_takes_a_width_to_time_against_the_chosen_one():
-    assert launch_geometry((32, 1, 160, 224), per_thread=2) == ((1, 80, 32), (112, 2), 2, False)
-    assert launch_geometry((16, 32, 64, 208), per_thread=4) == ((1, 16, 16), (52, 4), 4, False)
-    for shape, width in (((2, 1, 8, 8), 3), ((2, 1, 8, 8), 1), ((2, 1, 4, 8, 8), 4)):
-        with pytest.raises(ValueError):
-            launch_geometry(shape, per_thread=width)
+@pytest.mark.parametrize("channels", [1, 2, 3, 32, 196])
+def test_launch_geometry_gives_every_2d_image_four_pixels_a_thread(channels):
+    """One row width for any number of channels: the grid depends on the
+    plane alone."""
+    launch = launch_geometry((16, channels, 64, 208))
+    assert launch.per_thread == 4 and launch == launch_geometry((16, 1, 64, 208))
+    assert launch_geometry((4, channels, 64, 64, 64)).per_thread == 2
 
 
 def _mask_inputs(seed, b, c, h, w, dtype, flow_dtype):
