@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --warp-times ROOT
+    python3 chip_smoke.py --kernel-times ROOT
 
 Builds every Hopper kernel of the port from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card, drives the
@@ -16,7 +16,8 @@ the CLI verbs generate → train → test → inference_video), on 2-D frames an
 the same weights on the CPU, and times them.
 
 Phases, printed in order:
-  1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time;
+  1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time,
+     each kernel's registers and spills (none allowed in ``corr_bwd_kernel``);
   2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
      case against a stated tolerance; the 2-D warp also at UPFlow's feature
      shapes, in float32 and with a bf16 image under a float32 flow, its fused
@@ -37,7 +38,9 @@ Phases, printed in order:
      plain step, one train step against the CPU, the CLI verbs on
      ``rectangle3d``, the ``train256`` module at 128^3;
   7. the cost volume kernels against ``cost_volume_plain`` and autograd through
-     it, at the five shapes UPFlow gives them and odd ones;
+     it, at the five shapes UPFlow gives them and odd ones; the backward also
+     on its tile's edges, on channel slices, twice bit for bit, and its
+     launch against ``backward_launch``;
   8. UPFlow at full width at 256 x 832: ``predict`` on 8 pairs (5 ``corr``
      and 4 ``warp2d`` launches per forward, 4 more in the losses), the bf16
      model's flow within a bound of the
@@ -54,11 +57,13 @@ The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
 CUDA device or without the port beside it.
 
-``--warp-times ROOT`` runs only the warp kernels' timings of phase 9, through
-the package of another checkout at ``ROOT`` (a commit unpacked with ``git
-archive``), and ends with one ``warp times {...}`` line of their medians.
-Two versions of the kernels are compared by running it on both checkouts in
-turns (A, B, B, A) in one session on one card.
+``--kernel-times ROOT`` runs only the kernels' timings, through the package
+of another checkout at ``ROOT`` (a commit unpacked with ``git archive``): the
+warps' of phase 9, and ``corr`` and ``corr_bwd`` at the finest UPFlow level
+in f32 and bf16 and ``corr_bwd`` at all five levels in f32; it ends with one
+``kernel times {...}`` line of their medians.  Two versions of the kernels
+are compared by running it on both checkouts in turns (A, B, B, A) on the
+same card.
 """
 
 from __future__ import annotations
@@ -108,6 +113,12 @@ UPFLOW_BATCH = 8
 CORR_SHAPES = ((16, 196, 4, 13), (16, 128, 8, 26), (16, 96, 16, 52), (16, 64, 32, 104),
                (16, 32, 64, 208))
 CORR_ODD_SHAPE = (2, 7, 11, 13)
+# the backward's tile edges: H and W not multiples of its 8 x 16 pixels, C not
+# a multiple of its 8 channels a thread (nor of its 32 a block)
+CORR_EDGE_SHAPE = (3, 45, 11, 13)
+# the same at md 4 with rows of a multiple of 4 (not of 16), which NCHW maps
+# read through the backward's instance that loads 4 elements at a time
+CORR_VEC_EDGE_SHAPE = (3, 45, 11, 52)
 # [B, H, W, C] of UPFlow's feature warps at the finest and the coarsest decoded
 # level of the same forward; the features are bf16 by default, the flow float32
 UPFLOW_WARP_SHAPES = ((16, 64, 208, 32), (16, 4, 13, 196))
@@ -164,42 +175,58 @@ def is_kernel(ev, device_type) -> bool:
     return ev.device_type == device_type.CUDA and not annotated
 
 
-def device_ms(fn, iters: int, only: str | None = None) -> float:
+def device_ms(fn, iters: int, only: str | None = None, launches: int | None = None) -> float:
     """Mean device milliseconds per call of ``fn(i)``: the time the card's
     kernels ran, from torch.profiler (CUPTI), without the host's launch cost
     that a back-to-back CUDA-event timing of a short kernel also measures.
-    ``only`` keeps the kernels whose name holds that string."""
+    ``only`` keeps the kernels whose name holds that string.  With
+    ``launches`` (kernels of ``only`` per call) the time is the mean of the
+    kernel events the window recorded, times ``launches``: a window can lose
+    events, and dividing their sum by ``iters`` then reads low."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
-    # a profiler window now and then comes back without any device event (seen
-    # once, over 40 launches of one short kernel, right after a window with
-    # thousands of events); such a window is measured again, never estimated
-    for attempt in range(3):
+    # a profiler window can come back with fewer kernel events than it ran:
+    # none (seen over 40 launches of one short kernel right after a window with
+    # thousands of events) or some (on an H100, 1 or 7 of 40, the same number in
+    # every window of a process).  A window holding less than half of them, or
+    # none, is measured again, never estimated
+    expected = None if launches is None else iters * launches
+    for attempt in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                       if is_kernel(ev, DeviceType) and (only is None or only in ev.key))
-        if total_us > 0:
+        events = [ev for ev in prof.key_averages()
+                  if is_kernel(ev, DeviceType) and (only is None or only in ev.key)]
+        total_us = sum(ev.self_device_time_total for ev in events)
+        count = sum(ev.count for ev in events)
+        if expected is None and total_us > 0:
             return total_us / iters / 1e3
-        print(f"device_ms: profiler window {attempt + 1} held no device event, measuring again")
-    raise RuntimeError("chip_smoke failed: the profiler recorded no device time in 3 windows")
+        if expected is not None and total_us > 0 and expected / 2 <= count <= expected:
+            if count < expected:
+                print(f"device_ms: the window recorded {count} of {expected} {only} kernels; "
+                      "the mean of those")
+            return total_us / count * launches / 1e3
+        print(f"device_ms: profiler window {attempt + 1} held {count} device events"
+              f"{'' if expected is None else f' of {expected}'}, measuring again")
+    raise RuntimeError("chip_smoke failed: the profiler lost device events in 5 windows")
 
 
-def interleaved_device_ms(fns: dict, windows: int = 5, iters: int = 40) -> dict:
+def interleaved_device_ms(fns: dict, windows: int = 5, iters: int = 40,
+                          only: str | None = None, launches: int | None = None) -> dict:
     """Median device ms per call of each of ``fns`` (name -> ``fn(i)``) over
     ``windows`` profiler windows of ``iters`` calls, the functions' windows
     taken in turns (a, b, a, b, ...) so that the card's clocks and its
-    neighbours weigh on each alike; with each window's time."""
+    neighbours weigh on each alike; with each window's time.  ``only`` and
+    ``launches`` are ``device_ms``'s."""
     samples = {name: [] for name in fns}
     for _ in range(windows):
         for name, fn in fns.items():
-            samples[name].append(device_ms(fn, iters))
+            samples[name].append(device_ms(fn, iters, only, launches))
     return {name: {"median_ms": statistics.median(v), "windows_ms": v}
             for name, v in samples.items()}
 
@@ -313,7 +340,13 @@ def phase_card(torch):
     libs = build(["warp2d", "warp3d", "corr"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s  "
           f"{[str(p.relative_to(REPO)) for p in libs.values()]}")
-    print("ptxas " + json.dumps(ptxas_report(["warp2d", "warp3d"])))
+    ptxas = ptxas_report(["warp2d", "warp3d", "corr"])
+    print("ptxas " + json.dumps(ptxas))
+    bwd = {k: v for k, v in ptxas.items() if k.startswith("corr_bwd_kernel")}
+    # f32 and bf16 at md 1-4 read one element a load; at md 4 both also have
+    # an instance that reads 4
+    check(len(bwd) == 10 and all(v.get("spill_stores") == 0 for v in bwd.values()),
+          f"corr_bwd_kernel's 10 instances should build without spills: {bwd}")
     return smi
 
 
@@ -329,8 +362,8 @@ def ptxas_report(names: list) -> dict:
     for name in names:
         kernel = None
         for line in ptxas_log(name).splitlines():
-            entry = re.search(r"Compiling entry function '\w*?\d(warp[23]d(?:_bwd)?_kernel)I"
-                              r"(\w*?)EEv", line)
+            entry = re.search(r"Compiling entry function '\w*?\d((?:warp[23]d|corr)(?:_fwd|_bwd)?"
+                              r"_kernel)I(\w*?)EEv", line)
             if entry:
                 kernel = f"{entry.group(1)}<{entry.group(2)}>"
             spills = re.search(r"(\d+) bytes spill stores", line)
@@ -1728,7 +1761,11 @@ def phase_corr_vs_plain(torch):
     """``corr`` against ``cost_volume_plain`` and ``corr_bwd`` against autograd
     through it: the five model shapes and an odd one, md 4 and 2 (the odd shape
     also md 1 and 3: every md the kernels are built for), f32 and bf16,
-    contiguous and channels-last; the odd shape also with each gradient alone."""
+    contiguous and channels-last; the odd shape, and two on the backward
+    tile's edges (at md 1 and 3, and at md 4 with rows of a multiple of 4),
+    also with each gradient alone.  Then channel
+    slices of wider maps, two backward runs bit for bit, and the backward's
+    launch geometry against ``backward_launch``."""
     from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
     from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
     from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
@@ -1743,9 +1780,11 @@ def phase_corr_vs_plain(torch):
     # the largest gradient of its case, and the number of cases
     worst = {"fwd": 0.0, "bwd": 0.0, "bwd_bf16_rel": 0.0, "fwd_cases": 0, "bwd_cases": 0}
     seed = 700
-    for shape in CORR_SHAPES + (CORR_ODD_SHAPE,):
-        odd = shape == CORR_ODD_SHAPE
-        for md in ((4, 2, 1, 3) if odd else (4, 2)):
+    odd_mds = {CORR_ODD_SHAPE: (4, 2, 1, 3), CORR_EDGE_SHAPE: (1, 3), CORR_VEC_EDGE_SHAPE: (4,)}
+    for shape in CORR_SHAPES + tuple(odd_mds):
+        odd = shape in odd_mds
+        mds = odd_mds.get(shape, (4, 2))
+        for md in mds:
             for dtype in (torch.float32, torch.bfloat16):
                 for cl in (False, True):
                     seed += 1
@@ -1808,6 +1847,8 @@ def phase_corr_vs_plain(torch):
                         print(f"corr_bwd {tag} needs={needs:4s} {' '.join(shown)} "
                               f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
                         check(ok, f"corr backward disagrees with plain ({tag}, {needs})")
+    corr_bwd_slices_and_repeats(torch, worst)
+    corr_bwd_geometry(torch)
     # a max_disp the kernels are not built for is refused, not served another way
     f1, f2, _ = corr_inputs(torch, CORR_ODD_SHAPE, torch.float32, seed, False)
     for md in (0, 5):
@@ -1821,6 +1862,88 @@ def phase_corr_vs_plain(torch):
         check(dict(LAUNCHES) == before, "a refused cost volume counted a launch")
     print("corr vs plain " + json.dumps(worst))
     return worst
+
+
+def corr_bwd_slices_and_repeats(torch, worst):
+    """``corr_bwd`` on channel slices of wider feature maps (NCHW and
+    channels-last, so no stride is the contiguous one), against autograd
+    through the plain version at the backward tolerances; then two backward
+    runs on the same inputs, which must agree bit for bit (no atomics)."""
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        _launch_backward,
+        cost_volume_kernel,
+    )
+
+    md = 4
+    for shape in (CORR_SHAPES[-1], CORR_EDGE_SHAPE):
+        b, c, h, w = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            for cl in (False, True):
+                wide1, wide2, grad = corr_inputs(torch, (b, c + 9, h, w), dtype, 950 + c, cl)
+                f1, f2 = wide1[:, 5:5 + c], wide2[:, 2:2 + c]
+                check(not f1.is_contiguous() and not f1.is_contiguous(
+                    memory_format=torch.channels_last), "the slice should be non-contiguous")
+                g = grad(md)
+
+                def through(fn, f1=f1, f2=f2, g=g):
+                    # leaves that keep the slices' strides (a clone would not)
+                    a, bq = f1.detach().requires_grad_(True), f2.detach().requires_grad_(True)
+                    fn(a, bq, md).backward(g)
+                    return a.grad, bq.grad
+
+                got, want = through(cost_volume_kernel), through(cost_volume_plain)
+                rel = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+                name = str(dtype).replace("torch.", "")
+                tag = f"{list(shape)} md={md} {name:8s} {'nhwc' if cl else 'nchw'} slice"
+                shown = []
+                for what, x, y in zip(("df1", "df2"), got, want):
+                    err = float((x.float() - y.float()).abs().max())
+                    scale = float(y.float().abs().max())
+                    shown.append(f"{what}_err={err:.3e} (max|ref|={scale:.3e})")
+                    check(err <= rel * scale, f"corr backward disagrees with plain ({tag}, {what})")
+                    if dtype == torch.float32:
+                        worst["bwd"] = max(worst["bwd"], err)
+                    else:
+                        worst["bwd_bf16_rel"] = max(worst["bwd_bf16_rel"], err / scale)
+                worst["bwd_cases"] += 1
+                print(f"corr_bwd {tag} {' '.join(shown)} tol={rel:g}*max|ref| ok")
+                first = _launch_backward(f1, f2, g, md)
+                second = _launch_backward(f1, f2, g, md)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(first, second))
+                print(f"corr_bwd {tag} twice: {'bit-equal' if same else 'DIFFER'}")
+                check(same, f"two corr backward runs differ ({tag})")
+
+
+def corr_bwd_geometry(torch):
+    """The launch the built ``corr_backward`` reports for each shape, md and
+    number of gradients against ``backward_launch``, and both refusing a grid
+    beyond CUDA's z limit."""
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        backward_launch,
+        kernel_backward_launch,
+    )
+
+    cases = 0
+    for shape in CORR_SHAPES + (CORR_ODD_SHAPE, CORR_EDGE_SHAPE, CORR_VEC_EDGE_SHAPE):
+        for md in (1, 2, 3, 4):
+            for copies in (1, 2):
+                got = kernel_backward_launch(shape, md, copies)
+                check(got == backward_launch(shape, md, copies),
+                      f"corr_backward_launch {got} for {shape} md {md} x{copies}, "
+                      f"backward_launch {backward_launch(shape, md, copies)}")
+                cases += 1
+    too_many = (40000, 32, 8, 16)
+    check(kernel_backward_launch(too_many, 4, 2) is None, "the kernel took a grid beyond 65535")
+    try:
+        backward_launch(too_many, 4, 2)
+    except ValueError:
+        pass
+    else:
+        check(False, "backward_launch took a grid beyond 65535")
+    print(f"corr_bwd geometry: {cases} cases agree with backward_launch; "
+          f"{list(CORR_SHAPES[-1])} md 4: {backward_launch(CORR_SHAPES[-1], 4)}")
 
 
 def upflow_pairs(n: int, hw, seed: int, shift=(3, -5)):
@@ -2169,7 +2292,7 @@ def phase_upflow_times(torch, serving, training):
                                              2 * fwd_flops)):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / peak * 1e3
-            kernel_ms = device_ms(fn, 40, only="corr_")
+            kernel_ms = device_ms(fn, 40, only="corr_", launches=1)
             out[f"{tag}_{name}"] = {
                 "kernel_ms": kernel_ms, "call_ms": cuda_ms(fn, 40),
                 "plain_ms": device_ms(ref, 3),
@@ -2196,9 +2319,64 @@ def phase_upflow_times(torch, serving, training):
     return times, out
 
 
-def warp_times_of(torch, root: str) -> int:
-    """``--warp-times ROOT``: the warp kernels' times alone, through the
-    package of the checkout at ``root``, by this script's harness."""
+def corr_kernel_times(torch) -> dict:
+    """Device ms per call of ``corr`` and ``corr_bwd`` (both gradients) at the
+    finest UPFlow level, [16, 32, 64, 208] md 4, in f32 and bf16, the two
+    kernels' windows in turns; and of ``corr_bwd`` at each of the five levels
+    in f32, the levels' windows in turns (``interleaved_device_ms``: medians of
+    5 profiler windows of 40 calls over 4 input sets).  Each with its byte
+    bound.  Only ``cost_volume_kernel`` and ``_launch_backward`` are called,
+    which every version of the port has, so any checkout can be timed."""
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        _launch_backward,
+        cost_volume_kernel,
+    )
+
+    md = 4
+    d = (2 * md + 1) ** 2
+
+    def bwd_bound_ms(shape, size):
+        b, c, h, w = shape
+        return (4 * b * c * h * w + b * d * h * w) * size / HBM_BYTES_PER_S * 1e3
+
+    def input_sets(shape, dtype, seed):
+        sets = []
+        for i in range(4):
+            f1, f2, grad = corr_inputs(torch, shape, dtype, seed + i, False)
+            sets.append((f1, f2, grad(md)))
+        return sets
+
+    out = {}
+    shape = CORR_SHAPES[-1]
+    b, c, h, w = shape
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        sets = input_sets(shape, dtype, 800)
+        timed = interleaved_device_ms({
+            "corr": lambda i, sets=sets: cost_volume_kernel(sets[i % 4][0], sets[i % 4][1], md),
+            "corr_bwd": lambda i, sets=sets: _launch_backward(*sets[i % 4], md),
+        }, only="corr_", launches=1)
+        name = str(dtype).replace("torch.", "")
+        fwd_bound = (2 * b * c * h * w + b * d * h * w) * size / HBM_BYTES_PER_S * 1e3
+        for kernel, bound in (("corr", fwd_bound), ("corr_bwd", bwd_bound_ms(shape, size))):
+            ms = timed[kernel]["median_ms"]
+            out[f"{kernel}_{name}"] = {"ms": ms, "windows_ms": timed[kernel]["windows_ms"],
+                                       "bytes_bound_ms": bound, "bound_share": bound / ms}
+        del sets
+    fns = {}
+    for level, shape in enumerate(CORR_SHAPES):
+        sets = input_sets(shape, torch.float32, 900 + 10 * level)
+        fns[str(list(shape))] = lambda i, sets=sets: _launch_backward(*sets[i % 4], md)
+    timed = interleaved_device_ms(fns, only="corr_", launches=1)
+    out["corr_bwd_float32_levels"] = {
+        name: {"ms": t["median_ms"], "windows_ms": t["windows_ms"],
+               "bytes_bound_ms": bwd_bound_ms(json.loads(name), 4)}
+        for name, t in timed.items()}
+    return out
+
+
+def kernel_times_of(torch, root: str) -> int:
+    """``--kernel-times ROOT``: the kernels' times alone, through the package
+    of the checkout at ``root``, by this script's harness."""
     import opticalflowscivis_tpu_torch
 
     package = os.path.dirname(os.path.abspath(opticalflowscivis_tpu_torch.__file__))
@@ -2206,10 +2384,12 @@ def warp_times_of(torch, root: str) -> int:
           f"imported {package}, not the package under {root}")
     smi = card_line()
     print(smi)
-    print(f"warp times of {package}")
+    print(f"kernel times of {package}")
     fwd2, upflow = warp2d_forward_times(torch), phase_upflow_warp_times(torch)
     bwd2 = warp2d_backward_times(torch)
     fwd3, bwd3 = warp3d_times(torch)
+    corr = corr_kernel_times(torch)
+    print("corr kernel times " + json.dumps(corr))
     medians = {
         "warp2d": {k: fwd2[k] for k in ("kernel_ms", "library_ms")},
         "warp2d_smooth": {k: fwd2["smooth_flow"][k] for k in ("kernel_ms", "library_ms")},
@@ -2219,8 +2399,11 @@ def warp_times_of(torch, root: str) -> int:
         "warp3d_smooth": {k: fwd3["smooth_flow"][k] for k in ("kernel_ms", "library_ms")},
         **{f"warp2d_bwd_{tag}": bwd2[tag]["kernel_ms"] for tag in bwd2},
         **{f"warp3d_bwd_{tag}": bwd3[tag]["kernel_ms"] for tag in bwd3},
+        **{tag: t["ms"] for tag, t in corr.items() if tag != "corr_bwd_float32_levels"},
+        "corr_bwd_float32_levels": {name: t["ms"]
+                                    for name, t in corr["corr_bwd_float32_levels"].items()},
     }
-    print("warp times " + json.dumps({"root": root, "card": smi, "ms": medians}))
+    print("kernel times " + json.dumps({"root": root, "card": smi, "ms": medians}))
     return 0
 
 
@@ -2233,7 +2416,7 @@ def main(argv: list) -> int:
         return 1
     root = None
     if argv:
-        check(len(argv) == 2 and argv[0] == "--warp-times", f"unknown arguments {argv}")
+        check(len(argv) == 2 and argv[0] == "--kernel-times", f"unknown arguments {argv}")
         root = os.path.abspath(argv[1])
         sys.path.insert(0, root)
     import opticalflowscivis_tpu_torch  # noqa: F401  (fails when run outside the repo)
@@ -2241,7 +2424,7 @@ def main(argv: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if root is not None:
-        return warp_times_of(torch, root)
+        return kernel_times_of(torch, root)
 
     t_start = time.perf_counter()
     smi = phase_card(torch)

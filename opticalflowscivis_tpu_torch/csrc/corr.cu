@@ -22,26 +22,53 @@
 // matters too.  The backward reads f1, f2 and g and writes two tensors of the
 // inputs' size, with twice the forward's operations.
 //
-// Design (md 1..4).  One launch covers the batch; a block
-// owns a tile of 8 x 32 pixels of one sample.
-//   Forward: f1's tile and f2's (8 + 2 md) x (32 + 2 md) window are staged in
-//   shared memory for 8 channels at a time, zero outside the plane, so every
-//   input element is read from device memory once per tile (the halo from L2).
-//   A thread owns 4 pixels of one column and one dx, and keeps 4 x (2 md + 1)
-//   sums in registers: per channel it loads a column of 4 + 2 md window values
-//   and 4 f1 values for 4 (2 md + 1) multiply-adds (36 for 12 + 4 loads at md
-//   4).  Threads of a warp own consecutive x: shared reads have no bank
-//   conflict and the writes of out coalesce.
-//   Backward: one kernel serves both gradients; blockIdx.z selects the sample
-//   and the gradient, so asking for both is still one launch.  The other
-//   feature map's window (f2 for df1, f1 for df2) is staged for 16 channels at
-//   a time; a thread owns one pixel and 16 channel sums, reads g from global
-//   memory (coalesced over x, reread once per 16 channels, from L2) and the
-//   window from shared memory.
+// Forward (md 1..4).  One launch covers the batch; a block owns a tile of
+// 8 x 32 pixels of one sample.  f1's tile and f2's (8 + 2 md) x (32 + 2 md)
+// window are staged in shared memory for 8 channels at a time, zero outside
+// the plane, so every input element is read from device memory once per tile
+// (the halo from L2).  A thread owns 4 pixels of one column and one dx, and
+// keeps 4 x (2 md + 1) sums in registers: per channel it loads a column of
+// 4 + 2 md window values and 4 f1 values for 4 (2 md + 1) multiply-adds (36
+// for 12 + 4 loads at md 4).  Threads of a warp own consecutive x: shared
+// reads have no bank conflict and the writes of out coalesce.
+//
+// Backward (md 1..4).  Both gradients have one form.  With e = (ey, ex) in
+// [0, 2 md]^2 and the window W = f2 (df1) or f1 (df2),
+//   d[c, y, x] = (1/C) sum_e a[e, y, x] * W[c, y+ey-md, x+ex-md],
+//   a[e, y, x] = g[e, y, x]                          for df1,
+//   a[e, y, x] = g[D-1-e, y+ey-md, x+ex-md] (0 out)  for df2,  D = (2md+1)^2
+// (df2's sum over k, rewritten with e = 2 md - d).  So df1 and df2 are two
+// compile-time instances of one tile function that differ only in what they
+// stage; blockIdx.z picks the sample, the gradient and a slab of 32 channels,
+// so asking for both gradients is still one launch.
+//   A block owns 8 rows x 16 columns of pixels and a slab of 32 channels; its
+//   128 threads each own 4 consecutive x of one row and 8 channels (c = group
+//   + 4 j), with 32 f32 sums in registers.  Per ey a thread loads its
+//   4 x (2md+1) coefficients a[ey, ex] once (36 at md 4, as float4) and, per
+//   channel, one window row of 4 + 2md values (three float4 at md 4) for 36
+//   multiply-adds: about 1.8 bytes of shared traffic per multiply-add,
+//   against 4 for a scalar load per multiply-add.  The inner
+//   loop has no bounds test and 32-bit shared offsets only.  The channel
+//   stride of the window is 16 words off a multiple of 32 banks and the two
+//   channel groups of a quarter-warp read neighbouring channels, so the
+//   float4 window loads have no bank conflict; the coefficient loads are
+//   broadcast to both groups.
+//   Staging is the other half of the time.  The window's first 8 rows are
+//   staged before the sums, zero outside the plane; each ey's coefficient
+//   planes (df2's shift and bounds tests applied here) and the window row
+//   the next ey first reaches are loaded during the ey's sums and stored
+//   after them, double-buffered, one barrier per ey.  These loads are
+//   volatile PTX, predicated, so that the compiler cannot sink them below
+//   the sums, and keep raw bits until they are stored (bf16 widens then, by a
+//   shift).  At md 4, the only md the model uses, unit-stride rows of a
+//   multiple of 4 elements (its NCHW maps at W = 52, 104, 208) take an
+//   instance that reads 4 elements a load (16 or 8 bytes): one element a load
+//   keeps too few bytes in flight (bf16 then runs slower than f32).  Shared memory is dynamic (60 KB at md 4),
+//   and registers are capped at 168: three blocks per SM.  The 16-column tile
+//   leaves few lanes idle at UPFlow's widths 13 to 208.
 // Other md have no kernel: the entries return cudaErrorInvalidValue and the
 // wrapper refuses them before the launch.  Every configuration of the package
-// uses md <= 4; from md 6 on the backward's window of CB channels would exceed
-// the 48 KB of static shared memory and need a smaller channel step.
+// uses md <= 4.
 //
 // All tensors are channels-first.  f1, f2 and g are read through their four
 // strides, so channels-last tensors from cuDNN and autograd's views need no
@@ -57,12 +84,25 @@
 
 namespace {
 
-constexpr int TH = 8;    // tile rows
-constexpr int TW = 32;   // tile columns: one warp spans a tile row
+constexpr int TH = 8;    // forward tile rows
+constexpr int TW = 32;   // forward tile columns: one warp spans a tile row
 constexpr int PY = 4;    // forward: pixels (rows) per thread
 constexpr int CF = 8;    // forward: channels staged per step
-constexpr int CB = 16;   // backward: channels staged per step = sums per thread
 constexpr int MAX_MD = 4;  // the kernels are instantiated for md 1..MAX_MD
+
+// Backward geometry; ops/kernels/correlation.py::backward_launch mirrors it.
+constexpr int BTH = 8;    // tile rows
+constexpr int BTW = 16;   // tile columns
+constexpr int BPX = 4;    // consecutive x per thread
+constexpr int BCB = 8;    // channels per thread
+constexpr int BNG = 4;    // channel groups per block
+constexpr int BSLAB = BCB * BNG;                    // channels per block
+constexpr int BTHREADS = BTH * (BTW / BPX) * BNG;   // 128
+constexpr int SMEM_LIMIT = 232448;  // shared memory one block may hold (227 KB)
+static_assert(BTHREADS == BTH * BTW, "each thread stages one coefficient column");
+static_assert(BTW / BPX == 4 && BNG == 4, "corr_bwd_tile decodes threadIdx in 2-bit fields");
+constexpr int STAGE = 16;       // element path: window loads in flight per thread
+constexpr int MIN_BLOCKS = 3;   // blocks an SM holds at md 4 (shared memory): <= 168 registers
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -76,6 +116,77 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 struct Strides {
   int64_t b, c, h, w;
 };
+
+// The backward's loads, as volatile PTX: issued where they stand (the
+// compiler would otherwise sink a prefetch below the sums it should overlap),
+// predicated on `ok` and 0 where it is false.  They keep the raw bits (bf16
+// in half words) until `widen` turns them into f32 at the store to shared
+// memory; bf16 widens by a shift of its bits, exactly.
+__device__ __forceinline__ uint32_t ldg_raw(const float* p, bool ok) {
+  uint32_t v;
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0; mov.b32 %0, 0;\n"
+      "  @q ld.global.nc.b32 %0, [%1]; }"
+      : "=r"(v) : "l"(p), "r"((int)ok));
+  return v;
+}
+__device__ __forceinline__ uint32_t ldg_raw(const __nv_bfloat16* p, bool ok) {
+  unsigned short v;
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0; mov.b16 %0, 0;\n"
+      "  @q ld.global.nc.b16 %0, [%1]; }"
+      : "=h"(v) : "l"(p), "r"((int)ok));
+  return v;
+}
+template <typename T>
+__device__ __forceinline__ float widen(uint32_t raw) {
+  return __uint_as_float(sizeof(T) == 2 ? raw << 16 : raw);
+}
+// Four consecutive elements at a 4-element-aligned address in one 16-byte
+// (f32) or 8-byte (bf16) load, into RAW4<T> words of `r`.
+template <typename T>
+constexpr int RAW4 = 2 * (int)sizeof(T);
+__device__ __forceinline__ void ldg_raw4(const float* p, bool ok, uint32_t* r) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %5, 0;\n"
+      "  mov.b32 %0, 0; mov.b32 %1, 0; mov.b32 %2, 0; mov.b32 %3, 0;\n"
+      "  @q ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4]; }"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "l"(p), "r"((int)ok));
+}
+__device__ __forceinline__ void ldg_raw4(const __nv_bfloat16* p, bool ok, uint32_t* r) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %3, 0; mov.b32 %0, 0; mov.b32 %1, 0;\n"
+      "  @q ld.global.nc.v2.b32 {%0, %1}, [%2]; }"
+      : "=r"(r[0]), "=r"(r[1]) : "l"(p), "r"((int)ok));
+}
+template <typename T>
+__device__ __forceinline__ float4 widen4(const uint32_t* r) {
+  if constexpr (sizeof(T) == 2)
+    return make_float4(__uint_as_float(r[0] << 16), __uint_as_float(r[0] & 0xffff0000u),
+                       __uint_as_float(r[1] << 16), __uint_as_float(r[1] & 0xffff0000u));
+  else
+    return make_float4(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
+                       __uint_as_float(r[3]));
+}
+// Whether every sample's rows of a tensor can be read 4 elements a load from
+// 4-aligned columns (host side: picks the kernel instance).
+bool rows_of_4(const void* base, Strides s, int64_t W, int elem) {
+  return s.w == 1 && W % 4 == 0 && s.h % 4 == 0 && s.c % 4 == 0 && s.b % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(base) % (4 * elem) == 0;
+}
+
+// four consecutive values at a 4-element-aligned address: one 16- or 8-byte store
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c,
+                                       float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 v;
+  v.x = *reinterpret_cast<uint32_t*>(&lo);
+  v.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
 
 // Stage `nc` channels (from c0) of a rows x cols window of one sample into
 // shared memory as f32, zero outside the plane and beyond channel C.
@@ -156,62 +267,302 @@ corr_fwd_kernel(const T* __restrict__ f1,
   }
 }
 
-// Both gradients.  blockIdx.z = which * B + b with which = first + (0 or 1):
-// 0 writes df1 from f2's window, 1 writes df2 from f1's window.
-template <typename T, int MD>
-__global__ void __launch_bounds__(TH * TW)
-corr_bwd_kernel(const T* __restrict__ f1,
-                                const T* __restrict__ f2,
-                                const T* __restrict__ g, T* __restrict__ df1,
-                                T* __restrict__ df2, int64_t B, int64_t C,
-                                int64_t H, int64_t W, Strides s1, Strides s2,
-                                Strides sg, float inv_c, int first) {
-  constexpr int ND = 2 * MD + 1;
-  constexpr int WH = TH + 2 * MD, WW = TW + 2 * MD;
-  __shared__ float win[CB * WH * WW];
+// Shared-memory layout of the backward at one md, in floats: the window of
+// BSLAB channels (rows of WW4, channels CS apart), then two coefficient
+// buffers of ND planes x BTH x BTW.
+template <int MD>
+struct BwdSmem {
+  static constexpr int ND = 2 * MD + 1;
+  static constexpr int WH = BTH + 2 * MD;          // window rows
+  static constexpr int WW = BTW + 2 * MD;          // window columns staged
+  static constexpr int WW4 = (WW + 3) / 4 * 4;     // row stride, float4-aligned
+  // channel stride: 16 words off a multiple of the 32 banks
+  static constexpr int CS = WH * WW4 + (16 - (WH * WW4) % 32 + 32) % 32;
+  static constexpr int NV = (BPX + 2 * MD + 3) / 4;  // float4 loads per window row
+  static constexpr int COEF = ND * BTH * BTW;      // one ey's coefficient planes
+  static constexpr int BYTES = (BSLAB * CS + 2 * COEF) * (int)sizeof(float);
+  static_assert(BYTES <= SMEM_LIMIT, "backward window exceeds shared memory");
+};
 
-  const bool second = first + (int)(blockIdx.z / B) == 1;
-  const int64_t b = blockIdx.z % B;
-  const int64_t y0 = (int64_t)blockIdx.y * TH, x0 = (int64_t)blockIdx.x * TW;
-  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
-  const int64_t y = y0 + ty, x = x0 + tx;
-  const bool live = y < H && x < W;
+int bwd_smem_bytes(int md) {
+  switch (md) {
+    case 1: return BwdSmem<1>::BYTES;
+    case 2: return BwdSmem<2>::BYTES;
+    case 3: return BwdSmem<3>::BYTES;
+    default: return BwdSmem<4>::BYTES;
+  }
+}
 
-  const T* other = second ? f1 + b * s1.b : f2 + b * s2.b;
-  const Strides so = second ? s1 : s2;
-  const T* gb = g + b * sg.b;
-  T* dst = (second ? df2 : df1) + b * C * H * W + y * W + x;
+// One block of one gradient: d[c0 + c, y0 + .., x0 + ..] for the slab's
+// channels.  `wsrc` is the other feature map (f2 for df1, f1 for df2) and
+// `gb` the incoming gradient, both at this sample; `dst` is the gradient's
+// sample.
+template <bool SECOND, int MD, bool VEC, typename T>
+__device__ __forceinline__ void corr_bwd_tile(
+    const T* __restrict__ wsrc, Strides sw, const T* __restrict__ gb, Strides sg,
+    T* __restrict__ dst, int64_t C, int64_t H, int64_t W, int64_t c0,
+    int64_t y0, int64_t x0, float inv_c, float* smem) {
+  using S = BwdSmem<MD>;
+  constexpr int ND = S::ND;
+  constexpr int R4 = RAW4<T>;
+  float* win = smem;
+  float* coef = smem + BSLAB * S::CS;
 
-  for (int64_t c0 = 0; c0 < C; c0 += CB) {
-    stage(win, other, so, c0, C, y0 - MD, x0 - MD, H, W, CB, WH, WW);
-    __syncthreads();
-    if (live) {
-      float acc[CB];
+  const int tid = threadIdx.x;
+  const int xg = tid & 3, cg = (tid >> 2) & 3, ty = tid >> 4;
+
+  // VEC (md 4 only): rows are read 4 elements a load (the launcher checked
+  // the layout): the window's, whose rows start 4-aligned at md 4; bf16 g's
+  // too, from a 4-aligned column (x0 for df1, x0 - 4 for df2's shifted reads,
+  // inside 24 columns).  f32 g is read one element a load: its 4-byte
+  // requests carry enough bytes, and on the card the vectors' shifted staging
+  // cost more than they saved.  Otherwise one element a load.
+  static_assert(!VEC || MD == 4, "the vector instance is built for md 4 only");
+  constexpr bool GVEC = VEC && sizeof(T) == 2, WVEC = VEC;
+
+  // Coefficients a[ey, ex] over the tile: as vectors of g's rows (GV a row,
+  // from column x0 + GX0), or one element per thread and ex at (srow, scol).
+  constexpr int GV = SECOND ? (BTW + 8) / 4 : BTW / 4;
+  constexpr int GX0 = SECOND ? -4 : 0;
+  constexpr int NGV = ND * BTH * GV;
+  constexpr int RG = (NGV + BTHREADS - 1) / BTHREADS;
+  // one window row: vectors (md 4) or elements
+  constexpr int NWV = BSLAB * (S::WW / 4);
+  constexpr int RW = (NWV + BTHREADS - 1) / BTHREADS;
+  constexpr int NR = (BSLAB * S::WW + BTHREADS - 1) / BTHREADS;
+  // raw words in flight: the coefficients' first, then the window row's
+  constexpr int CW = GVEC ? R4 * RG : ND;
+  constexpr int RWW = WVEC ? R4 * RW : NR;
+  uint32_t stash[CW + RWW];
+  const int scol = tid % BTW, srow = tid / BTW;
+
+  auto plane_of = [&](int ey, int ex) {
+    return SECOND ? ND * ND - 1 - (ey * ND + ex) : ey * ND + ex;
+  };
+  auto fetch = [&](int ey) {
+    if constexpr (GVEC) {
 #pragma unroll
-      for (int c = 0; c < CB; ++c) acc[c] = 0.f;
-      for (int dy = 0; dy < ND; ++dy) {
+      for (int k = 0; k < RG; ++k) {
+        const int i = tid + k * BTHREADS;
+        const int v = i % GV, r = i / GV, row = r % BTH, ex = r / BTH;
+        const int64_t y = y0 + row + (SECOND ? ey - MD : 0), x = x0 + GX0 + 4 * v;
+        ldg_raw4(gb + plane_of(ey, ex) * sg.c + y * sg.h + x,
+                 i < NGV && y >= 0 && y < H && x >= 0 && x < W, stash + R4 * k);
+      }
+    } else {
 #pragma unroll
-        for (int dx = 0; dx < ND; ++dx) {
-          // df1 reads g at its own pixel and the window at +d; df2 reads g at
-          // the source pixel p = (y, x) - d + md and the window at that pixel
-          const int oy = second ? MD - dy : 0, ox = second ? MD - dx : 0;
-          const int64_t py = y + oy, px = x + ox;
-          float gk = 0.f;
-          if (py >= 0 && py < H && px >= 0 && px < W)
-            gk = load_f32(gb + (dy * ND + dx) * sg.c + py * sg.h + px * sg.w);
-          const int wy = second ? ty + 2 * MD - dy : ty + dy;
-          const int wx = second ? tx + 2 * MD - dx : tx + dx;
-          const float* w = win + wy * WW + wx;
+      for (int ex = 0; ex < ND; ++ex) {
+        const int64_t y = y0 + srow + (SECOND ? ey - MD : 0);
+        const int64_t x = x0 + scol + (SECOND ? ex - MD : 0);
+        stash[ex] = ldg_raw(gb + plane_of(ey, ex) * sg.c + y * sg.h + x * sg.w,
+                            y >= 0 && y < H && x >= 0 && x < W);
+      }
+    }
+  };
+  auto put = [&](int buf) {
+    float* cf = coef + buf * S::COEF;
+    if constexpr (GVEC) {
 #pragma unroll
-          for (int c = 0; c < CB; ++c) acc[c] += gk * w[c * WH * WW];
+      for (int k = 0; k < RG; ++k) {
+        const int i = tid + k * BTHREADS;
+        if (i >= NGV) break;
+        const int v = i % GV, r = i / GV, row = r % BTH, ex = r / BTH;
+        const float4 f = widen4<T>(stash + R4 * k);
+        float* dst_row = cf + (ex * BTH + row) * BTW;
+        if constexpr (SECOND) {
+          // df2 keeps a[ex] pre-shifted: column c holds g at x0 + c + ex - md
+          const int c = GX0 + 4 * v - ex + MD;
+          if (c >= 0 && c < BTW) dst_row[c] = f.x;
+          if (c + 1 >= 0 && c + 1 < BTW) dst_row[c + 1] = f.y;
+          if (c + 2 >= 0 && c + 2 < BTW) dst_row[c + 2] = f.z;
+          if (c + 3 >= 0 && c + 3 < BTW) dst_row[c + 3] = f.w;
+        } else {
+          *reinterpret_cast<float4*>(dst_row + 4 * v) = f;
         }
       }
+    } else {
 #pragma unroll
-      for (int c = 0; c < CB; ++c)
-        if (c0 + c < C) store(dst + (c0 + c) * H * W, acc[c] * inv_c);
+      for (int ex = 0; ex < ND; ++ex)
+        cf[(ex * BTH + srow) * BTW + scol] = widen<T>(stash[ex]);
+    }
+  };
+
+  // window element or vector i of a band of `rows` rows from row0
+  // (channel-major, rows of WW columns), zero outside the plane and beyond C
+  auto window_raw = [&](int i, int rows, int row0) {
+    const int col = i % S::WW, r = i / S::WW;
+    const int64_t c = c0 + r / rows, y = y0 - MD + row0 + r % rows, x = x0 - MD + col;
+    return ldg_raw(wsrc + c * sw.c + y * sw.h + x * sw.w,
+                   c < C && y >= 0 && y < H && x >= 0 && x < W);
+  };
+  auto window_raw4 = [&](int i, int rows, int row0, uint32_t* r4) {
+    const int col = 4 * (i % (S::WW / 4)), r = i / (S::WW / 4);
+    const int64_t c = c0 + r / rows, y = y0 - MD + row0 + r % rows, x = x0 - MD + col;
+    ldg_raw4(wsrc + c * sw.c + y * sw.h + x, c < C && y >= 0 && y < H && x >= 0 && x < W,
+             r4);
+  };
+  auto window_slot = [&](int i, int rows, int row0, int per_row) {
+    const int col = i % per_row, r = i / per_row;
+    return (r / rows) * S::CS + (row0 + r % rows) * S::WW4 + col * (S::WW / per_row);
+  };
+
+  fetch(0);  // in flight during the window's staging
+
+  // The window's first BTH rows now, the others one per ey during the sums.
+  constexpr int N0 = BSLAB * BTH * S::WW;
+  if constexpr (WVEC) {
+    constexpr int NV4 = N0 / 4 / BTHREADS;
+    static_assert(NV4 * 4 * BTHREADS == N0, "whole rounds of vector staging");
+    uint32_t v[NV4 * R4];
+#pragma unroll
+    for (int k = 0; k < NV4; ++k) window_raw4(tid + k * BTHREADS, BTH, 0, v + R4 * k);
+#pragma unroll
+    for (int k = 0; k < NV4; ++k)
+      *reinterpret_cast<float4*>(win + window_slot(tid + k * BTHREADS, BTH, 0, S::WW / 4)) =
+          widen4<T>(v + R4 * k);
+  } else {
+    constexpr int N = N0 / BTHREADS;
+    static_assert(N * BTHREADS == N0, "whole rounds of staging");
+#pragma unroll 1
+    for (int base = 0; base < N; base += STAGE) {
+      uint32_t v[STAGE];
+#pragma unroll
+      for (int k = 0; k < STAGE; ++k)
+        v[k] = base + k < N ? window_raw(tid + (base + k) * BTHREADS, BTH, 0) : 0u;
+#pragma unroll
+      for (int k = 0; k < STAGE; ++k)
+        if (base + k < N)
+          win[window_slot(tid + (base + k) * BTHREADS, BTH, 0, S::WW)] = widen<T>(v[k]);
+    }
+  }
+  put(0);
+  __syncthreads();
+
+  // one more window row per ey, fetched during the ey's sums
+  uint32_t* nxt = stash + CW;
+  auto fetch_row = [&](int row) {
+    if constexpr (WVEC) {
+#pragma unroll
+      for (int k = 0; k < RW; ++k) {
+        const int i = tid + k * BTHREADS;
+        if (i < NWV) window_raw4(i, 1, row, nxt + R4 * k);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        const int i = tid + k * BTHREADS;
+        nxt[k] = i < BSLAB * S::WW ? window_raw(i, 1, row) : 0u;
+      }
+    }
+  };
+  auto put_row = [&](int row) {
+    if constexpr (WVEC) {
+#pragma unroll
+      for (int k = 0; k < RW; ++k) {
+        const int i = tid + k * BTHREADS;
+        if (i < NWV)
+          *reinterpret_cast<float4*>(win + window_slot(i, 1, row, S::WW / 4)) =
+              widen4<T>(nxt + R4 * k);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        const int i = tid + k * BTHREADS;
+        if (i < BSLAB * S::WW) win[window_slot(i, 1, row, S::WW)] = widen<T>(nxt[k]);
+      }
+    }
+  };
+
+  float acc[BCB][BPX];
+#pragma unroll
+  for (int j = 0; j < BCB; ++j)
+#pragma unroll
+    for (int p = 0; p < BPX; ++p) acc[j][p] = 0.f;
+
+#pragma unroll 1
+  for (int ey = 0; ey < ND; ++ey) {
+    // in flight during this ey's sums: the next coefficients and the window
+    // row the next ey reaches first
+    if (ey + 1 < ND) {
+      fetch(ey + 1);
+      fetch_row(BTH + ey);
+    }
+    const float* cb = coef + (ey & 1) * S::COEF + ty * BTW + BPX * xg;
+    float4 a[ND];
+#pragma unroll
+    for (int ex = 0; ex < ND; ++ex)
+      a[ex] = *reinterpret_cast<const float4*>(cb + ex * BTH * BTW);
+    const float* wr = win + cg * S::CS + (ty + ey) * S::WW4 + BPX * xg;
+#pragma unroll
+    for (int j = 0; j < BCB; ++j) {
+      float w[4 * S::NV];
+#pragma unroll
+      for (int v = 0; v < S::NV; ++v) {
+        const float4 q = *reinterpret_cast<const float4*>(wr + j * BNG * S::CS + 4 * v);
+        w[4 * v] = q.x;
+        w[4 * v + 1] = q.y;
+        w[4 * v + 2] = q.z;
+        w[4 * v + 3] = q.w;
+      }
+#pragma unroll
+      for (int ex = 0; ex < ND; ++ex) {
+        acc[j][0] = fmaf(a[ex].x, w[ex], acc[j][0]);
+        acc[j][1] = fmaf(a[ex].y, w[ex + 1], acc[j][1]);
+        acc[j][2] = fmaf(a[ex].z, w[ex + 2], acc[j][2]);
+        acc[j][3] = fmaf(a[ex].w, w[ex + 3], acc[j][3]);
+      }
+    }
+    if (ey + 1 < ND) {
+      put((ey + 1) & 1);
+      put_row(BTH + ey);
     }
     __syncthreads();
   }
+
+  const int64_t y = y0 + ty;
+  if (y >= H) return;
+  const int64_t x = x0 + BPX * xg;
+  // rows of a multiple of 4 take one vector store of the thread's 4 values
+  const bool whole = W % BPX == 0 && x < W;
+#pragma unroll
+  for (int j = 0; j < BCB; ++j) {
+    const int64_t c = c0 + cg + BNG * j;
+    if (c >= C) break;
+    T* o = dst + (c * H + y) * W + x;
+    if (whole) {
+      store4(o, acc[j][0] * inv_c, acc[j][1] * inv_c, acc[j][2] * inv_c, acc[j][3] * inv_c);
+      continue;
+    }
+#pragma unroll
+    for (int p = 0; p < BPX; ++p)
+      if (x + p < W) store(o + p, acc[j][p] * inv_c);
+  }
+}
+
+// Both gradients.  blockIdx.z = (which' * B + b) * slabs + slab, where
+// which = first + which' is 0 for df1 (from f2's window) and 1 for df2 (from
+// f1's window).  VEC: rows read 4 elements a load (see corr_bwd_tile).
+template <typename T, int MD, bool VEC>
+__global__ void __launch_bounds__(BTHREADS, MIN_BLOCKS)
+corr_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
+                const T* __restrict__ g, T* __restrict__ df1,
+                T* __restrict__ df2, int64_t B, int64_t C, int64_t H,
+                int64_t W, Strides s1, Strides s2, Strides sg, float inv_c,
+                int first, int64_t slabs) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int64_t z = blockIdx.z;
+  const int64_t r = z / slabs;
+  const int64_t b = r % B;
+  const int64_t c0 = (z % slabs) * BSLAB;
+  const int64_t y0 = (int64_t)blockIdx.y * BTH, x0 = (int64_t)blockIdx.x * BTW;
+  const T* gb = g + b * sg.b;
+  if (first + (int)(r / B) == 1)
+    corr_bwd_tile<true, MD, VEC>(f1 + b * s1.b, s1, gb, sg, df2 + b * C * H * W,
+                                 C, H, W, c0, y0, x0, inv_c, smem);
+  else
+    corr_bwd_tile<false, MD, VEC>(f2 + b * s2.b, s2, gb, sg, df1 + b * C * H * W,
+                                  C, H, W, c0, y0, x0, inv_c, smem);
 }
 
 Strides strides(const int64_t* s) { return Strides{s[0], s[1], s[2], s[3]}; }
@@ -225,6 +576,21 @@ bool grid_fits(int64_t B, int64_t H, int copies) {
   return (H + TH - 1) / TH <= 65535 && B * copies <= 65535;
 }
 
+// The backward's launch: grid (x tiles, row tiles, copies * B * slabs),
+// BTHREADS threads, bwd_smem_bytes(md) of dynamic shared memory.  False for
+// a shape or md the kernel does not take.
+bool bwd_geometry(int64_t B, int64_t C, int64_t H, int64_t W, int md,
+                  int copies, dim3* grid, int64_t* slabs) {
+  if (md < 1 || md > MAX_MD || copies < 1 || B < 1 || C < 1 || H < 1 || W < 1)
+    return false;
+  const int64_t gx = (W + BTW - 1) / BTW, gy = (H + BTH - 1) / BTH;
+  *slabs = (C + BSLAB - 1) / BSLAB;
+  const int64_t gz = B * copies * *slabs;
+  if (gx > 2147483647 || gy > 65535 || gz > 65535) return false;
+  *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)gz);
+  return true;
+}
+
 template <typename T, int MD>
 void launch_fwd_tiled(const void* f1, const void* f2, void* out, int64_t B,
                       int64_t C, int64_t H, int64_t W, Strides s1, Strides s2,
@@ -235,15 +601,21 @@ void launch_fwd_tiled(const void* f1, const void* f2, void* out, int64_t B,
       static_cast<T*>(out), C, H, W, s1, s2, 1.f / (float)C);
 }
 
-template <typename T, int MD>
-void launch_bwd_tiled(const void* f1, const void* f2, const void* g, void* df1,
-                      void* df2, int64_t B, int64_t C, int64_t H, int64_t W,
-                      Strides s1, Strides s2, Strides sg, int first, int copies,
-                      cudaStream_t stream) {
-  corr_bwd_kernel<T, MD><<<tile_grid(B, H, W, copies), TH * TW, 0, stream>>>(
+template <typename T, int MD, bool VEC>
+int launch_bwd_tiled(const void* f1, const void* f2, const void* g, void* df1,
+                     void* df2, int64_t B, int64_t C, int64_t H, int64_t W,
+                     Strides s1, Strides s2, Strides sg, int first, dim3 grid,
+                     int64_t slabs, cudaStream_t stream) {
+  constexpr int bytes = BwdSmem<MD>::BYTES;
+  // per device and cheap; beyond 48 KB a launch needs it
+  const cudaError_t set = cudaFuncSetAttribute(
+      corr_bwd_kernel<T, MD, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return (int)set;
+  corr_bwd_kernel<T, MD, VEC><<<grid, BTHREADS, bytes, stream>>>(
       static_cast<const T*>(f1), static_cast<const T*>(f2),
       static_cast<const T*>(g), static_cast<T*>(df1), static_cast<T*>(df2), B,
-      C, H, W, s1, s2, sg, 1.f / (float)C, first);
+      C, H, W, s1, s2, sg, 1.f / (float)C, first, slabs);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -267,15 +639,26 @@ int backward(const void* f1, const void* f2, const void* g, void* df1,
              Strides s1, Strides s2, Strides sg, cudaStream_t stream) {
   const int first = df1 ? 0 : 1;
   const int copies = (df1 ? 1 : 0) + (df2 ? 1 : 0);
-  if (copies == 0 || md < 1 || md > MAX_MD || !grid_fits(B, H, copies))
+  dim3 grid;
+  int64_t slabs;
+  if (copies == 0 || !bwd_geometry(B, C, H, W, md, copies, &grid, &slabs))
     return (int)cudaErrorInvalidValue;
+  // md 4, the model's, has an instance that reads g's rows and the windows'
+  // (f2 for df1, f1 for df2) 4 elements a load where their layout allows
+  const int e = (int)sizeof(T);
+  const bool vec = md == 4 && rows_of_4(g, sg, W, e) &&
+                   (!df1 || rows_of_4(f2, s2, W, e)) && (!df2 || rows_of_4(f1, s1, W, e));
+#define CORR_BWD_LAUNCH(MDV, VECV)                                                    \
+  return launch_bwd_tiled<T, MDV, VECV>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, \
+                                        first, grid, slabs, stream)
+  if (vec) CORR_BWD_LAUNCH(4, true);
   switch (md) {
-    case 1: launch_bwd_tiled<T, 1>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
-    case 2: launch_bwd_tiled<T, 2>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
-    case 3: launch_bwd_tiled<T, 3>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream); break;
-    default: launch_bwd_tiled<T, 4>(f1, f2, g, df1, df2, B, C, H, W, s1, s2, sg, first, copies, stream);
+    case 1: CORR_BWD_LAUNCH(1, false);
+    case 2: CORR_BWD_LAUNCH(2, false);
+    case 3: CORR_BWD_LAUNCH(3, false);
+    default: CORR_BWD_LAUNCH(4, false);
   }
-  return (int)cudaGetLastError();
+#undef CORR_BWD_LAUNCH
 }
 
 }  // namespace
@@ -308,4 +691,21 @@ extern "C" int corr_backward(const void* f1, const void* f2, const void* g,
                                    strides(s1), strides(s2), strides(sg), s);
   return backward<float>(f1, f2, g, df1, df2, B, C, H, W, (int)md, strides(s1),
                          strides(s2), strides(sg), s);
+}
+
+// The launch corr_backward makes for these sizes and `copies` gradients:
+// out[0..4] = grid x, y, z, threads per block, dynamic shared bytes.  Returns
+// cudaErrorInvalidValue (and writes nothing) for what it refuses.
+extern "C" int corr_backward_launch(int64_t B, int64_t C, int64_t H, int64_t W,
+                                    int64_t md, int64_t copies, int64_t* out) {
+  dim3 grid;
+  int64_t slabs;
+  if (!bwd_geometry(B, C, H, W, (int)md, (int)copies, &grid, &slabs))
+    return (int)cudaErrorInvalidValue;
+  out[0] = grid.x;
+  out[1] = grid.y;
+  out[2] = grid.z;
+  out[3] = BTHREADS;
+  out[4] = bwd_smem_bytes((int)md);
+  return 0;
 }

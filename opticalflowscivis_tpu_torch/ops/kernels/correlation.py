@@ -17,11 +17,20 @@ dispatches by the tensors' device:
 The TPU dispatch gate (the Pallas kernel is switched off below a plane size
 there) is tuning for that machine and is not carried over: on the card every
 2-D cost volume goes through the kernel.
+
+``backward_launch`` computes, from the shape alone, the launch that
+``corr_backward`` makes (the same arithmetic as ``bwd_geometry`` in
+``csrc/corr.cu``, which ``corr_backward_launch`` reports): blocks of 8 x 16
+pixels and 32 channels, 128 threads, and dynamic shared memory that depends
+on ``max_disp`` only.  The wrapper asks it before anything is allocated, so a
+shape beyond CUDA's grid or the shared-memory budget raises ``ValueError``
+and launches nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -33,6 +42,64 @@ from opticalflowscivis_tpu_torch.ops.kernels.build import load
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_MAX_DISP = (1, 4)  # csrc/corr.cu instantiates its kernels for these max_disp
 _I64x4 = ctypes.c_int64 * 4
+_I64x5 = ctypes.c_int64 * 5
+
+# the backward's geometry: the B* constants of csrc/corr.cu
+_BWD_TILE = (8, 16)  # pixel rows, columns of a block
+_BWD_SLAB = 32  # channels per block: 4 groups of 8, one group per thread
+_BWD_THREADS = 128
+_SHARED_LIMIT = 232448  # bytes of shared memory one block may hold on Hopper (227 KB)
+_MAX_GRID_X = 2**31 - 1
+_MAX_GRID_YZ = 65535
+
+
+class BackwardLaunch(NamedTuple):
+    grid: tuple[int, int, int]  # x tiles, row tiles, gradients * samples * channel slabs
+    threads: int
+    shared_bytes: int
+
+
+def backward_shared_bytes(max_disp: int) -> int:
+    """Dynamic shared memory of one backward block: the window of a slab of
+    32 channels, ``(8 + 2 md)`` rows of ``16 + 2 md`` columns (row stride
+    rounded up to 4 floats, channel stride 16 floats off a multiple of 32 so
+    that neighbouring channels fall in other banks), and two buffers of the
+    ``2 md + 1`` coefficient planes of one row offset over the tile."""
+    rows, cols = _BWD_TILE
+    nd = 2 * max_disp + 1
+    wh, ww4 = rows + 2 * max_disp, -(-(cols + 2 * max_disp) // 4) * 4
+    cs = wh * ww4 + (16 - (wh * ww4) % 32) % 32
+    return 4 * (_BWD_SLAB * cs + 2 * nd * rows * cols)
+
+
+def backward_launch(shape: Sequence[int], max_disp: int, copies: int = 2) -> BackwardLaunch:
+    """The backward kernel's launch for features ``[B, C, H, W]`` and
+    ``copies`` gradients (1: df1 or df2, 2: both), from the shape alone.
+    Raises ``ValueError`` where the grid exceeds CUDA's limits, the shared
+    memory exceeds what a block may hold, or ``max_disp`` is not one the
+    kernel is built for."""
+    if len(shape) != 4 or min(shape) < 1:
+        raise ValueError(f"expected non-empty features [B, C, H, W], got {tuple(shape)}")
+    if not isinstance(max_disp, int) or max_disp < 1 or copies not in (1, 2):
+        raise ValueError(f"no backward launch for max_disp {max_disp!r}, {copies!r} gradients")
+    b, c, h, w = shape
+    rows, cols = _BWD_TILE
+    grid = (-(-w // cols), -(-h // rows), b * copies * -(-c // _BWD_SLAB))
+    if grid[0] > _MAX_GRID_X or max(grid[1:]) > _MAX_GRID_YZ:
+        raise ValueError(
+            f"corr backward grid {grid} for {tuple(shape)} exceeds CUDA's limits "
+            f"({_MAX_GRID_X}, {_MAX_GRID_YZ}, {_MAX_GRID_YZ})"
+        )
+    shared = backward_shared_bytes(max_disp)
+    if shared > _SHARED_LIMIT:
+        raise ValueError(
+            f"corr backward at max_disp {max_disp} needs {shared} bytes of shared memory, "
+            f"more than the {_SHARED_LIMIT} a block may hold"
+        )
+    lo, hi = _KERNEL_MAX_DISP
+    if not lo <= max_disp <= hi:
+        raise ValueError(f"corr kernel is built for max_disp {lo} to {hi}, got {max_disp}")
+    return BackwardLaunch(grid, _BWD_THREADS, shared)
 
 
 def _library() -> ctypes.CDLL:
@@ -49,7 +116,21 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_int64, ctypes.c_void_p]
         )
         lib.corr_backward.restype = ctypes.c_int
+        lib.corr_backward_launch.argtypes = [ctypes.c_int64] * 6 + [ints]
+        lib.corr_backward_launch.restype = ctypes.c_int
     return lib
+
+
+def kernel_backward_launch(
+    shape: Sequence[int], max_disp: int, copies: int = 2
+) -> BackwardLaunch | None:
+    """The launch that the built ``corr_backward`` makes, as
+    ``corr_backward_launch`` in ``csrc/corr.cu`` reports it, or None where it
+    refuses the shape; for holding ``backward_launch`` against the kernel."""
+    out = _I64x5()
+    if _library().corr_backward_launch(*shape, max_disp, copies, out):
+        return None
+    return BackwardLaunch((out[0], out[1], out[2]), out[3], out[4])
 
 
 def _launch(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
@@ -87,6 +168,7 @@ def _launch_backward(
         )
     if not (need_df1 or need_df2):
         return None, None
+    backward_launch(f1.shape, md, int(need_df1) + int(need_df2))  # refuses before allocating
     df1 = torch.empty(f1.shape, dtype=f1.dtype, device=f1.device) if need_df1 else None
     df2 = torch.empty(f2.shape, dtype=f2.dtype, device=f2.device) if need_df2 else None
     fn = _library().corr_backward

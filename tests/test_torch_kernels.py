@@ -521,6 +521,85 @@ def test_corr_kernel_backward_matches_plain_on_card(md, dtype, layout, needs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape", [(16, 196, 4, 13), (16, 128, 8, 26), (16, 96, 16, 52), (16, 64, 32, 104),
+              (16, 32, 64, 208)],
+)
+def test_corr_kernel_backward_at_upflows_five_levels_on_card(shape, dtype):
+    """``corr_bwd`` at the shapes UPFlow's cost volumes take at 256 x 832,
+    batch 8 (md 4, both gradients, one launch) against autograd through the
+    plain version: float32 within 1e-4 and bfloat16 within 1e-2 of the
+    largest gradient; the launch the kernel reports is ``backward_launch``'s."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        backward_launch,
+        cost_volume_kernel,
+        kernel_backward_launch,
+    )
+
+    dt, md = getattr(torch, dtype), 4
+    f1, f2 = _corr_inputs(shape[1], shape, dt, "nchw")
+    g = torch.from_numpy(np.random.default_rng(shape[2]).standard_normal(
+        (shape[0], 81) + shape[2:]).astype(np.float32)).cuda().to(dt)
+
+    def through(fn):
+        a, b = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
+        fn(a, b, md).backward(g)
+        return a.grad, b.grad
+
+    before = dict(LAUNCHES)
+    got = through(cost_volume_kernel)
+    torch.cuda.synchronize()
+    assert LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1
+    want = through(cost_volume_plain)
+    rel = 1e-4 if dt == torch.float32 else 1e-2
+    for name, x, y in zip(("df1", "df2"), got, want):
+        assert x.dtype == dt and x.shape == shape and x.is_contiguous()
+        assert float((x.float() - y.float()).abs().max()) <= rel * float(y.float().abs().max()), name
+    assert kernel_backward_launch(shape, md) == backward_launch(shape, md)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", ["both", "f1", "f2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corr_kernel_backward_on_rows_of_four_on_card(dtype, needs):
+    """md 4 on contiguous rows of a multiple of 4 (44 = 2 x 16 + 12 columns),
+    which ``corr_bwd`` reads 4 elements a load, on the tile's edges (11 rows,
+    45 channels): each gradient alone and both against autograd through the
+    plain version, float32 within 1e-4 and bfloat16 within 1e-2 of the
+    largest gradient."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
+
+    dt, md, shape = getattr(torch, dtype), 4, (3, 45, 11, 44)
+    f1, f2 = _corr_inputs(44, shape, dt, "nchw")
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 81, 11, 44)).astype(np.float32)).cuda().to(dt)
+
+    def through(fn):
+        a = f1.clone().requires_grad_(needs != "f2")
+        b = f2.clone().requires_grad_(needs != "f1")
+        fn(a, b, md).backward(g)
+        return a.grad, b.grad
+
+    before = dict(LAUNCHES)
+    got = through(cost_volume_kernel)
+    torch.cuda.synchronize()
+    assert LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1
+    want = through(cost_volume_plain)
+    rel = 1e-4 if dt == torch.float32 else 1e-2
+    for name, x, y in zip(("df1", "df2"), got, want):
+        if y is None:
+            assert x is None, name
+            continue
+        assert x.dtype == dt and x.shape == shape and x.is_contiguous()
+        assert float((x.float() - y.float()).abs().max()) <= rel * float(y.float().abs().max()), name
+
+
+@pytest.mark.cuda
 def test_corr_on_card_raises_on_what_the_kernel_does_not_take():
     _cuda_or_skip()
     from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
