@@ -17,7 +17,8 @@ the same weights on the CPU, and times them.
 
 Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time,
-     each kernel's registers and spills (none allowed in ``corr_bwd_kernel``);
+     each kernel's registers and spills (none allowed in ``corr_fwd_kernel`` or
+     ``corr_bwd_kernel``);
   2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
      case against a stated tolerance; the 2-D warp also at UPFlow's feature
      shapes, in float32 and with a bf16 image under a float32 flow, its fused
@@ -39,12 +40,13 @@ Phases, printed in order:
      ``rectangle3d``, the ``train256`` module at 128^3;
   7. the cost volume kernels against ``cost_volume_plain`` and autograd through
      it, at the five shapes UPFlow gives them and odd ones; the backward also
-     on its tile's edges, on channel slices, twice bit for bit, and its
-     launch against ``backward_launch``;
+     on its tile's edges; both on channel slices and twice bit for bit, and
+     their launches against ``forward_launch`` and ``backward_launch``;
   8. UPFlow at full width at 256 x 832: ``predict`` on 8 pairs (5 ``corr``
      and 4 ``warp2d`` launches per forward, 4 more in the losses), the bf16
      model's flow within a bound of the
-     float32 model's, the CPU comparison; ``fit`` in f32 and bf16 (5 + 5
+     float32 model's, the CPU comparison, the layouts of the maps the model
+     hands the cost volume (``corr layouts``); ``fit`` in f32 and bf16 (5 + 5
      ``corr`` / ``corr_bwd`` launches per train step, 10 + 10 with the
      ex_runner recipe), one train step against the CPU, checkpoint round trip,
      both decode forms, the CLI verbs;
@@ -60,8 +62,9 @@ CUDA device or without the port beside it.
 ``--kernel-times ROOT`` runs only the kernels' timings, through the package
 of another checkout at ``ROOT`` (a commit unpacked with ``git archive``): the
 warps' of phase 9, and ``corr`` and ``corr_bwd`` at the finest UPFlow level
-in f32 and bf16 and ``corr_bwd`` at all five levels in f32; it ends with one
-``kernel times {...}`` line of their medians.  Two versions of the kernels
+in f32 and bf16, both at all five levels in f32, and ``corr`` at the finest
+level on channels-last f32 maps; it ends with one ``corr kernel times {...}``
+and one ``kernel times {...}`` line of their medians.  Two versions of the kernels
 are compared by running it on both checkouts in turns (A, B, B, A) on the
 same card.
 """
@@ -217,25 +220,29 @@ def device_ms(fn, iters: int, only: str | None = None, launches: int | None = No
 
 
 def interleaved_device_ms(fns: dict, windows: int = 5, iters: int = 40,
-                          only: str | None = None, launches: int | None = None) -> dict:
+                          only: str | dict | None = None, launches: int | None = None) -> dict:
     """Median device ms per call of each of ``fns`` (name -> ``fn(i)``) over
     ``windows`` profiler windows of ``iters`` calls, the functions' windows
     taken in turns (a, b, a, b, ...) so that the card's clocks and its
     neighbours weigh on each alike; with each window's time.  ``only`` and
-    ``launches`` are ``device_ms``'s."""
+    ``launches`` are ``device_ms``'s; ``only`` may also map each name to its
+    own kernel name."""
     samples = {name: [] for name in fns}
     for _ in range(windows):
         for name, fn in fns.items():
-            samples[name].append(device_ms(fn, iters, only, launches))
+            kernel = only.get(name) if isinstance(only, dict) else only
+            samples[name].append(device_ms(fn, iters, kernel, launches))
     return {name: {"median_ms": statistics.median(v), "windows_ms": v}
             for name, v in samples.items()}
 
 
-def kernel_against_library(fns: dict, bound_ms: float) -> dict:
+def kernel_against_library(fns: dict, bound_ms: float, kernel: str, library: str) -> dict:
     """``interleaved_device_ms`` of a kernel (``fns["kernel"]``) and the
-    library call (``fns["library"]``), their ratio, and the kernel's share of
-    its bound."""
-    timed = interleaved_device_ms(fns)
+    library call (``fns["library"]``), each one launch of the kernel whose
+    name holds ``kernel`` or ``library``, their ratio, and the kernel's share
+    of its bound.  (``F.grid_sample`` runs ATen's ``grid_sampler_*d_kernel``,
+    or cuDNN's ``bilinear_sampler_fw_4d`` for f32 with zeros padding.)"""
+    timed = interleaved_device_ms(fns, only={"kernel": kernel, "library": library}, launches=1)
     kernel, library = timed["kernel"]["median_ms"], timed["library"]["median_ms"]
     return {"kernel_ms": kernel, "library_ms": library, "kernel_over_library": kernel / library,
             "below_library": kernel < library, "bound_share": bound_ms / kernel,
@@ -347,6 +354,10 @@ def phase_card(torch):
     # an instance that reads 4
     check(len(bwd) == 10 and all(v.get("spill_stores") == 0 for v in bwd.values()),
           f"corr_bwd_kernel's 10 instances should build without spills: {bwd}")
+    fwd = {k: v for k, v in ptxas.items() if k.startswith("corr_fwd_kernel")}
+    # the same 5 per type, each for tiles of 16 rows and of 1 row
+    check(len(fwd) == 20 and all(v.get("spill_stores") == 0 for v in fwd.values()),
+          f"corr_fwd_kernel's 20 instances should build without spills: {fwd}")
     return smi
 
 
@@ -706,7 +717,8 @@ def warp2d_forward_times(torch):
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     # the kernel and F.grid_sample in turns: median of 5 windows of 40 calls each
-    warp = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms))
+    warp = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms),
+                                  "warp2d_kernel", "sampler")
     warp.update({
         "plain_ms": device_ms(plain, 40),
         "bound_ms": max(bytes_ms, ops_ms),
@@ -721,7 +733,8 @@ def warp2d_forward_times(torch):
     smooth_grids = [(img, grid2d(torch, flow, 16)) for img, flow in smooth]
     warp["smooth_flow"] = kernel_against_library({
         "kernel": lambda i: warp2d(*smooth[i % 4], 16, "border"),
-        "library": lambda i: library(i, smooth_grids)}, warp["bound_ms"])
+        "library": lambda i: library(i, smooth_grids)}, warp["bound_ms"],
+        "warp2d_kernel", "sampler")
     print("warp2d times " + json.dumps(warp) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
     return warp
 
@@ -759,8 +772,9 @@ def phase_upflow_warp_times(torch):
         bytes_moved = px * (size * c + 8 + size * c)  # img read, f32 (dy, dx) read, out written
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = px * (24 + 7 * c) / F32_FLOPS_PER_S * 1e3
-        res = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms))
-        masked_ms = device_ms(masked, 40)
+        res = kernel_against_library({"kernel": kernel, "library": library},
+                                     max(bytes_ms, ops_ms), "warp2d_kernel", "sampler")
+        masked_ms = device_ms(masked, 40, only="warp2d_kernel", launches=1)
         res.update({
             "with_mask_ms": masked_ms,
             "with_mask_bound_ms": (bytes_moved + px * size) / HBM_BYTES_PER_S * 1e3,
@@ -1139,7 +1153,7 @@ def warp2d_backward_times(torch):
         flops = px * (30 + 16 * c + (8 * c if with_dimg else 0))
         bytes_ms = function_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        kernel_only = device_ms(kernel, 40, only="warp2d_bwd_kernel")
+        kernel_only = device_ms(kernel, 40, only="warp2d_bwd_kernel", launches=1)
         out[tag] = {
             "kernel_ms": kernel_only,
             "call_device_ms": device_ms(kernel, 40),  # with the zero-fill
@@ -1669,7 +1683,8 @@ def warp3d_times(torch):
     bytes_ms = fwd_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = fwd_flops / F32_FLOPS_PER_S * 1e3
     # the kernel and F.grid_sample in turns: median of 5 windows of 40 calls each
-    fwd = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms))
+    fwd = kernel_against_library({"kernel": kernel, "library": library}, max(bytes_ms, ops_ms),
+                                 "warp3d_kernel", "sampler")
     fwd.update({
         "plain_ms": device_ms(plain, 20),
         "bytes_bound_ms": bytes_ms,
@@ -1689,7 +1704,7 @@ def warp3d_times(torch):
         "kernel": lambda i: warp3d(*smooth[i % 4], r_z, r_yx, "border"),
         "library": lambda i: F.grid_sample(*smooth_grids[i % 4], mode="bilinear",
                                            padding_mode="border", align_corners=True)},
-        fwd["bound_ms"])
+        fwd["bound_ms"], "warp3d_kernel", "sampler")
     print("warp3d times " + json.dumps(fwd) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
 
     bwd = {}
@@ -1720,7 +1735,7 @@ def warp3d_times(torch):
         flops = vox * (45 + 24 + 60 * c + (16 * c if with_dimg else 0))
         bytes_ms = function_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        kernel_only = device_ms(bwd_kernel, 40, only="warp3d_bwd_kernel")
+        kernel_only = device_ms(bwd_kernel, 40, only="warp3d_bwd_kernel", launches=1)
         bwd["with_dimg" if with_dimg else "dflow_only"] = {
             "kernel_ms": kernel_only,
             "call_device_ms": device_ms(bwd_kernel, 40),  # with the zero-fill and the cast
@@ -1764,8 +1779,8 @@ def phase_corr_vs_plain(torch):
     contiguous and channels-last; the odd shape, and two on the backward
     tile's edges (at md 1 and 3, and at md 4 with rows of a multiple of 4),
     also with each gradient alone.  Then channel
-    slices of wider maps, two backward runs bit for bit, and the backward's
-    launch geometry against ``backward_launch``."""
+    slices of wider maps, two runs of each kernel bit for bit, and the
+    launch geometries against ``forward_launch`` and ``backward_launch``."""
     from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
     from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
     from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
@@ -1848,6 +1863,7 @@ def phase_corr_vs_plain(torch):
                               f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
                         check(ok, f"corr backward disagrees with plain ({tag}, {needs})")
     corr_bwd_slices_and_repeats(torch, worst)
+    corr_fwd_geometry(torch)
     corr_bwd_geometry(torch)
     # a max_disp the kernels are not built for is refused, not served another way
     f1, f2, _ = corr_inputs(torch, CORR_ODD_SHAPE, torch.float32, seed, False)
@@ -1868,7 +1884,9 @@ def corr_bwd_slices_and_repeats(torch, worst):
     """``corr_bwd`` on channel slices of wider feature maps (NCHW and
     channels-last, so no stride is the contiguous one), against autograd
     through the plain version at the backward tolerances; then two backward
-    runs on the same inputs, which must agree bit for bit (no atomics)."""
+    runs on the same inputs, which must agree bit for bit (no atomics); then
+    ``corr`` on the same slices against the plain version, twice bit for
+    bit."""
     from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
     from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
         _launch_backward,
@@ -1914,6 +1932,50 @@ def corr_bwd_slices_and_repeats(torch, worst):
                 same = all(torch.equal(x, y) for x, y in zip(first, second))
                 print(f"corr_bwd {tag} twice: {'bit-equal' if same else 'DIFFER'}")
                 check(same, f"two corr backward runs differ ({tag})")
+                # the forward on the same slices, against the plain version and twice
+                out, again = cost_volume_kernel(f1, f2, md), cost_volume_kernel(f1, f2, md)
+                torch.cuda.synchronize()
+                ref = cost_volume_plain(f1, f2, md)
+                err = float((out.float() - ref.float()).abs().max())
+                ok = (err <= F32_TOL if dtype == torch.float32
+                      else bool(within_one_bf16_ulp(out, ref, slack=F32_TOL).all()))
+                same = torch.equal(out, again)
+                print(f"corr {tag} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}, twice: "
+                      f"{'bit-equal' if same else 'DIFFER'}")
+                check(ok, f"corr kernel disagrees with plain ({tag})")
+                check(same, f"two corr forward runs differ ({tag})")
+                if dtype == torch.float32:
+                    worst["fwd"] = max(worst["fwd"], err)
+
+
+def corr_fwd_geometry(torch):
+    """The launch the built ``corr_forward`` reports for each shape, md and
+    type against ``forward_launch``, and both refusing a grid beyond CUDA's z
+    limit."""
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        forward_launch,
+        kernel_forward_launch,
+    )
+
+    cases = 0
+    for shape in CORR_SHAPES + (CORR_ODD_SHAPE, CORR_EDGE_SHAPE, CORR_VEC_EDGE_SHAPE):
+        for md in (1, 2, 3, 4):
+            for bf16 in (False, True):
+                got = kernel_forward_launch(shape, md, bf16)
+                check(got == forward_launch(shape, md, bf16),
+                      f"corr_forward_launch {got} for {shape} md {md} bf16 {bf16}, "
+                      f"forward_launch {forward_launch(shape, md, bf16)}")
+                cases += 1
+    too_many = (21846, 32, 8, 16)  # 21846 samples x 3 row-offset groups
+    check(kernel_forward_launch(too_many, 4) is None, "the kernel took a grid beyond 65535")
+    try:
+        forward_launch(too_many, 4)
+    except ValueError:
+        pass
+    else:
+        check(False, "forward_launch took a grid beyond 65535")
+    print(f"corr geometry: {cases} cases agree with forward_launch; per level at md 4: "
+          f"{[tuple(forward_launch(shape, 4)) for shape in CORR_SHAPES]}")
 
 
 def corr_bwd_geometry(torch):
@@ -2021,6 +2083,7 @@ def phase_upflow_serving(torch, tmp: str):
     counts = {k: LAUNCHES[k] for k in ("corr", "warp2d")}  # read just after the run
     print(f"UPFlow serving path: launches={counts}")
     check(counts["corr"] == 10, "the UPFlow serving path missed the cost volume kernel")
+    corr_layouts(torch, trainers, pairs)
     diff = (flows["bf16"] - flows["f32"]).abs()
     d_max, d_mean = float(diff.max()), float(diff.mean())
     top, mag = float(flows["f32"].abs().max()), float(flows["f32"].norm(dim=-1).mean())
@@ -2050,6 +2113,41 @@ def phase_upflow_serving(torch, tmp: str):
     for level, ((gf, _), (wf, _)) in enumerate(zip(got["flows"], want["flows"])):
         close_enough(gf, wf, f"cuda vs cpu UPFlow level {level} (finest first)")
     return counts, trainers
+
+
+def corr_layouts(torch, trainers, pairs) -> dict:
+    """One ``corr layouts`` line: the shape, dtype, strides and layout of the
+    two maps the model hands ``cost_volume_kernel`` at each level (coarsest
+    first) of a forward on ``pairs``, in f32 and bf16; "nchw" maps whose rows
+    are a multiple of 4 elements take the kernel's vector path at md 4."""
+    from opticalflowscivis_tpu_torch.models import upflow as upflow_model
+
+    original = upflow_model.cost_volume_kernel
+    seen = {}
+
+    def layout(f):
+        if f.is_contiguous():
+            return "nchw"
+        return "nhwc" if f.is_contiguous(memory_format=torch.channels_last) else "strided"
+
+    def record(f1, f2, max_disp=4):
+        seen[name].append({"shape": list(f1.shape), "dtype": str(f1.dtype).replace("torch.", ""),
+                           "strides": [list(f1.stride()), list(f2.stride())],
+                           "layout": [layout(f1), layout(f2)]})
+        return original(f1, f2, max_disp)
+
+    try:
+        upflow_model.cost_volume_kernel = record
+        for name, tr in trainers.items():
+            seen[name] = []
+            with torch.no_grad():
+                tr._forward(*(tr.upload(pairs)[:, i] for i in (0, 1)))
+    finally:
+        upflow_model.cost_volume_kernel = original
+    torch.cuda.synchronize()
+    print("corr layouts " + json.dumps(seen))
+    check(all(len(v) == 5 for v in seen.values()), f"expected 5 cost volumes a forward: {seen}")
+    return seen
 
 
 def phase_upflow_training(torch, tmp: str):
@@ -2322,11 +2420,13 @@ def phase_upflow_times(torch, serving, training):
 def corr_kernel_times(torch) -> dict:
     """Device ms per call of ``corr`` and ``corr_bwd`` (both gradients) at the
     finest UPFlow level, [16, 32, 64, 208] md 4, in f32 and bf16, the two
-    kernels' windows in turns; and of ``corr_bwd`` at each of the five levels
-    in f32, the levels' windows in turns (``interleaved_device_ms``: medians of
-    5 profiler windows of 40 calls over 4 input sets).  Each with its byte
-    bound.  Only ``cost_volume_kernel`` and ``_launch_backward`` are called,
-    which every version of the port has, so any checkout can be timed."""
+    kernels' windows in turns; of ``corr`` and of ``corr_bwd`` at each of the
+    five levels in f32, the levels' windows in turns; and of ``corr`` at the
+    finest level on channels-last f32 maps (``interleaved_device_ms``:
+    medians of 5 profiler windows of 40 calls over 4 input sets).  Each with
+    its byte bound.  Only ``cost_volume_kernel`` and ``_launch_backward`` are
+    called, which every version of the port has, so any checkout can be
+    timed."""
     from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
         _launch_backward,
         cost_volume_kernel,
@@ -2339,16 +2439,19 @@ def corr_kernel_times(torch) -> dict:
         b, c, h, w = shape
         return (4 * b * c * h * w + b * d * h * w) * size / HBM_BYTES_PER_S * 1e3
 
-    def input_sets(shape, dtype, seed):
+    def fwd_bound_ms(shape, size):
+        b, c, h, w = shape
+        return (2 * b * c * h * w + b * d * h * w) * size / HBM_BYTES_PER_S * 1e3
+
+    def input_sets(shape, dtype, seed, channels_last=False):
         sets = []
         for i in range(4):
-            f1, f2, grad = corr_inputs(torch, shape, dtype, seed + i, False)
+            f1, f2, grad = corr_inputs(torch, shape, dtype, seed + i, channels_last)
             sets.append((f1, f2, grad(md)))
         return sets
 
     out = {}
     shape = CORR_SHAPES[-1]
-    b, c, h, w = shape
     for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
         sets = input_sets(shape, dtype, 800)
         timed = interleaved_device_ms({
@@ -2356,21 +2459,32 @@ def corr_kernel_times(torch) -> dict:
             "corr_bwd": lambda i, sets=sets: _launch_backward(*sets[i % 4], md),
         }, only="corr_", launches=1)
         name = str(dtype).replace("torch.", "")
-        fwd_bound = (2 * b * c * h * w + b * d * h * w) * size / HBM_BYTES_PER_S * 1e3
-        for kernel, bound in (("corr", fwd_bound), ("corr_bwd", bwd_bound_ms(shape, size))):
+        for kernel, bound in (("corr", fwd_bound_ms(shape, size)),
+                              ("corr_bwd", bwd_bound_ms(shape, size))):
             ms = timed[kernel]["median_ms"]
             out[f"{kernel}_{name}"] = {"ms": ms, "windows_ms": timed[kernel]["windows_ms"],
                                        "bytes_bound_ms": bound, "bound_share": bound / ms}
         del sets
-    fns = {}
-    for level, shape in enumerate(CORR_SHAPES):
-        sets = input_sets(shape, torch.float32, 900 + 10 * level)
-        fns[str(list(shape))] = lambda i, sets=sets: _launch_backward(*sets[i % 4], md)
-    timed = interleaved_device_ms(fns, only="corr_", launches=1)
-    out["corr_bwd_float32_levels"] = {
-        name: {"ms": t["median_ms"], "windows_ms": t["windows_ms"],
-               "bytes_bound_ms": bwd_bound_ms(json.loads(name), 4)}
-        for name, t in timed.items()}
+    level_sets = [input_sets(shape, torch.float32, 900 + 10 * level)
+                  for level, shape in enumerate(CORR_SHAPES)]
+    for kernel, call, bound_ms in (
+            ("corr", lambda f1, f2, g: cost_volume_kernel(f1, f2, md), fwd_bound_ms),
+            ("corr_bwd", lambda f1, f2, g: _launch_backward(f1, f2, g, md), bwd_bound_ms)):
+        fns = {str(list(shape)): lambda i, sets=sets, call=call: call(*sets[i % 4])
+               for shape, sets in zip(CORR_SHAPES, level_sets)}
+        timed = interleaved_device_ms(fns, only="corr_", launches=1)
+        out[f"{kernel}_float32_levels"] = {
+            name: {"ms": t["median_ms"], "windows_ms": t["windows_ms"],
+                   "bytes_bound_ms": bound_ms(json.loads(name), 4)}
+            for name, t in timed.items()}
+    del level_sets
+    # channels-last maps at the finest level, each element read through its strides
+    sets = input_sets(shape, torch.float32, 990, channels_last=True)
+    timed = interleaved_device_ms(
+        {"corr": lambda i: cost_volume_kernel(sets[i % 4][0], sets[i % 4][1], md)},
+        only="corr_", launches=1)["corr"]
+    out["corr_float32_nhwc"] = {"ms": timed["median_ms"], "windows_ms": timed["windows_ms"],
+                                "bytes_bound_ms": fwd_bound_ms(shape, 4)}
     return out
 
 
@@ -2399,9 +2513,9 @@ def kernel_times_of(torch, root: str) -> int:
         "warp3d_smooth": {k: fwd3["smooth_flow"][k] for k in ("kernel_ms", "library_ms")},
         **{f"warp2d_bwd_{tag}": bwd2[tag]["kernel_ms"] for tag in bwd2},
         **{f"warp3d_bwd_{tag}": bwd3[tag]["kernel_ms"] for tag in bwd3},
-        **{tag: t["ms"] for tag, t in corr.items() if tag != "corr_bwd_float32_levels"},
-        "corr_bwd_float32_levels": {name: t["ms"]
-                                    for name, t in corr["corr_bwd_float32_levels"].items()},
+        **{tag: t["ms"] for tag, t in corr.items() if not tag.endswith("_levels")},
+        **{tag: {name: t["ms"] for name, t in levels.items()}
+           for tag, levels in corr.items() if tag.endswith("_levels")},
     }
     print("kernel times " + json.dumps({"root": root, "card": smi, "ms": medians}))
     return 0

@@ -15,23 +15,39 @@
 //   Both gradients are gathers: no atomics, and a run repeats bit for bit.
 //
 // Bound.  Bytes: f1 and f2 read once, (2 md + 1)^2 channels written; at the
-// finest UPFlow level ([16, 32, 64, 208], md 4) the output is 2.5 times the
-// inputs, so the forward is bound by its own write.  Operations: 2 C (2md+1)^2
+// finest UPFlow level ([16, 32, 64, 208], md 4) the output (81 channels) is
+// 1.3 times the inputs (2 x 32), so the forward is bound by its own write.  Operations: 2 C (2md+1)^2
 // per pixel, which at md 4 is within a factor of three of the byte time at the
 // f32 rate outside the tensor cores, so shared-memory traffic per multiply
 // matters too.  The backward reads f1, f2 and g and writes two tensors of the
 // inputs' size, with twice the forward's operations.
 //
-// Forward (md 1..4).  One launch covers the batch; a block owns a tile of
-// 8 x 32 pixels of one sample.  f1's tile and f2's (8 + 2 md) x (32 + 2 md)
-// window are staged in shared memory for 8 channels at a time, zero outside
-// the plane, so every input element is read from device memory once per tile
-// (the halo from L2).  A thread owns 4 pixels of one column and one dx, and
-// keeps 4 x (2 md + 1) sums in registers: per channel it loads a column of
-// 4 + 2 md window values and 4 f1 values for 4 (2 md + 1) multiply-adds (36
-// for 12 + 4 loads at md 4).  Threads of a warp own consecutive x: shared
-// reads have no bank conflict and the writes of out coalesce.
-//
+// Forward (md 1..4).  One launch covers the batch.  A block owns a tile of
+// TH rows x 32 columns of one sample and 3 of the 2 md + 1 row offsets dy
+// (blockIdx.z = sample x dy group), so a tile's f1 and window are read 3 times
+// at md 4, from L2.  Its 128 threads each own 4 consecutive x of one row, the
+// block's 3 dy and all 2 md + 1 dx: 108 f32 sums at md 4.  Per channel a
+// thread reads 4 f1 values and 3 window rows of 12 values from shared memory,
+// 4 elements a read (10 reads for 108 multiply-adds); a quarter warp reads
+// one row, so no bank
+// conflicts in f32.  Channels are staged in a ring of 3 stages by cp.async
+// (zero-filled outside the plane and beyond C), so 2 stages load while one is
+// summed, with no registers held for the loads; shared memory keeps the
+// inputs' type (bf16 halves its bytes and widens by a shift when read).  At md
+// 4 NCHW rows of a multiple of 4 elements (UPFlow's W = 52, 104, 208) are
+// copied 16 or 8 bytes a copy; other layouts one element a copy (bf16 by
+// loads and stores: cp.async has no 2-byte copy).  Outputs leave as 16- or
+// 8-byte streaming stores where W is a multiple of 4.  Tiles are 16 rows
+// (one channel group), or 1 row where 16-row tiles would leave more than
+// half of the 132 SMs without a block (UPFlow's two coarsest levels): the 128
+// threads are then 16 channel groups of one row, whose sums are added in
+// shared memory in group order.  No atomics: two runs agree bit for bit.
+//   Registers are capped for 3 blocks per SM with 16-row tiles (168) and for
+// 2 with 1-row tiles, whose 16 groups' epilogue needs more; shared memory is
+// dynamic, at most 59 KB a block, so copies, sums and other blocks' stores
+// overlap.  Staging decodes each slot's place once a stage (stage_part):
+// decoding it per copy cost more than the sums on small planes.
+
 // Backward (md 1..4).  Both gradients have one form.  With e = (ey, ex) in
 // [0, 2 md]^2 and the window W = f2 (df1) or f1 (df2),
 //   d[c, y, x] = (1/C) sum_e a[e, y, x] * W[c, y+ey-md, x+ex-md],
@@ -84,10 +100,6 @@
 
 namespace {
 
-constexpr int TH = 8;    // forward tile rows
-constexpr int TW = 32;   // forward tile columns: one warp spans a tile row
-constexpr int PY = 4;    // forward: pixels (rows) per thread
-constexpr int CF = 8;    // forward: channels staged per step
 constexpr int MAX_MD = 4;  // the kernels are instantiated for md 1..MAX_MD
 
 // Backward geometry; ops/kernels/correlation.py::backward_launch mirrors it.
@@ -104,10 +116,6 @@ static_assert(BTW / BPX == 4 && BNG == 4, "corr_bwd_tile decodes threadIdx in 2-
 constexpr int STAGE = 16;       // element path: window loads in flight per thread
 constexpr int MIN_BLOCKS = 3;   // blocks an SM holds at md 4 (shared memory): <= 168 registers
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -188,83 +196,336 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float
   *reinterpret_cast<uint2*>(p) = v;
 }
 
-// Stage `nc` channels (from c0) of a rows x cols window of one sample into
-// shared memory as f32, zero outside the plane and beyond channel C.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, Strides s,
-                                      int64_t c0, int64_t C, int64_t ya,
-                                      int64_t xa, int64_t H, int64_t W, int nc,
-                                      int rows, int cols) {
-  const int n = nc * rows * cols;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int wx = i % cols;
-    const int r = i / cols;
-    const int wy = r % rows;
-    const int64_t c = c0 + r / rows;
-    const int64_t y = ya + wy, x = xa + wx;
-    float v = 0.f;
-    if (c < C && y >= 0 && y < H && x >= 0 && x < W)
-      v = load_f32(src + c * s.c + y * s.h + x * s.w);
-    dst[i] = v;
+// Forward geometry; ops/kernels/correlation.py::forward_launch mirrors it.
+constexpr int FTW = 32;                // tile columns
+constexpr int FXT = FTW / 4;           // threads across a tile row, 4 x each
+constexpr int FNDY = 3;                // row offsets dy per block (and per thread)
+constexpr int FTHREADS = 128;
+constexpr int FSTAGES = 3;             // channel stages in the cp.async ring
+constexpr int FWANT_BLOCKS = 132 / 2;  // 16-row tiles busy at least half the SMs
+constexpr int FMIN_BLOCKS_1ROW = 2;    // 1-row tiles: registers for 2 blocks an SM
+
+// A block owns TH rows x FTW columns of one sample and FNDY row offsets; its
+// FTHREADS threads are K = FTHREADS / (FXT TH) channel groups of FXT x TH.
+// TH 16: one group; TH 1 (small planes): 16 groups, added in shared memory.
+template <int TH>
+struct FwdTile {
+  static_assert(TH == 16 || TH == 1, "forward tiles are 16 rows or 1");
+  static constexpr int K = FTHREADS / (FXT * TH);  // channel groups
+  static constexpr int CS = TH == 16 ? 4 : 32;     // channels per stage
+  static constexpr int CPG = CS / K;               // channels per group and stage
+  static constexpr int WR = TH + FNDY - 1;         // window rows
+};
+template <int MD>
+struct FwdWin {
+  static constexpr int ND = 2 * MD + 1;
+  static constexpr int G = (ND + FNDY - 1) / FNDY;  // dy groups (blocks per tile)
+  static constexpr int NV = (4 + 2 * MD + 3) / 4;   // 4-element window reads per row
+  static constexpr int WW = FTW + 2 * MD;           // window columns staged
+  static constexpr int WW4 = FTW - 4 + 4 * NV;      // window row stride (elements)
+};
+// one channel of a stage: f1's TH rows of FTW, then the window's WR rows of WW4
+template <int MD, int TH>
+struct FwdChannel {
+  static constexpr int ELEMS = TH * FTW + FwdTile<TH>::WR * FwdWin<MD>::WW4;
+};
+template <int MD, int TH>
+constexpr int fwd_smem_bytes_of(int elem) {
+  const int ring = FSTAGES * FwdTile<TH>::CS * FwdChannel<MD, TH>::ELEMS * elem;
+  const int scratch = FwdTile<TH>::K > 1 ? FTHREADS * FNDY * FwdWin<MD>::ND * 16 : 0;
+  return ring > scratch ? ring : scratch;
+}
+int fwd_smem_bytes(int md, int th, int elem) {
+  const bool rows16 = th == 16;
+  switch (md) {
+    case 1: return rows16 ? fwd_smem_bytes_of<1, 16>(elem) : fwd_smem_bytes_of<1, 1>(elem);
+    case 2: return rows16 ? fwd_smem_bytes_of<2, 16>(elem) : fwd_smem_bytes_of<2, 1>(elem);
+    case 3: return rows16 ? fwd_smem_bytes_of<3, 16>(elem) : fwd_smem_bytes_of<3, 1>(elem);
+    default: return rows16 ? fwd_smem_bytes_of<4, 16>(elem) : fwd_smem_bytes_of<4, 1>(elem);
   }
 }
 
-template <typename T, int MD>
-__global__ void __launch_bounds__(TW * (TH / PY) * (2 * MD + 1))
-corr_fwd_kernel(const T* __restrict__ f1,
-                                const T* __restrict__ f2, T* __restrict__ out,
-                                int64_t C, int64_t H, int64_t W, Strides s1,
-                                Strides s2, float inv_c) {
-  constexpr int ND = 2 * MD + 1;
-  constexpr int WH = TH + 2 * MD, WW = TW + 2 * MD;
-  __shared__ float t1[CF * TH * TW];
-  __shared__ float t2[CF * WH * WW];
+// cp.async of N bytes (4, 8 or 16) into shared memory, zero-filled where !ok
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(d), "l"(src), "n"(N), "r"(ok ? N : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
 
-  const int64_t b = blockIdx.z;
-  const int64_t y0 = (int64_t)blockIdx.y * TH, x0 = (int64_t)blockIdx.x * TW;
-  const int tx = threadIdx.x % TW;
-  const int r = threadIdx.x / TW;
-  const int ty = (r % (TH / PY)) * PY;  // first of this thread's PY rows
-  const int dx = r / (TH / PY);
+// four consecutive staged elements (4-aligned) as f32
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const uint32_t r[2] = {v.x, v.y};
+  return widen4<__nv_bfloat16>(r);
+}
 
-  float acc[PY][ND];
-#pragma unroll
-  for (int p = 0; p < PY; ++p)
-#pragma unroll
-    for (int dy = 0; dy < ND; ++dy) acc[p][dy] = 0.f;
+// four consecutive outputs at a 4-aligned address, streamed (evict first)
+__device__ __forceinline__ void store4_cs(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void store4_cs(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(p), u);
+}
 
-  for (int64_t c0 = 0; c0 < C; c0 += CF) {
-    stage(t1, f1 + b * s1.b, s1, c0, C, y0, x0, H, W, CF, TH, TW);
-    stage(t2, f2 + b * s2.b, s2, c0, C, y0 - MD, x0 - MD, H, W, CF, WH, WW);
-    __syncthreads();
+// Lanes that copy one channel's NPC pieces: all threads, or a power of 2
+// covering them (so several channels are copied in one pass).
+__host__ __device__ constexpr int stage_lanes(int npc) {
+  return npc >= FTHREADS ? FTHREADS : npc > 16 ? 32 : npc > 8 ? 16 : 8;
+}
+
+// Copy one part (f1's tile or the window) of CS channels into a stage.  A
+// channel has NPC pieces of PIECE elements (4: a 4-aligned chunk of a row, one
+// 16- or 8-byte cp.async; 1: one element); `where(i, at, in, off)` gives piece
+// i's shared offset inside a channel, whether it lies in the plane, and its
+// source offset from the channel's start.  A thread copies the pieces at a
+// fixed place of the tile (E slots) for every CP-th channel from its first:
+// the place is decoded once per slot and stage, the channel added per copy.
+// bf16 single elements (cp.async has no 2-byte copy) are loaded, then stored.
+template <typename T, int PIECE, int NPC, int CS, int PER_CH, typename Where>
+__device__ __forceinline__ void stage_part(T* dst, const T* src, int64_t sc, int64_t c0,
+                                           int64_t C, Where where) {
+  constexpr int L = stage_lanes(NPC), E = (NPC + L - 1) / L, CP = FTHREADS / L;
+  static_assert(CS % CP == 0, "whole passes of channels");
+  const int lane = threadIdx.x % L, cc = threadIdx.x / L;
+  // one slot at a time: unrolled, the slots' addresses would all be live
+#pragma unroll 1
+  for (int e = 0; e < E; ++e) {
+    const int i = lane + e * L;
+    if (NPC % L != 0 && i >= NPC) break;
+    int at;
+    bool in;
+    int64_t off;
+    where(i, at, in, off);
+    if constexpr (PIECE == 4 || sizeof(T) == 4) {
 #pragma unroll
-    for (int c = 0; c < CF; ++c) {
-      float a[PY], v[PY + ND - 1];
+      for (int k = 0; k < CS / CP; ++k) {
+        const int c = cc + k * CP;
+        cp_async<PIECE * (int)sizeof(T)>(dst + c * PER_CH + at, src + c * sc + off,
+                                          in && c0 + c < C);
+      }
+    } else {
+      constexpr int NB = 4;  // loads in flight
 #pragma unroll
-      for (int p = 0; p < PY; ++p) a[p] = t1[(c * TH + ty + p) * TW + tx];
+      for (int k0 = 0; k0 < CS / CP; k0 += NB) {
+        uint32_t v[NB];
 #pragma unroll
-      for (int j = 0; j < PY + ND - 1; ++j)
-        v[j] = t2[(c * WH + ty + j) * WW + tx + dx];
+        for (int k = 0; k < NB; ++k) {
+          const int c = cc + (k0 + k) * CP;
+          v[k] = k0 + k < CS / CP ? ldg_raw(src + c * sc + off, in && c0 + c < C) : 0u;
+        }
 #pragma unroll
-      for (int p = 0; p < PY; ++p)
-#pragma unroll
-        for (int dy = 0; dy < ND; ++dy) acc[p][dy] += a[p] * v[p + dy];
+        for (int k = 0; k < NB; ++k)
+          if (k0 + k < CS / CP)
+            dst[(cc + (k0 + k) * CP) * PER_CH + at] = __ushort_as_bfloat16((unsigned short)v[k]);
+      }
     }
-    __syncthreads();
+  }
+}
+
+// Stage FwdTile<TH>::CS channels from c0 into `dst`: f1's tile (rows y0..,
+// columns x0..) and f2's window (rows wy0.., columns x0 - MD..), zero outside
+// the plane and beyond C.  VEC (md 4, rows of a multiple of 4 elements):
+// 4-element chunks, so a window row of 40 columns is 10 copies; otherwise one
+// element a copy, through the strides.
+template <typename T, int MD, bool VEC, int TH>
+__device__ __forceinline__ void fwd_stage(T* dst, const T* f1b, const T* f2b, Strides s1,
+                                          Strides s2, int64_t c0, int64_t C, int64_t H,
+                                          int64_t W, int64_t y0, int64_t x0, int64_t wy0) {
+  using Tl = FwdTile<TH>;
+  using Wn = FwdWin<MD>;
+  constexpr int PER_CH = FwdChannel<MD, TH>::ELEMS;
+  constexpr int P = VEC ? 4 : 1;           // elements a copy
+  constexpr int Q1 = FTW / P, Q2 = Wn::WW / P;  // copies of a row
+  static_assert(!VEC || MD == 4, "the vector instance is built for md 4 only");
+  const int64_t wx0 = x0 - MD;
+  stage_part<T, P, TH * Q1, Tl::CS, PER_CH>(
+      dst, f1b + c0 * s1.c, s1.c, c0, C, [&](int i, int& at, bool& in, int64_t& off) {
+        const int q = i % Q1, r = i / Q1;
+        const int64_t y = y0 + r, x = x0 + P * q;
+        at = r * FTW + P * q;
+        in = y < H && x < W;
+        off = in ? y * s1.h + x * s1.w : 0;
+      });
+  stage_part<T, P, Tl::WR * Q2, Tl::CS, PER_CH>(
+      dst, f2b + c0 * s2.c, s2.c, c0, C, [&](int i, int& at, bool& in, int64_t& off) {
+        const int q = i % Q2, r = i / Q2;
+        const int64_t y = wy0 + r, x = wx0 + P * q;
+        at = TH * FTW + r * Wn::WW4 + P * q;
+        in = y >= 0 && y < H && x >= 0 && x < W;
+        off = in ? y * s2.h + x * s2.w : 0;
+      });
+}
+
+// out[b, dy ND + dx, y, x] for a tile of TH x FTW pixels of sample b and the
+// row offsets dy = d0 .. d0 + FNDY - 1 (those below ND).  A thread owns 4
+// consecutive x of one row and sums, per channel of its group, FNDY x ND x 4
+// products from one 4-element read of f1 and FNDY window rows of 4 + 2 MD
+// values (three 4-element reads each at md 4): 108 multiply-adds for 10 reads.
+template <typename T, int MD, bool VEC, int TH>
+__global__ void __launch_bounds__(FTHREADS, TH == 16 ? MIN_BLOCKS : FMIN_BLOCKS_1ROW)
+corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out,
+                int64_t C, int64_t H, int64_t W, Strides s1, Strides s2, float inv_c) {
+  using Tl = FwdTile<TH>;
+  using Wn = FwdWin<MD>;
+  constexpr int ND = Wn::ND, NV = Wn::NV;
+  constexpr int PER_CH = FwdChannel<MD, TH>::ELEMS;
+  constexpr int STAGE_ELEMS = Tl::CS * PER_CH;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+
+  const int tid = threadIdx.x;
+  const int xg = tid % FXT, ty = (tid / FXT) % TH, kg = tid / (FXT * TH);
+  const int64_t z = blockIdx.z;
+  const int64_t b = z / Wn::G;
+  const int d0 = (int)(z % Wn::G) * FNDY;
+  const int64_t y0 = (int64_t)blockIdx.y * TH, x0 = (int64_t)blockIdx.x * FTW;
+  const int64_t wy0 = y0 + d0 - MD;
+  const T* f1b = f1 + b * s1.b;
+  const T* f2b = f2 + b * s2.b;
+
+  float4 acc[FNDY][ND];
+#pragma unroll
+  for (int j = 0; j < FNDY; ++j)
+#pragma unroll
+    for (int dx = 0; dx < ND; ++dx) acc[j][dx] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int nst = (int)((C + Tl::CS - 1) / Tl::CS);
+#pragma unroll
+  for (int s = 0; s < FSTAGES - 1; ++s) {
+    if (s < nst)
+      fwd_stage<T, MD, VEC, TH>(ring + s * STAGE_ELEMS, f1b, f2b, s1, s2, (int64_t)s * Tl::CS,
+                                C, H, W, y0, x0, wy0);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<FSTAGES - 2>();  // this thread's copies of stage st have landed
+    __syncthreads();               // everyone's have, and stage st - 1 is summed
+    const int nx = st + FSTAGES - 1;
+    if (nx < nst)
+      fwd_stage<T, MD, VEC, TH>(ring + (nx % FSTAGES) * STAGE_ELEMS, f1b, f2b, s1, s2,
+                                (int64_t)nx * Tl::CS, C, H, W, y0, x0, wy0);
+    cp_async_commit();
+    const T* sb = ring + (st % FSTAGES) * STAGE_ELEMS + kg * Tl::CPG * PER_CH;
+#pragma unroll
+    for (int i = 0; i < Tl::CPG; ++i) {
+      const T* ch = sb + i * PER_CH;
+      const float4 a = lds4(ch + ty * FTW + 4 * xg);
+#pragma unroll
+      for (int j = 0; j < FNDY; ++j) {
+        if (ND % FNDY != 0 && d0 + j >= ND) break;
+        const T* wr = ch + TH * FTW + (ty + j) * Wn::WW4 + 4 * xg;
+        float w[4 * NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const float4 q = lds4(wr + 4 * v);
+          w[4 * v] = q.x;
+          w[4 * v + 1] = q.y;
+          w[4 * v + 2] = q.z;
+          w[4 * v + 3] = q.w;
+        }
+#pragma unroll
+        for (int dx = 0; dx < ND; ++dx) {
+          acc[j][dx].x = fmaf(a.x, w[dx], acc[j][dx].x);
+          acc[j][dx].y = fmaf(a.y, w[dx + 1], acc[j][dx].y);
+          acc[j][dx].z = fmaf(a.z, w[dx + 2], acc[j][dx].z);
+          acc[j][dx].w = fmaf(a.w, w[dx + 3], acc[j][dx].w);
+        }
+      }
+    }
   }
 
-  const int64_t x = x0 + tx;
-  if (x >= W) return;
+  // out of pixel group p (row p / FXT, x group p % FXT) at offset (d0 + j, dx)
   const int64_t plane = H * W;
-  T* o = out + b * (ND * ND) * plane + x;
+  T* ob = out + b * (ND * ND) * plane;
+  auto put = [&](int p, int j, int dx, float4 v) {
+    const int64_t y = y0 + p / FXT, x = x0 + 4 * (p % FXT);
+    if (y >= H || x >= W) return;
+    T* o = ob + ((d0 + j) * ND + dx) * plane + y * W + x;
+    v.x *= inv_c;
+    v.y *= inv_c;
+    v.z *= inv_c;
+    v.w *= inv_c;
+    if (W % 4 == 0) {  // x is 4-aligned and x + 3 < W
+      store4_cs(o, v);
+    } else {
+      store(o, v.x);
+      if (x + 1 < W) store(o + 1, v.y);
+      if (x + 2 < W) store(o + 2, v.z);
+      if (x + 3 < W) store(o + 3, v.w);
+    }
+  };
+  if constexpr (Tl::K == 1) {
 #pragma unroll
-  for (int p = 0; p < PY; ++p) {
-    const int64_t y = y0 + ty + p;
-    if (y >= H) break;
+    for (int j = 0; j < FNDY; ++j) {
+      if (ND % FNDY != 0 && d0 + j >= ND) break;
 #pragma unroll
-    for (int dy = 0; dy < ND; ++dy)
-      store(o + (dy * ND + dx) * plane + y * W, acc[p][dy] * inv_c);
+      for (int dx = 0; dx < ND; ++dx) put(tid, j, dx, acc[j][dx]);
+    }
+  } else {
+    // the K groups' sums added in group order (no atomics): every thread
+    // parks its sums, then one thread adds up each output vector
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free
+    float4* sc = smem4;
+#pragma unroll
+    for (int j = 0; j < FNDY; ++j)
+#pragma unroll
+      for (int dx = 0; dx < ND; ++dx) sc[(j * ND + dx) * FTHREADS + tid] = acc[j][dx];
+    __syncthreads();
+    constexpr int P = FXT * TH;  // pixel groups of a block
+    constexpr int NOUT = P * FNDY * ND;
+#pragma unroll 1
+    for (int i = tid; i < NOUT; i += FTHREADS) {
+      const int p = i % P, jd = i / P, j = jd / ND, dx = jd % ND;
+      if (ND % FNDY != 0 && d0 + j >= ND) continue;
+      const float4* src = sc + jd * FTHREADS + p;
+      float4 v = src[0];
+#pragma unroll
+      for (int k = 1; k < Tl::K; ++k) {
+        const float4 u = src[k * P];
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+      put(p, j, dx, v);
+    }
   }
+}
+
+// The forward's launch: grid (x tiles, row tiles, B x dy groups), FTHREADS
+// threads, *smem bytes of dynamic shared memory for elements of `elem` bytes,
+// and *th rows a tile: 16, or 1 where 16-row tiles would give fewer than
+// FWANT_BLOCKS blocks.  False for a shape or md the kernel does not take.
+bool fwd_geometry(int64_t B, int64_t C, int64_t H, int64_t W, int md, int elem, dim3* grid,
+                  int* th, int* smem) {
+  if (md < 1 || md > MAX_MD || B < 1 || C < 1 || H < 1 || W < 1) return false;
+  const int64_t groups = (2 * md + 1 + FNDY - 1) / FNDY;
+  const int64_t gx = (W + FTW - 1) / FTW, gz = B * groups;
+  *th = gx * ((H + 15) / 16) * gz >= FWANT_BLOCKS ? 16 : 1;
+  const int64_t gy = (H + *th - 1) / *th;
+  if (gx > 2147483647 || gy > 65535 || gz > 65535) return false;
+  *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)gz);
+  *smem = fwd_smem_bytes(md, *th, elem);
+  return true;
 }
 
 // Shared-memory layout of the backward at one md, in floats: the window of
@@ -567,15 +828,6 @@ corr_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
 
 Strides strides(const int64_t* s) { return Strides{s[0], s[1], s[2], s[3]}; }
 
-dim3 tile_grid(int64_t B, int64_t H, int64_t W, int copies) {
-  return dim3((unsigned)((W + TW - 1) / TW), (unsigned)((H + TH - 1) / TH),
-              (unsigned)(B * copies));
-}
-
-bool grid_fits(int64_t B, int64_t H, int copies) {
-  return (H + TH - 1) / TH <= 65535 && B * copies <= 65535;
-}
-
 // The backward's launch: grid (x tiles, row tiles, copies * B * slabs),
 // BTHREADS threads, bwd_smem_bytes(md) of dynamic shared memory.  False for
 // a shape or md the kernel does not take.
@@ -591,14 +843,45 @@ bool bwd_geometry(int64_t B, int64_t C, int64_t H, int64_t W, int md,
   return true;
 }
 
-template <typename T, int MD>
-void launch_fwd_tiled(const void* f1, const void* f2, void* out, int64_t B,
-                      int64_t C, int64_t H, int64_t W, Strides s1, Strides s2,
-                      cudaStream_t stream) {
-  const int threads = TW * (TH / PY) * (2 * MD + 1);
-  corr_fwd_kernel<T, MD><<<tile_grid(B, H, W, 1), threads, 0, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(f2),
-      static_cast<T*>(out), C, H, W, s1, s2, 1.f / (float)C);
+template <typename T, int MD, bool VEC, int TH>
+int launch_fwd_tiled(const void* f1, const void* f2, void* out, int64_t C, int64_t H,
+                     int64_t W, Strides s1, Strides s2, dim3 grid, cudaStream_t stream) {
+  constexpr int bytes = fwd_smem_bytes_of<MD, TH>((int)sizeof(T));
+  // per device and cheap; beyond 48 KB a launch needs it
+  const cudaError_t set = cudaFuncSetAttribute(
+      corr_fwd_kernel<T, MD, VEC, TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return (int)set;
+  corr_fwd_kernel<T, MD, VEC, TH><<<grid, FTHREADS, bytes, stream>>>(
+      static_cast<const T*>(f1), static_cast<const T*>(f2), static_cast<T*>(out), C, H, W,
+      s1, s2, 1.f / (float)C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int TH>
+int forward_th(const void* f1, const void* f2, void* out, int64_t C, int64_t H, int64_t W,
+               int md, Strides s1, Strides s2, dim3 grid, cudaStream_t stream) {
+  // md 4, the model's, has an instance that reads f1's and f2's rows 4
+  // elements a copy where their layout allows
+  const int e = (int)sizeof(T);
+  if (md == 4 && rows_of_4(f1, s1, W, e) && rows_of_4(f2, s2, W, e))
+    return launch_fwd_tiled<T, 4, true, TH>(f1, f2, out, C, H, W, s1, s2, grid, stream);
+  switch (md) {
+    case 1: return launch_fwd_tiled<T, 1, false, TH>(f1, f2, out, C, H, W, s1, s2, grid, stream);
+    case 2: return launch_fwd_tiled<T, 2, false, TH>(f1, f2, out, C, H, W, s1, s2, grid, stream);
+    case 3: return launch_fwd_tiled<T, 3, false, TH>(f1, f2, out, C, H, W, s1, s2, grid, stream);
+    default: return launch_fwd_tiled<T, 4, false, TH>(f1, f2, out, C, H, W, s1, s2, grid, stream);
+  }
+}
+
+template <typename T>
+int forward(const void* f1, const void* f2, void* out, int64_t B, int64_t C, int64_t H,
+            int64_t W, int md, Strides s1, Strides s2, cudaStream_t stream) {
+  dim3 grid;
+  int th, smem;
+  if (!fwd_geometry(B, C, H, W, md, (int)sizeof(T), &grid, &th, &smem))
+    return (int)cudaErrorInvalidValue;
+  if (th == 16) return forward_th<T, 16>(f1, f2, out, C, H, W, md, s1, s2, grid, stream);
+  return forward_th<T, 1>(f1, f2, out, C, H, W, md, s1, s2, grid, stream);
 }
 
 template <typename T, int MD, bool VEC>
@@ -615,21 +898,6 @@ int launch_bwd_tiled(const void* f1, const void* f2, const void* g, void* df1,
       static_cast<const T*>(f1), static_cast<const T*>(f2),
       static_cast<const T*>(g), static_cast<T*>(df1), static_cast<T*>(df2), B,
       C, H, W, s1, s2, sg, 1.f / (float)C, first, slabs);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int forward(const void* f1, const void* f2, void* out, int64_t B, int64_t C,
-            int64_t H, int64_t W, int md, Strides s1, Strides s2,
-            cudaStream_t stream) {
-  if (md < 1 || md > MAX_MD || !grid_fits(B, H, 1))
-    return (int)cudaErrorInvalidValue;
-  switch (md) {
-    case 1: launch_fwd_tiled<T, 1>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
-    case 2: launch_fwd_tiled<T, 2>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
-    case 3: launch_fwd_tiled<T, 3>(f1, f2, out, B, C, H, W, s1, s2, stream); break;
-    default: launch_fwd_tiled<T, 4>(f1, f2, out, B, C, H, W, s1, s2, stream);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -691,6 +959,24 @@ extern "C" int corr_backward(const void* f1, const void* f2, const void* g,
                                    strides(s1), strides(s2), strides(sg), s);
   return backward<float>(f1, f2, g, df1, df2, B, C, H, W, (int)md, strides(s1),
                          strides(s2), strides(sg), s);
+}
+
+// The launch corr_forward makes for these sizes, in bf16 (1) or f32 (0):
+// out[0..5] = grid x, y, z, threads per block, dynamic shared bytes, tile
+// rows.  Returns cudaErrorInvalidValue (and writes nothing) for what it refuses.
+extern "C" int corr_forward_launch(int64_t B, int64_t C, int64_t H, int64_t W, int64_t md,
+                                   int64_t bf16, int64_t* out) {
+  dim3 grid;
+  int th, smem;
+  if (!fwd_geometry(B, C, H, W, (int)md, bf16 ? 2 : 4, &grid, &th, &smem))
+    return (int)cudaErrorInvalidValue;
+  out[0] = grid.x;
+  out[1] = grid.y;
+  out[2] = grid.z;
+  out[3] = FTHREADS;
+  out[4] = smem;
+  out[5] = th;
+  return 0;
 }
 
 // The launch corr_backward makes for these sizes and `copies` gradients:

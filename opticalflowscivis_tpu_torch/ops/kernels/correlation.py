@@ -18,13 +18,21 @@ The TPU dispatch gate (the Pallas kernel is switched off below a plane size
 there) is tuning for that machine and is not carried over: on the card every
 2-D cost volume goes through the kernel.
 
+``forward_launch`` computes, from the shape alone, the launch that
+``corr_forward`` makes (``fwd_geometry`` in ``csrc/corr.cu``, which
+``corr_forward_launch`` reports): tiles of 16 rows x 32 columns, or of 1 row
+where 16-row tiles would give fewer than 66 blocks (half of an H100's SMs),
+times groups of 3 of
+the ``2 md + 1`` row offsets; 128 threads; dynamic shared memory that depends
+on ``max_disp``, the tile and the element size.
+
 ``backward_launch`` computes, from the shape alone, the launch that
 ``corr_backward`` makes (the same arithmetic as ``bwd_geometry`` in
 ``csrc/corr.cu``, which ``corr_backward_launch`` reports): blocks of 8 x 16
 pixels and 32 channels, 128 threads, and dynamic shared memory that depends
-on ``max_disp`` only.  The wrapper asks it before anything is allocated, so a
-shape beyond CUDA's grid or the shared-memory budget raises ``ValueError``
-and launches nothing.
+on ``max_disp`` only.  The wrappers ask them before anything is allocated,
+so a shape beyond CUDA's grid or the shared-memory budget raises
+``ValueError`` and launches nothing.
 """
 
 from __future__ import annotations
@@ -43,6 +51,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_MAX_DISP = (1, 4)  # csrc/corr.cu instantiates its kernels for these max_disp
 _I64x4 = ctypes.c_int64 * 4
 _I64x5 = ctypes.c_int64 * 5
+_I64x6 = ctypes.c_int64 * 6
+
+# the forward's geometry: the F* constants of csrc/corr.cu
+_FWD_COLS = 32  # tile columns: 8 threads of 4 x
+_FWD_ROWS = (16, 1)  # tile rows: 16, or 1 where 16 would give too few blocks
+_FWD_DY = 3  # row offsets dy per block
+_FWD_THREADS = 128
+_FWD_STAGES = 3  # channel stages in the cp.async ring
+_FWD_WANT_BLOCKS = 132 // 2  # 16-row tiles busy at least half of an H100's SMs
 
 # the backward's geometry: the B* constants of csrc/corr.cu
 _BWD_TILE = (8, 16)  # pixel rows, columns of a block
@@ -51,6 +68,50 @@ _BWD_THREADS = 128
 _SHARED_LIMIT = 232448  # bytes of shared memory one block may hold on Hopper (227 KB)
 _MAX_GRID_X = 2**31 - 1
 _MAX_GRID_YZ = 65535
+
+
+class ForwardLaunch(NamedTuple):
+    grid: tuple[int, int, int]  # x tiles, row tiles, samples * dy groups
+    threads: int
+    shared_bytes: int
+    tile_rows: int  # 16, or 1 (16 channel groups of one row a block)
+
+
+def forward_shared_bytes(max_disp: int, tile_rows: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of one forward block: a ring of 3 stages of
+    channels (4 a stage with 16-row tiles, 32 with 1-row tiles), each channel
+    f1's ``tile_rows x 32`` and the window's ``tile_rows + 2`` rows of
+    ``28 + 4 ceil((4 + 2 md) / 4)`` elements, in the inputs' type; 1-row
+    tiles need at least room for the 16 groups' f32 sums (128 threads x 3 dy
+    x ``(2 md + 1)`` float4)."""
+    nv = -(-(4 + 2 * max_disp) // 4)
+    per_channel = tile_rows * _FWD_COLS + (tile_rows + _FWD_DY - 1) * (_FWD_COLS - 4 + 4 * nv)
+    ring = _FWD_STAGES * (4 if tile_rows == 16 else 32) * per_channel * elem_bytes
+    sums = 0 if tile_rows == 16 else _FWD_THREADS * _FWD_DY * (2 * max_disp + 1) * 16
+    return max(ring, sums)
+
+
+def forward_launch(shape: Sequence[int], max_disp: int, bf16: bool = False) -> ForwardLaunch:
+    """The forward kernel's launch for features ``[B, C, H, W]`` (bfloat16 or
+    float32), from the shape alone.  Raises ``ValueError`` where the grid
+    exceeds CUDA's limits or ``max_disp`` is not one the kernel is built
+    for."""
+    if len(shape) != 4 or min(shape) < 1:
+        raise ValueError(f"expected non-empty features [B, C, H, W], got {tuple(shape)}")
+    lo, hi = _KERNEL_MAX_DISP
+    if not isinstance(max_disp, int) or not lo <= max_disp <= hi:
+        raise ValueError(f"corr kernel is built for max_disp {lo} to {hi}, got {max_disp!r}")
+    b, _, h, w = shape
+    gx, gz = -(-w // _FWD_COLS), b * -(-(2 * max_disp + 1) // _FWD_DY)
+    rows = _FWD_ROWS[0] if gx * -(-h // _FWD_ROWS[0]) * gz >= _FWD_WANT_BLOCKS else _FWD_ROWS[1]
+    grid = (gx, -(-h // rows), gz)
+    if grid[0] > _MAX_GRID_X or max(grid[1:]) > _MAX_GRID_YZ:
+        raise ValueError(
+            f"corr forward grid {grid} for {tuple(shape)} exceeds CUDA's limits "
+            f"({_MAX_GRID_X}, {_MAX_GRID_YZ}, {_MAX_GRID_YZ})"
+        )
+    shared = forward_shared_bytes(max_disp, rows, 2 if bf16 else 4)
+    return ForwardLaunch(grid, _FWD_THREADS, shared, rows)
 
 
 class BackwardLaunch(NamedTuple):
@@ -116,9 +177,23 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_int64, ctypes.c_void_p]
         )
         lib.corr_backward.restype = ctypes.c_int
+        lib.corr_forward_launch.argtypes = [ctypes.c_int64] * 6 + [ints]
+        lib.corr_forward_launch.restype = ctypes.c_int
         lib.corr_backward_launch.argtypes = [ctypes.c_int64] * 6 + [ints]
         lib.corr_backward_launch.restype = ctypes.c_int
     return lib
+
+
+def kernel_forward_launch(
+    shape: Sequence[int], max_disp: int, bf16: bool = False
+) -> ForwardLaunch | None:
+    """The launch that the built ``corr_forward`` makes, as
+    ``corr_forward_launch`` in ``csrc/corr.cu`` reports it, or None where it
+    refuses the shape; for holding ``forward_launch`` against the kernel."""
+    out = _I64x6()
+    if _library().corr_forward_launch(*shape, max_disp, int(bf16), out):
+        return None
+    return ForwardLaunch((out[0], out[1], out[2]), out[3], out[4], out[5])
 
 
 def kernel_backward_launch(
@@ -135,6 +210,7 @@ def kernel_backward_launch(
 
 def _launch(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
     b, c, h, w = f1.shape
+    forward_launch(f1.shape, md, f1.dtype == torch.bfloat16)  # refuses before allocating
     out = torch.empty((b, (2 * md + 1) ** 2, h, w), dtype=f1.dtype, device=f1.device)
     fn = _library().corr_forward
     with torch.cuda.device(f1.device):

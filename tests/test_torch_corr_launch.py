@@ -1,5 +1,14 @@
-"""PyTorch port: the cost-volume backward kernel's launch geometry and its
-tiled algorithm, on the CPU.
+"""PyTorch port: the cost-volume kernels' launch geometry and their tiled
+algorithms, on the CPU.
+
+``ops.kernels.correlation.forward_launch`` decides every launch of
+``corr_forward``: a grid of (x tiles of 32 columns, row tiles of 16 rows, or
+of 1 row where 16-row tiles would give fewer than 66 blocks, samples x
+groups of 3 row offsets), 128 threads, and a ring of 3 channel stages in
+shared memory.  The tests below hold it at UPFlow's five levels, at odd
+shapes and at the limits, and replay the forward block by block in numpy
+(the staged tile and window, the 16 channel groups of a 1-row tile added in
+order) against ``cost_volume_plain``.
 
 ``ops.kernels.correlation.backward_launch`` decides every launch of
 ``corr_backward`` (``csrc/corr.cu``) from the features' shape, ``max_disp``
@@ -22,9 +31,12 @@ import torch
 from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
 from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
 from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+    _launch,
     _launch_backward,
     backward_launch,
     backward_shared_bytes,
+    forward_launch,
+    forward_shared_bytes,
 )
 
 ROWS, COLS, SLAB, THREADS = 8, 16, 32, 128
@@ -231,3 +243,175 @@ def test_replayed_tiles_match_autograd_through_the_plain_version():
             assert (writes[which] == 1).all(), (shape, md, need)
             np.testing.assert_allclose(got[which], ref, rtol=0, atol=1e-12 * np.abs(ref).max(),
                                        err_msg=str((shape, md, need, which)))
+
+
+# -- forward ------------------------------------------------------------------------
+
+FWD_COLS, FWD_DY, FWD_THREADS = 32, 3, 128
+SM_SHARED = 228 * 1024  # shared memory of one SM; each block reserves 1 KB more
+
+
+def _fwd_covers(shape, md, launch):
+    """Every pixel and every row offset is some block's, no block lies wholly
+    past an edge, and the grid is within CUDA's limits."""
+    b, _, h, w = shape
+    gx, gy, gz = launch.grid
+    rows, groups = launch.tile_rows, gz // b
+    return (gx * FWD_COLS >= w > (gx - 1) * FWD_COLS and gy * rows >= h > (gy - 1) * rows
+            and gz == b * groups and groups * FWD_DY >= 2 * md + 1 > (groups - 1) * FWD_DY
+            and launch.threads == FWD_THREADS and gx < 2**31 and gy <= 65535 and gz <= 65535)
+
+
+@pytest.mark.parametrize(
+    "shape, grid, rows",
+    [
+        ((16, 196, 4, 13), (1, 4, 48), 1),  # 16-row tiles would give 48 blocks: 192 of 1 row
+        ((16, 128, 8, 26), (1, 8, 48), 1),
+        ((16, 96, 16, 52), (2, 1, 48), 16),  # 96 blocks of 16 rows
+        ((16, 64, 32, 104), (4, 2, 48), 16),
+        ((16, 32, 64, 208), (7, 4, 48), 16),  # finest level: 1344 blocks
+    ],
+)
+def test_forward_launch_at_upflows_five_levels(shape, grid, rows):
+    for bf16, elem in ((False, 4), (True, 2)):
+        launch = forward_launch(shape, 4, bf16)
+        assert launch.grid == grid and launch.tile_rows == rows and launch.threads == FWD_THREADS
+        assert launch.shared_bytes == forward_shared_bytes(4, rows, elem)
+        assert _fwd_covers(shape, 4, launch)
+        # 16-row tiles busy at least half of the 132 SMs; else one block a row
+        blocks = grid[0] * grid[1] * grid[2]
+        assert blocks >= 66 if rows == 16 else grid[1] == shape[2] and blocks >= 132
+
+
+def test_forward_launch_covers_every_pixel_and_displacement():
+    for shape in ODD_SHAPES + UPFLOW_SHAPES + [(22, 3, 16, 32), (21, 3, 16, 32)]:
+        for md in (1, 2, 3, 4):
+            for bf16 in (False, True):
+                launch = forward_launch(shape, md, bf16)
+                assert _fwd_covers(shape, md, launch), (shape, md, bf16)
+                assert launch.shared_bytes == forward_shared_bytes(
+                    md, launch.tile_rows, 2 if bf16 else 4)
+    # the tile's rows switch at exactly 66 blocks of 16 rows
+    assert forward_launch((22, 3, 16, 32), 4).tile_rows == 16
+    assert forward_launch((21, 3, 16, 32), 4).tile_rows == 1
+
+
+@pytest.mark.parametrize("md", [1, 2, 3, 4])
+def test_forward_shared_memory_stays_within_the_budget(md):
+    """The ring depends on md, the tile and the element size, never on C or
+    the plane: every case fits three blocks an SM (the registers' limit),
+    and a 1-row tile holds its 16 groups' sums."""
+    for rows in (16, 1):
+        for elem in (4, 2):
+            nbytes = forward_shared_bytes(md, rows, elem)
+            assert nbytes <= SHARED_LIMIT and 3 * (nbytes + 1024) <= SM_SHARED, (rows, elem)
+            if rows == 1:
+                assert nbytes >= FWD_THREADS * FWD_DY * (2 * md + 1) * 16
+    assert forward_shared_bytes(4, 16, 4) == 59136 and forward_shared_bytes(4, 16, 2) == 29568
+    for c in MODEL_CHANNELS:
+        assert forward_launch((16, c, 64, 208), md).shared_bytes == forward_shared_bytes(md, 16, 4)
+
+
+@pytest.mark.parametrize(
+    "shape, md",
+    [
+        ((1, 1, 65535 * 16 + 1, 4), 4),  # row tiles of 16 beyond the grid's y limit
+        ((21846, 32, 8, 16), 4),  # 21846 samples x 3 dy groups: z beyond 65535
+        ((65536, 4, 8, 8), 1),
+        ((1, 4, 8, 8), 5),  # not a built max_disp
+        ((1, 4, 8, 8), 0),
+        ((1, 0, 8, 8), 4),
+        ((4, 8, 8), 4),
+    ],
+)
+def test_forward_launch_refuses_what_the_kernel_cannot_take(shape, md):
+    """By shape alone: no tensor of that size is made."""
+    with pytest.raises(ValueError):
+        forward_launch(shape, md)
+
+
+def test_forward_launch_takes_the_largest_grid():
+    assert forward_launch((21845, 32, 8, 16), 4).grid == (1, 1, 65535)
+    assert forward_launch((1, 1, 65535 * 16, 4), 4).grid == (1, 65535, 3)
+    # 1-row tiles only where 16-row tiles give few blocks: far inside the limits
+    assert forward_launch((1, 1, 65535, 4), 4).tile_rows == 16
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 65535 * 16 + 1, 4), (21846, 32, 8, 16)])
+def test_forward_wrapper_refuses_before_allocating_or_launching(shape):
+    """``_launch`` asks ``forward_launch`` first: on meta tensors (no memory,
+    no device) a shape beyond the grid raises ``ValueError`` and counts no
+    launch."""
+    f1 = torch.empty(shape, device="meta")
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="grid"):
+        _launch(f1, f1, 4)
+    assert LAUNCHES == before
+
+
+def _replay_forward(f1, f2, md, rows):
+    """The forward's algorithm, block by block, in float64, with tiles of
+    ``rows`` rows: per block f1's tile and f2's window (zero outside the
+    plane and beyond C) staged a stage of channels at a time, each channel
+    group summing its share of every stage for the block's 3 row offsets,
+    the groups added in order.  Returns the volume and how often each of its
+    elements was written."""
+    b_, c_, h, w = f1.shape
+    nd = 2 * md + 1
+    groups_dy = -(-nd // FWD_DY)
+    k = FWD_THREADS // (FWD_COLS // 4 * rows)  # channel groups
+    cs = 4 if rows == 16 else 32  # channels a stage
+    cpg = cs // k
+    nst = -(-c_ // cs)
+    cpad = nst * cs
+    out = np.zeros((b_, nd * nd, h, w))
+    writes = np.zeros(out.shape, dtype=int)
+    pad = np.zeros((b_, cpad, h + 2 * (rows + nd), w + 2 * (FWD_COLS + md)))
+    oy, ox = rows + nd, FWD_COLS + md  # where the plane starts inside `pad`
+    p1, p2 = pad.copy(), pad.copy()
+    p1[:, :c_, oy:oy + h, ox:ox + w] = f1
+    p2[:, :c_, oy:oy + h, ox:ox + w] = f2
+    for z in range(b_ * groups_dy):
+        b, d0 = z // groups_dy, (z % groups_dy) * FWD_DY
+        for y0 in range(0, h, rows):
+            for x0 in range(0, w, FWD_COLS):
+                tile = p1[b, :, oy + y0:oy + y0 + rows, ox + x0:ox + x0 + FWD_COLS]
+                wy, wx = oy + y0 + d0 - md, ox + x0 - md
+                win = p2[b, :, wy:wy + rows + FWD_DY - 1, wx:wx + FWD_COLS + 2 * md]
+                acc = np.zeros((k, FWD_DY, nd, rows, FWD_COLS))
+                for st in range(nst):
+                    for g in range(k):
+                        for i in range(cpg):
+                            c = st * cs + g * cpg + i
+                            for j in range(FWD_DY):
+                                for dx in range(nd):
+                                    acc[g, j, dx] += tile[c] * win[c, j:j + rows, dx:dx + FWD_COLS]
+                total = acc[0]
+                for g in range(1, k):
+                    total = total + acc[g]
+                nh, nw = min(rows, h - y0), min(FWD_COLS, w - x0)
+                for j in range(FWD_DY):
+                    if d0 + j >= nd:
+                        continue
+                    for dx in range(nd):
+                        ch = (d0 + j) * nd + dx
+                        out[b, ch, y0:y0 + nh, x0:x0 + nw] = total[j, dx, :nh, :nw] / c_
+                        writes[b, ch, y0:y0 + nh, x0:x0 + nw] += 1
+    return out, writes
+
+
+def test_replayed_forward_tiles_match_the_plain_version():
+    """Tiles cut on both axes, channels beyond one stage and not a multiple
+    of it, planes narrower than the window, md 1-4 (row-offset groups cut at
+    md 2 and 3), both tile heights: each element written once, equal to
+    ``cost_volume_plain`` to float64 rounding."""
+    cases = [((2, 7, 11, 13), md, rows) for md in (1, 2, 3, 4) for rows in (16, 1)]
+    cases += [((1, 45, 19, 37), 4, 16), ((1, 45, 3, 37), 3, 1), ((2, 33, 17, 5), 2, 16)]
+    for shape, md, rows in cases:
+        rng = np.random.default_rng(31 * md + shape[1] + rows)
+        f1, f2 = rng.standard_normal(shape), rng.standard_normal(shape)
+        got, writes = _replay_forward(f1, f2, md, rows)
+        want = cost_volume_plain(torch.from_numpy(f1), torch.from_numpy(f2), md).numpy()
+        assert (writes == 1).all(), (shape, md, rows)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max(),
+                                   err_msg=str((shape, md, rows)))

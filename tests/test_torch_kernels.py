@@ -444,6 +444,20 @@ def _corr_inputs(seed, shape, dt, layout):
     return f1.contiguous(memory_format=fmt), f2.contiguous(memory_format=fmt)
 
 
+def _assert_corr_close(out, ref, dt):
+    """f32 within VAL_TOL; bf16 within one ulp at the larger of the two
+    magnitudes (frexp and ldexp are exact) on top of VAL_TOL: the sums
+    cancel, so their float32 error is absolute and near zero exceeds any ulp."""
+    assert out.dtype == dt and out.is_contiguous() and out.shape == ref.shape
+    diff = (out.float() - ref.float()).abs()
+    if dt == torch.float32:
+        assert float(diff.max()) <= VAL_TOL
+    else:
+        mag = torch.maximum(out.float().abs(), ref.float().abs()).clamp_min(2.0**-126)
+        ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+        assert bool((diff <= ulp + VAL_TOL).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["nchw", "nhwc"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -464,17 +478,77 @@ def test_corr_kernel_matches_plain_on_card(md, dtype, layout):
         assert LAUNCHES["corr"] == before["corr"] + 1
         ref = cost_volume_plain(f1, f2, md)
         assert LAUNCHES["corr"] == before["corr"] + 1  # the plain version launches nothing
-        assert out.dtype == dt and out.is_contiguous() and out.shape == ref.shape
-        diff = (out.float() - ref.float()).abs()
-        if dt == torch.float32:
-            assert float(diff.max()) <= VAL_TOL, shape
-        else:
-            # one bf16 ulp at the larger of the two magnitudes (frexp and ldexp
-            # are exact) on top of the float32 tolerance: the sums cancel, so
-            # their float32 error is absolute and near zero exceeds any ulp
-            mag = torch.maximum(out.float().abs(), ref.float().abs()).clamp_min(2.0**-126)
-            ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
-            assert bool((diff <= ulp + VAL_TOL).all()), shape
+        _assert_corr_close(out, ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape", [(16, 196, 4, 13), (16, 128, 8, 26), (16, 96, 16, 52), (16, 64, 32, 104),
+              (16, 32, 64, 208)],
+)
+def test_corr_kernel_at_upflows_five_levels_on_card(shape, dtype, layout):
+    """``corr`` at the shapes UPFlow's cost volumes take at 256 x 832, batch 8
+    (md 4; 1-row tiles at the two coarsest, 16-row tiles and the vector copies
+    of NCHW rows at the others), against the plain version; one launch, and
+    the launch the kernel reports is ``forward_launch``'s."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        cost_volume_kernel,
+        forward_launch,
+        kernel_forward_launch,
+    )
+
+    dt = getattr(torch, dtype)
+    f1, f2 = _corr_inputs(shape[3], shape, dt, layout)
+    before = dict(LAUNCHES)
+    out = cost_volume_kernel(f1, f2, 4)
+    torch.cuda.synchronize()
+    assert LAUNCHES["corr"] == before["corr"] + 1
+    _assert_corr_close(out, cost_volume_plain(f1, f2, 4), dt)
+    bf16 = dt == torch.bfloat16
+    assert kernel_forward_launch(shape, 4, bf16) == forward_launch(shape, 4, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 45, 11, 44), (30, 45, 19, 44)], ids=["rows1", "rows16"])
+def test_corr_kernel_on_rows_of_four_on_card(shape, dtype):
+    """md 4 on contiguous rows of a multiple of 4 (44 = 32 + 12 columns),
+    which ``corr`` copies 4 elements at a time, on the tile's edges (11 or 19
+    rows, 45 channels: not a whole stage), with 1-row and 16-row tiles."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import (
+        cost_volume_kernel,
+        forward_launch,
+    )
+
+    dt = getattr(torch, dtype)
+    assert forward_launch(shape, 4).tile_rows == (1 if shape[0] == 3 else 16)
+    f1, f2 = _corr_inputs(7, shape, dt, "nchw")
+    out = cost_volume_kernel(f1, f2, 4)
+    torch.cuda.synchronize()
+    _assert_corr_close(out, cost_volume_plain(f1, f2, 4), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corr_kernel_repeats_bit_for_bit_on_card(dtype, layout):
+    """Two forward runs on the same inputs agree bit for bit (no atomics;
+    the channel groups of 1-row tiles are added in a fixed order)."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
+
+    dt = getattr(torch, dtype)
+    for shape in ((16, 196, 4, 13), (16, 32, 64, 208)):
+        f1, f2 = _corr_inputs(5, shape, dt, layout)
+        first, second = cost_volume_kernel(f1, f2, 4), cost_volume_kernel(f1, f2, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), shape
 
 
 @pytest.mark.cuda
