@@ -17,14 +17,16 @@ the same weights on the CPU, and times them.
 
 Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time,
-     each kernel's registers and spills (none allowed in ``corr_fwd_kernel`` or
-     ``corr_bwd_kernel``);
+     each kernel's registers and spills (none allowed in ``corr_fwd_kernel``,
+     ``corr_bwd_kernel`` or ``warp3d_bwd_kernel``), and the warps' blocks per SM;
   2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
      case against a stated tolerance; the 2-D warp also at UPFlow's feature
      shapes, in float32 and with a bf16 image under a float32 flow, its fused
      validity mask bit for bit against the warp of ones; the forwards' vector
      and element paths (ragged rows, misaligned and channels-last flows, all
-     type modes) and their grid-stride loops on thin shapes;
+     type modes) and their grid-stride loops on thin shapes; the 3-D backward
+     on the same ragged rows and grid-stride shapes, and twice bit for bit at
+     the model's shape;
   3. 2-D serving path at full width, f32 and bf16, with launch counts, the CPU
      comparison and the series metrics against the linear baseline;
   4. 2-D training path at full width, f32 and bf16: ``fit`` lowers ``loss_G``,
@@ -35,9 +37,11 @@ Phases, printed in order:
      launches per forward (12 with TTA), the CPU comparison, a ``rectangle_3d``
      series against the linear baseline;
   6. 3-D training path: ``fit`` with the 3-D presets, 8 + 8 launches per train
-     step (8 + 0 per eval step), checkpoint round trip, ``remat`` against the
-     plain step, one train step against the CPU, the CLI verbs on
-     ``rectangle3d``, the ``train256`` module at 128^3;
+     step (8 + 0 per eval step), checkpoint round trip, the strides and row
+     paths of what one f32 and one bf16 train step hand the backward
+     (``warp3d layouts``), ``remat`` against the plain step, one train step
+     against the CPU, the CLI verbs on ``rectangle3d``, the ``train256``
+     module at 128^3;
   7. the cost volume kernels against ``cost_volume_plain`` and autograd through
      it, at the five shapes UPFlow gives them and odd ones; the backward also
      on its tile's edges; both on channel slices and twice bit for bit, and
@@ -53,7 +57,8 @@ Phases, printed in order:
   9. times (CUDA events, warm-up, inputs that vary from call to call) and
      profiles of all paths; each forward warp kernel against ``F.grid_sample``
      in turns (the median of 5 profiler windows of 40 calls each), also at
-     UPFlow's finest feature warp;
+     UPFlow's finest feature warp; the 3-D backward on iid and smooth flows,
+     f32 and bf16, at 64^3 and 256^3 (``warp3d_bwd cases``);
  10. one ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
@@ -61,7 +66,8 @@ CUDA device or without the port beside it.
 
 ``--kernel-times ROOT`` runs only the kernels' timings, through the package
 of another checkout at ``ROOT`` (a commit unpacked with ``git archive``): the
-warps' of phase 9, and ``corr`` and ``corr_bwd`` at the finest UPFlow level
+warps' of phase 9 (the 3-D backward also on smooth flows, in bf16 and at
+[1, 1, 256, 256, 256]), and ``corr`` and ``corr_bwd`` at the finest UPFlow level
 in f32 and bf16, both at all five levels in f32, and ``corr`` at the finest
 level on channels-last f32 maps; it ends with one ``corr kernel times {...}``
 and one ``kernel times {...}`` line of their medians.  Two versions of the kernels
@@ -358,6 +364,11 @@ def phase_card(torch):
     # the same 5 per type, each for tiles of 16 rows and of 1 row
     check(len(fwd) == 20 and all(v.get("spill_stores") == 0 for v in fwd.values()),
           f"corr_fwd_kernel's 20 instances should build without spills: {fwd}")
+    # f32 and bf16, with and without dimg, one channel or a channel loop,
+    # border or zeros padding
+    bwd3 = {k: v for k, v in ptxas.items() if k.startswith("warp3d_bwd_kernel")}
+    check(len(bwd3) == 16 and all(v.get("spill_stores") == 0 for v in bwd3.values()),
+          f"warp3d_bwd_kernel's 16 instances should build without spills: {bwd3}")
     return smi
 
 
@@ -382,8 +393,20 @@ def ptxas_report(names: list) -> dict:
                 report.setdefault(kernel, {})["spill_stores"] = int(spills.group(1))
             used = re.search(r"Used (\d+) registers", line)
             if kernel and used:
-                report.setdefault(kernel, {})["registers"] = int(used.group(1))
+                registers = int(used.group(1))
+                report.setdefault(kernel, {})["registers"] = registers
+                if kernel.startswith("warp"):  # no shared memory: registers set the blocks
+                    report[kernel]["blocks_per_sm_256"] = blocks_per_sm(registers, 256)
     return report
+
+
+def blocks_per_sm(registers: int, threads: int) -> int:
+    """Blocks of ``threads`` that fit on one SM by registers alone: 65,536
+    registers, allotted per warp in units of 256 (8 a thread), at most 2048
+    threads and 32 blocks."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = threads // 32
+    return min(65536 // per_warp // warps, 2048 // threads, 32)
 
 
 def phase_kernel_vs_plain(torch):
@@ -1312,6 +1335,85 @@ def phase_warp3d_vs_plain(torch):
                   f"grid={launch_geometry(shape).grid} max_abs_err={err:.3e} tol={F32_TOL:g}")
             check(err <= F32_TOL, f"warp3d's grid-stride loop disagrees with plain ({shape})")
             worst["fwd"] = max(worst["fwd"], err)
+
+    def backward_case(img, flow6, g, radii, padding, img_grad):
+        """Relative error of one backward launch against autograd through
+        the plain version; raises where ``dflow`` is not exactly 0 at and
+        beyond a radius."""
+        before = LAUNCHES["warp3d_bwd"]
+        got = grads(warp3d, img, flow6, g, radii, padding, img_grad)
+        torch.cuda.synchronize()
+        check(LAUNCHES["warp3d_bwd"] == before + 1, "backward launch count")
+        want = grads(warp3d_plain, img, flow6, g, radii, padding, img_grad)
+        errs = []
+        for what, a, ref in zip(("dimg", "dflow"), got, want):
+            if ref is None:
+                check(a is None, "an image gradient nobody asked for")
+                continue
+            check(a.dtype == img.dtype and a.shape == ref.shape, f"{what} type")
+            err = float((a.float() - ref.float()).abs().max())
+            errs.append((err, float(ref.float().abs().max())))
+        fl = flow6[:, 3:].float()
+        for comp, r in ((slice(0, 1), radii[0]), (slice(1, 3), radii[1])):
+            if r:
+                check(bool((got[1][:, comp][fl[:, comp].abs() >= r] == 0).all()),
+                      f"dflow not 0 at and beyond r={r}")
+        return errs
+
+    # the backward's element paths: the same ragged rows, flow and incoming
+    # gradient contiguous or channels-last-3d, with and without dimg; then its
+    # grid-stride loops on the same two shapes
+    for dtype in (torch.float32, torch.bfloat16):
+        rel = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+        ratio = 0.0
+        for shape in ((2, 6, 7, 1, 1), (1, 5, 3, 5, 2), (2, 4, 1, 13, 3), (1, 9, 10, 62, 1)):
+            for cl in (False, True):
+                seed += 1
+                img, flow6, g = warp3d_inputs(torch, shape, dtype, seed, cl, off_integer=True)
+                for padding in ("border", "zeros"):
+                    for radii in RADII_3D:
+                        for img_grad in (False, True):
+                            for err, scale in backward_case(img, flow6, g, radii, padding,
+                                                            img_grad):
+                                check(err <= rel * scale,
+                                      f"warp3d backward disagrees with plain ({shape}, "
+                                      f"ndhwc={cl}, {padding}, {radii}, {dtype}, {img_grad})")
+                                ratio = max(ratio, err / max(scale, 1e-30))
+                                if dtype == torch.float32:
+                                    worst["bwd"] = max(worst["bwd"], err)
+        print(f"warp3d_bwd ragged rows {str(dtype).replace('torch.', '')}: 4 shapes x ncdhw / "
+              f"ndhwc x both paddings x radii {RADII_3D} x dimg or not: worst err/max|ref| "
+              f"{ratio:.3e} tol={rel:g} ok")
+    for shape in ((2, 1, 40000, 2, 3), (1, 1, 1, 65535 * 256 + 1, 1)):
+        b, _, z, y, x = shape
+        img = torch.rand(shape, generator=gen, device="cuda")
+        flow6 = torch.randn((b, 6, z, y, x), generator=gen, device="cuda") * 3
+        g = torch.randn(shape, generator=gen, device="cuda")
+        for padding in ("border", "zeros"):
+            for img_grad in (False, True):
+                errs = backward_case(img, flow6, g, (8, 8), padding, img_grad)
+                print(f"warp3d_bwd grid-stride {list(shape)} {padding:6s} r=(8, 8) float32 "
+                      f"img_grad={int(img_grad)} grid={launch_geometry(shape).grid} "
+                      + " ".join(f"err={e:.3e} (max|ref|={m:.3e})" for e, m in errs)
+                      + f" tol={BWD_F32_TOL:g}*max|ref|")
+                check(all(e <= BWD_F32_TOL * m for e, m in errs),
+                      f"warp3d_bwd's grid-stride loop disagrees with plain ({shape})")
+                worst["bwd"] = max([worst["bwd"]] + [e for e, _ in errs])
+    # dflow is written once per voxel with no atomics: two runs at the model's
+    # shape agree bit for bit, on a contiguous and on a channels-last-3d flow slice
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch3d_backward
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for cl in (False, True):
+            seed += 1
+            img, flow6, g = warp3d_inputs(torch, VOLUME_SHAPE, dtype, seed, cl)
+            runs = [_launch3d_backward(img, flow6[:, 3:], g, *RADII_3D[0], "border", False)[1]
+                    for _ in range(2)]
+            same = torch.equal(runs[0], runs[1])
+            print(f"warp3d_bwd repeat {list(VOLUME_SHAPE)} {str(dtype).replace('torch.', '')} "
+                  f"{'ndhwc' if cl else 'ncdhw'}: two dflow-only runs bit-equal={same}")
+            check(same and bool(runs[0].abs().sum() > 0),
+                  "two dflow-only runs of warp3d_bwd differ")
     return worst
 
 
@@ -1480,7 +1582,47 @@ def phase_training3d(torch, tmp: str):
         trainers[name] = (tr, train)
     print(f"3-D training path: launches={launches}")
     check(all(v > 0 for v in launches.values()), "the 3-D training path missed a kernel")
+    warp3d_layouts(torch, trainers)
     return launches, trainers
+
+
+def warp3d_layouts(torch, trainers) -> dict:
+    """One ``warp3d layouts`` line: the shape, dtype and strides of the flow
+    and the incoming gradient that each backward call of one f32 and one bf16
+    train step hands ``_launch3d_backward``, whether it asks for ``dimg``, and
+    which path the kernel's rows take: "vector" where the tensor is
+    contiguous in x and each row's pair of voxels is aligned, else
+    "element"."""
+    from opticalflowscivis_tpu_torch.ops.kernels import warp as kernels_warp
+
+    original = kernels_warp._launch3d_backward
+    seen = {}
+
+    def rows(t):
+        aligned = t.data_ptr() % (2 * t.element_size()) == 0
+        even = all(st % 2 == 0 for st in t.stride()[:-1]) and t.shape[-1] % 2 == 0
+        return "vector" if t.stride(-1) == 1 and aligned and even else "element"
+
+    def record(img, flow, grad_out, r_z, r_yx, padding, need_dimg):
+        seen[name].append({
+            "shape": list(img.shape), "dtype": str(img.dtype).replace("torch.", ""),
+            "flow_strides": list(flow.stride()), "grad_strides": list(grad_out.stride()),
+            "rows": [rows(flow), rows(grad_out)], "need_dimg": bool(need_dimg),
+            "radii": [r_z, r_yx], "padding": padding})
+        return original(img, flow, grad_out, r_z, r_yx, padding, need_dimg)
+
+    b = VOLUME_SHAPE[0]
+    try:
+        kernels_warp._launch3d_backward = record
+        for name, (tr, train) in trainers.items():
+            seen[name] = []
+            tr.train_step(tr.upload(train[:b]))
+    finally:
+        kernels_warp._launch3d_backward = original
+    torch.cuda.synchronize()
+    print("warp3d layouts " + json.dumps(seen))
+    check(all(len(v) == 8 for v in seen.values()), f"expected 8 backward calls a step: {seen}")
+    return seen
 
 
 def textured_volume_tuples(n_tuples: int, grid, seed: int):
@@ -1728,11 +1870,9 @@ def warp3d_times(torch):
                 return torch.autograd.grad(res, leaves, g, retain_graph=True)
             return run
 
-        # bytes the function must move: image, flow and g read, dflow written, and
-        # with dimg that written too (the design also zero-fills its f32
-        # accumulator and reads it back under the atomics)
-        function_bytes = vox * (4 * c + 12 + 4 * c + 12 + (4 * c if with_dimg else 0))
-        flops = vox * (45 + 24 + 60 * c + (16 * c if with_dimg else 0))
+        # the design also zero-fills its f32 accumulator and reads it back
+        # under the atomics, beyond the function's bytes
+        function_bytes, flops = warp3d_backward_work(VOLUME_SHAPE, 4, with_dimg)
         bytes_ms = function_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
         kernel_only = device_ms(bwd_kernel, 40, only="warp3d_bwd_kernel", launches=1)
@@ -1749,7 +1889,96 @@ def warp3d_times(torch):
             "back_to_back_call_ms": cuda_ms(bwd_kernel, 40),
         }
     print("warp3d_bwd times " + json.dumps(bwd) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+    bwd.update(warp3d_backward_cases(torch))
     return fwd, bwd
+
+
+def warp3d_backward_work(shape, size: int, with_dimg: bool) -> tuple[int, int]:
+    """Bytes and f32 operations of the backward at ``[B, Z, Y, X, C]`` with
+    elements of ``size`` bytes: image, flow and g read once, dflow (and dimg)
+    written once; clips, coordinates and 8 weights, and per channel the 8
+    taps' differences (and the 8 scattered products)."""
+    b, z, y, x, c = shape
+    vox = b * z * y * x
+    function_bytes = vox * size * (c + 3 + c + 3 + (c if with_dimg else 0))
+    flops = vox * (45 + 24 + 60 * c + (16 * c if with_dimg else 0))
+    return function_bytes, flops
+
+
+def warp3d_backward_bound_ms(shape, size: int, with_dimg: bool) -> tuple[float, str]:
+    """The backward's bound: its bytes over the HBM rate against its
+    operations over the f32 rate, whichever is larger, and which it is."""
+    function_bytes, flops = warp3d_backward_work(shape, size, with_dimg)
+    bytes_ms = function_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def warp3d_backward_cases(torch) -> dict:
+    """The 3-D backward where the 3-D training paths run it, each case one
+    launch of ``warp3d_bwd_kernel`` through ``_launch3d_backward`` (border,
+    radii (8, 8)): at [4, 1, 64, 64, 64] on iid and smooth flows (``smooth_flow``,
+    scale 6, as the forward's smooth set), f32 and bf16, ``dflow`` only and
+    with ``dimg`` on smooth flows, and bf16 on the layout the bf16 model hands
+    it (``warp3d layouts``: the flow a slice of a channels-last-3d 6-channel
+    flow, read element by element, the gradient contiguous); at
+    [1, 1, 256, 256, 256] (``train256``) in f32 on smooth and iid flows.
+    Medians of 5 profiler windows of 40 calls over 4 input sets, the cases of
+    one shape in turns, each beside its bound."""
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch3d_backward
+
+    r_z, r_yx = RADII_3D[0]
+
+    def input_sets(shape, dtype, seed, smooth, ndhwc=False):
+        b, z, y, x, _ = shape
+        sets = []
+        for i in range(4):
+            img, flow6, g = warp3d_inputs(torch, shape, dtype, seed + i, False, off_integer=True)
+            if smooth:
+                flow6 = torch.cat([flow6[:, :3], smooth_flow(torch, (b, 3, z, y, x), 6.0,
+                                                             seed + 10 + i).to(dtype)], 1)
+            if ndhwc:
+                flow6 = flow6.contiguous(memory_format=torch.channels_last_3d)
+            sets.append((img, flow6[:, 3:], g))
+        return sets
+
+    big = (1, 256, 256, 256, 1)
+    groups = (
+        (VOLUME_SHAPE, (("iid", torch.float32, False, False),
+                        ("smooth", torch.float32, True, False),
+                        ("smooth_with_dimg", torch.float32, True, True),
+                        ("bf16_iid", torch.bfloat16, False, False),
+                        ("bf16_smooth", torch.bfloat16, True, False),
+                        ("bf16_ndhwc_iid", torch.bfloat16, False, False),
+                        ("bf16_ndhwc_smooth", torch.bfloat16, True, False))),
+        (big, (("256_smooth", torch.float32, True, False),
+               ("256_iid", torch.float32, False, False))),
+    )
+    cases = {}
+    for shape, group in groups:
+        fns, meta = {}, {}
+        for i, (name, dtype, smooth, with_dimg) in enumerate(group):
+            sets = input_sets(shape, dtype, 700 + 20 * i, smooth, "ndhwc" in name)
+
+            def run(k, sets=sets, with_dimg=with_dimg):
+                img, flow, g = sets[k % 4]
+                return _launch3d_backward(img, flow, g, r_z, r_yx, "border", with_dimg)
+
+            fns[name] = run
+            bound, by = warp3d_backward_bound_ms(shape, 2 if dtype == torch.bfloat16 else 4,
+                                                 with_dimg)
+            meta[name] = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                          "flows": "smooth" if smooth else "iid", "dimg": with_dimg,
+                          "flow_strides": list(sets[0][1].stride()),
+                          "bound_ms": bound, "bound_by": by}
+        timed = interleaved_device_ms(fns, only="warp3d_bwd_kernel", launches=1)
+        for name, t in timed.items():
+            cases[name] = {"kernel_ms": t["median_ms"], "windows_ms": t["windows_ms"],
+                           **meta[name], "bound_share": meta[name]["bound_ms"] / t["median_ms"]}
+        del fns
+        torch.cuda.empty_cache()
+    print("warp3d_bwd cases " + json.dumps(cases) + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+    return cases
 
 
 
@@ -2654,6 +2883,9 @@ def main(argv: list) -> int:
         "with_dimg": {k: bwd3["with_dimg"][k] for k in
                       ("kernel_ms", "call_device_ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
+        "cases": {tag: {k: t[k] for k in ("kernel_ms", "bound_ms", "bound_share", "shape",
+                                          "dtype", "flows", "dimg")}
+                  for tag, t in bwd3.items() if "flows" in t},
         "shape": list(VOLUME_SHAPE),
         "card": smi,
     }]

@@ -47,20 +47,33 @@
 // share an SM.  On iid random flows the gathers are the limit: each touches
 // its own cache line, as in F.grid_sample, which the kernel then only ties.
 //
-// Backward design (simple first): one thread per output voxel (b, z, y, x),
-// consecutive threads on consecutive x so reads of g and writes of dflow
-// coalesce; a loop over C; f32 arithmetic, stored in the dtype of image and
-// flow (f32 or bf16).  Forward and backward share `make_taps`, so the backward
-// recomputes exactly the forward's clips, coordinate clamp, corners and
-// weights.  dflow is written once per voxel with no atomics.  dimg is
-// accumulated with f32 atomicAdd into an f32 buffer that the wrapper
-// zero-fills and casts afterwards; the kernel is compiled without that part
-// for calls whose image needs no gradient (every warp of a training step: the
-// model warps input frames).  The flow and g are read through their five
-// strides, so the model's channel slices of a 6-channel flow, and tensors in
-// the channels-last-3d layout cuDNN may hand back, need no copy.  Its offsets
-// are 64-bit; the launch refuses only a voxel count beyond the 1-D grid limit
-// (2^31 - 1 blocks of 256 threads).
+// Backward design.  At 32 B per voxel (f32) the backward, like the forward,
+// is held by per-thread instructions and loads in flight, not by DRAM: on
+// smooth flows it is issue-bound, on iid flows the gathers bind.  It runs on
+// the forward's grid (launch_geometry): a thread holds kV = 2 voxels of one
+// row, planes B * Z and rows are grid-stride loops, the only division is the
+// 32-bit one of the plane index by Z, and the corner offsets are 32-bit with a
+// 64-bit (b, c) base.  Per row a thread reads the three flow channels and each
+// channel of g with `load_row` (one vector load where the row is contiguous in
+// x and aligned, else element by element: the channels-last-3d layout,
+// misaligned slices, ragged rows), gathers the 2 x 8 corners of a channel
+// through the read-only path (16 loads in flight), and writes each dflow
+// component's pair with one vector store where aligned.  Forward and backward
+// share `make_taps`, so the backward recomputes exactly the forward's clips,
+// coordinate clamp, corners and weights.  dflow is written once per voxel with
+// no atomics, so two runs agree bit for bit; a component at or beyond its
+// radius adds nothing and stays exactly 0.  The instances, all driven by the
+// card checks: f32 or bf16; with or without dimg (the model's warps sample
+// input frames, which carry no gradient, so every call of a training step
+// compiles the scatter away); one channel (every volume of the 3-D models: no
+// channel loop, at most 64 registers, 4 blocks of 256 threads an SM) or a
+// channel loop (128); border padding (the model's: no corner masks) or zeros.
+// dimg is accumulated with f32 atomicAdd into an f32 buffer that the wrapper
+// zero-fills and casts afterwards; there a thread's two voxels lie blockDim.x
+// apart, so that the lanes of each atomic add hit consecutive voxels.  The
+// flow and g are read through their five strides, so the model's channel
+// slices of a 6-channel flow, and tensors in the channels-last-3d layout cuDNN
+// may hand back, need no copy.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError() after
 // the launch.
@@ -69,11 +82,7 @@
 
 namespace {
 
-constexpr int kV = 2;  // consecutive output voxels of one row per forward thread
-
-struct Dims {
-  int64_t B, C, Z, Y, X;
-};
+constexpr int kV = 2;  // output voxels of one row per thread
 
 // Five element strides of a [B, C, Z, Y, X] view.
 struct Strides {
@@ -84,27 +93,26 @@ struct Strides {
 // corner order of the plain version): trilinear fractions, per-corner validity
 // (always 1 in border mode), clamped offsets into one image volume, and whether
 // each flow component passes a gradient through its clip.  The offsets are
-// 64-bit: with 32-bit ones the backward, which holds them across its channel
-// loop, took more registers and ran slower on the H100; the forward narrows
-// them to 32 bits (the wrappers refuse volumes of 2^31 voxels or more).
+// 32-bit: the wrappers refuse volumes of 2^31 voxels or more.
 struct Taps {
   float az, ay, ax;
   float m[8];
-  int64_t o[8];
+  int o[8];
   bool live_z, live_y, live_x;
 };
 
 // One axis: clip the displacement to +-r (r = 0: none), clamp the coordinate to
-// one voxel outside the volume, split it into floor and fraction.  Coordinates
-// further outside sample the same values (border) or nothing (zeros) wherever
-// they lie; the clamp keeps the integer conversion in range for unbounded flows.
-__device__ __forceinline__ void axis_taps(float d, int i, int n, float r, int zeros,
+// one voxel outside the volume (hi = n + 1), split it into floor and fraction.
+// Coordinates further outside sample the same values (border) or nothing
+// (zeros) wherever they lie; the clamp keeps the integer conversion in range
+// for unbounded flows.
+__device__ __forceinline__ void axis_taps(float d, int i, int n, float hi, float r, int zeros,
                                           float* frac, int* c0, int* c1, float* v0, float* v1,
                                           bool* live) {
   // strict <: a flow exactly on +-r is clamped and carries no gradient
   *live = !(r > 0.f) || fabsf(d) < r;
   if (r > 0.f) d = fminf(fmaxf(d, -r), r);
-  const float s = fminf(fmaxf((float)i + d, -2.f), (float)n + 1.f);
+  const float s = fminf(fmaxf((float)i + d, -2.f), hi);
   const float f = floorf(s);
   *frac = s - f;
   const int i0 = (int)f, i1 = i0 + 1;
@@ -114,22 +122,34 @@ __device__ __forceinline__ void axis_taps(float d, int i, int n, float r, int ze
   *c1 = min(max(i1, 0), n - 1);
 }
 
+// The clamp limits (Z + 1, Y + 1, X + 1) as floats.
+struct Limits {
+  float z, y, x;
+};
+
 __device__ __forceinline__ Taps make_taps(float dz, float dy, float dx, int z, int y,
                                           int x, int Z, int Y, int X, float r_z, float r_yx,
-                                          int zeros) {
+                                          int zeros, Limits hi) {
   Taps t;
   int cz[2], cy[2], cx[2];
   float vz[2], vy[2], vx[2];
-  axis_taps(dz, z, Z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1], &t.live_z);
-  axis_taps(dy, y, Y, r_yx, zeros, &t.ay, &cy[0], &cy[1], &vy[0], &vy[1], &t.live_y);
-  axis_taps(dx, x, X, r_yx, zeros, &t.ax, &cx[0], &cx[1], &vx[0], &vx[1], &t.live_x);
+  axis_taps(dz, z, Z, hi.z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1], &t.live_z);
+  axis_taps(dy, y, Y, hi.y, r_yx, zeros, &t.ay, &cy[0], &cy[1], &vy[0], &vy[1], &t.live_y);
+  axis_taps(dx, x, X, hi.x, r_yx, zeros, &t.ax, &cx[0], &cx[1], &vx[0], &vx[1], &t.live_x);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int hz = k >> 2, hy = (k >> 1) & 1, hx = k & 1;
     t.m[k] = vz[hz] * vy[hy] * vx[hx];
-    t.o[k] = ((int64_t)cz[hz] * Y + cy[hy]) * X + cx[hx];
+    t.o[k] = (cz[hz] * Y + cy[hy]) * X + cx[hx];
   }
   return t;
+}
+
+__device__ __forceinline__ Taps make_taps(float dz, float dy, float dx, int z, int y,
+                                          int x, int Z, int Y, int X, float r_z, float r_yx,
+                                          int zeros) {
+  return make_taps(dz, dy, dx, z, y, x, Z, Y, X, r_z, r_yx, zeros,
+                   {(float)Z + 1.f, (float)Y + 1.f, (float)X + 1.f});
 }
 
 // w[k] = ((wz * wy) * wx) * m[k], the weight product of the plain version.
@@ -141,19 +161,6 @@ __device__ __forceinline__ void corner_weights(const Taps& t, float* w) {
     const float wx = (k & 1) ? t.ax : 1.f - t.ax;
     w[k] = wz * wy * wx * t.m[k];
   }
-}
-
-// Voxel (b, z, y, x) of thread i; false past the end.
-__device__ __forceinline__ bool voxel_of(int64_t i, const Dims& d, int64_t* b,
-                                         int64_t* z, int64_t* y, int64_t* x) {
-  if (i >= d.B * d.Z * d.Y * d.X) return false;
-  *x = i % d.X;
-  int64_t t = i / d.X;
-  *y = t % d.Y;
-  t /= d.Y;
-  *z = t % d.Z;
-  *b = t / d.Z;
-  return true;
 }
 
 template <typename T>
@@ -183,7 +190,7 @@ warp3d_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restri
                                  r_yx, zeros);
         corner_weights(k, w[j]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) o[j][i] = (int)k.o[i];
+        for (int i = 0; i < 8; ++i) o[j][i] = k.o[i];
       }
       const int64_t base = (int64_t)b * C * vol;
       const int at = ((int)z * Y + (int)y) * X + x0;
@@ -203,89 +210,157 @@ warp3d_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restri
   }
 }
 
-// NEED_DIMG = false compiles the image-gradient scatter away: the model's
-// warps sample input frames, which carry no gradient.
-template <typename T, bool NEED_DIMG>
-__global__ void warp3d_bwd_kernel(const T* __restrict__ img,
-                                  const T* __restrict__ flow,
-                                  const T* __restrict__ g, T* __restrict__ dflow,
-                                  float* __restrict__ dimg, Dims d, Strides fs,
-                                  Strides gs, float r_z, float r_yx, int zeros) {
-  int64_t b, z, y, x;
-  if (!voxel_of((int64_t)blockIdx.x * blockDim.x + threadIdx.x, d, &b, &z, &y, &x))
+// V values to p, p + step, ..., the first n of them: one vector store where
+// the voxels are consecutive and aligned (store_row), else one by one.
+template <int V, typename T>
+__device__ __forceinline__ void store_voxels(T* p, int step, const float* v, int n) {
+  if (step == 1) {
+    store_row<V>(p, v, n);
     return;
-  const T* f = flow + b * fs.b + z * fs.z + y * fs.y + x * fs.x;
-  const Taps k = make_taps(load_f32(f), load_f32(f + fs.c), load_f32(f + 2 * fs.c), (int)z,
-                           (int)y, (int)x, (int)d.Z, (int)d.Y, (int)d.X, r_z, r_yx, zeros);
-  float w[8];
-  if (NEED_DIMG) corner_weights(k, w);
-  const float az = k.az, ay = k.ay, ax = k.ax;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (j < n) store(p + j * step, v[j]);
+}
 
-  const int64_t vol = d.Z * d.Y * d.X;
-  const T* src = img + b * d.C * vol;
-  const T* gp = g + b * gs.b + z * gs.z + y * gs.y + x * gs.x;
-  float* dst = NEED_DIMG ? dimg + b * d.C * vol : nullptr;
-  float gz = 0.f, gy = 0.f, gx = 0.f;
-  for (int64_t c = 0; c < d.C; ++c) {
-    const T* p = src + c * vol;
-    const float gc = load_f32(gp + c * gs.c);
-    float v[8];  // v[4*hz + 2*hy + hx], dropped corners as 0
+// NEED_DIMG = false compiles the image-gradient scatter away.  Without it a
+// thread's two voxels are consecutive in x, so that its flow, g and dflow
+// pairs move as vectors; with it they lie blockDim.x apart, so that the lanes
+// of each atomic add hit consecutive voxels (consecutive pairs spread each
+// atomic over twice the sectors and, on smooth flows, ran slower than one
+// voxel a thread).  ONE_CHANNEL: C = 1, no channel loop.  ZEROS: the padding;
+// border computes no corner masks.  A one-channel kernel without dimg keeps
+// to 64 registers, 4 blocks of 256 threads an SM: on iid flows the gathers in
+// flight per SM set the time, on smooth flows the issue rate.
+template <typename T, bool NEED_DIMG, bool ONE_CHANNEL, bool ZEROS>
+__global__ void __launch_bounds__(256, ONE_CHANNEL && !NEED_DIMG ? 4 : 2)
+warp3d_bwd_kernel(const T* __restrict__ img, const T* __restrict__ flow,
+                  const T* __restrict__ g, T* __restrict__ dflow, float* __restrict__ dimg,
+                  int B, int C, int Z, int Y, int X, Strides fs, Strides gs, float r_z,
+                  float r_yx, Limits hi) {
+  static_assert(kV == 2, "n below counts the voxels of a pair");
+  // x of a thread's first voxel, and the step to its second
+  const int step = NEED_DIMG ? (int)blockDim.x : 1;
+  const int first_x = NEED_DIMG ? (int)(blockIdx.x * blockDim.x * kV + threadIdx.x)
+                                : (int)(blockIdx.x * blockDim.x + threadIdx.x) * kV;
+  if (first_x >= X) return;
+  const int vol = Z * Y * X;
+  // unsigned: a stride past the last row or plane stays below 2^32 (B * Z < 2^31)
+  for (unsigned p = blockIdx.z; p < (unsigned)B * Z; p += gridDim.z) {
+    const unsigned b = p / Z, z = p - b * Z;
+    for (unsigned y = blockIdx.y * blockDim.y + threadIdx.y; y < (unsigned)Y;
+         y += gridDim.y * blockDim.y) {
+      // what derives from x0 is computed per row: held across the row and
+      // plane loops (which a thread walks once unless the grid is cut at
+      // 65535), it took registers that the 64-register kernels spilled
+      int x0 = first_x;
+      asm volatile("" : "+r"(x0));
+      const int n = x0 + step < X ? 2 : 1;
+      const T* f = flow + (int64_t)b * fs.b + (int64_t)z * fs.z + (int64_t)y * fs.y + x0 * fs.x;
+      float dz[kV], dy[kV], dx[kV];
+      load_row<kV>(f, fs.x * step, n, dz);
+      load_row<kV>(f + fs.c, fs.x * step, n, dy);
+      load_row<kV>(f + 2 * fs.c, fs.x * step, n, dx);
+      const int64_t base = (int64_t)b * C * vol;
+      const T* gp = g + (int64_t)b * gs.b + (int64_t)z * gs.z + (int64_t)y * gs.y + x0 * gs.x;
+      float gz[kV], gy[kV], gx[kV];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = k.m[j] * load_f32(p + k.o[j]);
-    // d out / d (coordinate) = the difference across that axis, interpolated
-    // along the other two
-    gz += gc * ((1.f - ay) * ((1.f - ax) * (v[4] - v[0]) + ax * (v[5] - v[1])) +
-                ay * ((1.f - ax) * (v[6] - v[2]) + ax * (v[7] - v[3])));
-    gy += gc * ((1.f - az) * ((1.f - ax) * (v[2] - v[0]) + ax * (v[3] - v[1])) +
-                az * ((1.f - ax) * (v[6] - v[4]) + ax * (v[7] - v[5])));
-    gx += gc * ((1.f - az) * ((1.f - ay) * (v[1] - v[0]) + ay * (v[3] - v[2])) +
-                az * ((1.f - ay) * (v[5] - v[4]) + ay * (v[7] - v[6])));
-    if (NEED_DIMG) {
-      float* dd = dst + c * vol;
+      for (int j = 0; j < kV; ++j) gz[j] = gy[j] = gx[j] = 0.f;
+      const int channels = ONE_CHANNEL ? 1 : C;
+#pragma unroll 1
+      for (int c = 0; c < channels; ++c) {
+        if (!ONE_CHANNEL) {
+          // the taps are recomputed per channel: hoisted out of the loop, the
+          // 2 x 8 offsets and weights would be held across it and spill
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (w[j] != 0.f) atomicAdd(dd + k.o[j], w[j] * gc);
+          for (int j = 0; j < kV; ++j) asm volatile("" : "+f"(dz[j]), "+f"(dy[j]), "+f"(dx[j]));
+        }
+        float gc[kV];
+        load_row<kV>(gp + c * gs.c, gs.x * step, n, gc);
+        const T* src = img + base + (int64_t)c * vol;
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          const Taps k = make_taps(dz[j], dy[j], dx[j], (int)z, (int)y, x0 + j * step, Z, Y, X,
+                                   r_z, r_yx, ZEROS, hi);
+          const float az = k.az, ay = k.ay, ax = k.ax;
+          float v[8];  // v[4*hz + 2*hy + hx], dropped corners as 0
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            v[i] = !ZEROS || k.m[i] != 0.f ? ldg(src + k.o[i]) : 0.f;
+          // d out / d (coordinate) = the difference across that axis,
+          // interpolated along the other two; a component at or beyond its
+          // radius adds nothing, so its dflow stays exactly 0
+          if (k.live_z)
+            gz[j] += gc[j] * ((1.f - ay) * ((1.f - ax) * (v[4] - v[0]) + ax * (v[5] - v[1])) +
+                              ay * ((1.f - ax) * (v[6] - v[2]) + ax * (v[7] - v[3])));
+          if (k.live_y)
+            gy[j] += gc[j] * ((1.f - az) * ((1.f - ax) * (v[2] - v[0]) + ax * (v[3] - v[1])) +
+                              az * ((1.f - ax) * (v[6] - v[4]) + ax * (v[7] - v[5])));
+          if (k.live_x)
+            gx[j] += gc[j] * ((1.f - az) * ((1.f - ay) * (v[1] - v[0]) + ay * (v[3] - v[2])) +
+                              az * ((1.f - ay) * (v[5] - v[4]) + ay * (v[7] - v[6])));
+          if (NEED_DIMG && j < n) {
+            float w[8];
+            corner_weights(k, w);
+            float* dd = dimg + base + (int64_t)c * vol;
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              if (w[i] != 0.f) atomicAdd(dd + k.o[i], w[i] * gc[j]);
+          }
+        }
+      }
+      T* df = dflow + (int64_t)b * 3 * vol + ((int)z * Y + (int)y) * X + x0;
+      store_voxels<kV>(df, step, gz, n);
+      store_voxels<kV>(df + vol, step, gy, n);
+      store_voxels<kV>(df + 2 * vol, step, gx, n);
     }
   }
-  T* df = dflow + b * 3 * vol + (z * d.Y + y) * d.X + x;
-  store(df, k.live_z ? gz : 0.f);
-  store(df + vol, k.live_y ? gy : 0.f);
-  store(df + 2 * vol, k.live_x ? gx : 0.f);
-}
-
-const int kThreads = 256;
-
-// Blocks for one thread per voxel, or 0 when that exceeds the 1-D grid limit.
-unsigned blocks_for(const Dims& d) {
-  const int64_t n = d.B * d.Z * d.Y * d.X;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return blocks > 0x7fffffffLL ? 0u : (unsigned)blocks;
 }
 
 template <typename T>
-void launch(const void* img, const void* flow, void* out, const Dims& d, const Strides& fs,
+void launch(const void* img, const void* flow, void* out, const int64_t* d, const Strides& fs,
             float r_z, float r_yx, int zeros, dim3 grid, dim3 block, cudaStream_t stream) {
   warp3d_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(img), static_cast<const T*>(flow), static_cast<T*>(out), (int)d.B,
-      (int)d.C, (int)d.Z, (int)d.Y, (int)d.X, fs, r_z, r_yx, zeros);
+      static_cast<const T*>(img), static_cast<const T*>(flow), static_cast<T*>(out), (int)d[0],
+      (int)d[1], (int)d[2], (int)d[3], (int)d[4], fs, r_z, r_yx, zeros);
+}
+
+template <typename T, bool NEED_DIMG, bool ONE_CHANNEL>
+void launch_bwd_padding(const T* img, const T* flow, const T* g, T* dflow, float* dimg,
+                        const int64_t* d, const Strides& fs, const Strides& gs, float r_z,
+                        float r_yx, int zeros, dim3 grid, dim3 block, cudaStream_t stream) {
+  const int B = (int)d[0], C = (int)d[1], Z = (int)d[2], Y = (int)d[3], X = (int)d[4];
+  const Limits hi = {(float)Z + 1.f, (float)Y + 1.f, (float)X + 1.f};
+  if (zeros)
+    warp3d_bwd_kernel<T, NEED_DIMG, ONE_CHANNEL, true><<<grid, block, 0, stream>>>(
+        img, flow, g, dflow, dimg, B, C, Z, Y, X, fs, gs, r_z, r_yx, hi);
+  else
+    warp3d_bwd_kernel<T, NEED_DIMG, ONE_CHANNEL, false><<<grid, block, 0, stream>>>(
+        img, flow, g, dflow, dimg, B, C, Z, Y, X, fs, gs, r_z, r_yx, hi);
 }
 
 template <typename T>
-void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
-                void* dimg, const Dims& d, const Strides& fs, const Strides& gs,
-                float r_z, float r_yx, int zeros, cudaStream_t stream) {
-  const unsigned blocks = blocks_for(d);
+void launch_bwd(const void* img, const void* flow, const void* g, void* dflow, void* dimg,
+                const int64_t* d, const Strides& fs, const Strides& gs, float r_z, float r_yx,
+                int zeros, dim3 grid, dim3 block, cudaStream_t s) {
   const T* i = static_cast<const T*>(img);
   const T* f = static_cast<const T*>(flow);
   const T* gg = static_cast<const T*>(g);
   T* df = static_cast<T*>(dflow);
   float* di = static_cast<float*>(dimg);
-  if (dimg)
-    warp3d_bwd_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros);
+  const bool one = d[1] == 1;
+  if (dimg && one)
+    launch_bwd_padding<T, true, true>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid, block,
+                                      s);
+  else if (dimg)
+    launch_bwd_padding<T, true, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid, block,
+                                       s);
+  else if (one)
+    launch_bwd_padding<T, false, true>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid, block,
+                                       s);
   else
-    warp3d_bwd_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros);
+    launch_bwd_padding<T, false, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid,
+                                        block, s);
 }
 
 }  // namespace
@@ -305,14 +380,13 @@ extern "C" int warp3d_forward(const void* img, const void* flow, void* out,
                               int64_t tx, int64_t ty, void* stream) {
   if (gx * tx * kV < dims[4]) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dims d = {dims[0], dims[1], dims[2], dims[3], dims[4]};
   const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
   const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
   const int z = zeros ? 1 : 0;
   if (bf16)
-    launch<__nv_bfloat16>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, grid, block, s);
+    launch<__nv_bfloat16>(img, flow, out, dims, f, (float)r_z, (float)r_yx, z, grid, block, s);
   else
-    launch<float>(img, flow, out, d, f, (float)r_z, (float)r_yx, z, grid, block, s);
+    launch<float>(img, flow, out, dims, f, (float)r_z, (float)r_yx, z, grid, block, s);
   return (int)cudaGetLastError();
 }
 
@@ -320,23 +394,26 @@ extern "C" int warp3d_forward(const void* img, const void* flow, void* out,
 // with the element strides fs[5] and gs[5]; dflow [B, 3, Z, Y, X] contiguous,
 // every element written.  img, flow, g and dflow are bf16 (bf16 = 1) or f32
 // (0).  dimg is null (no image gradient wanted) or a zero-filled contiguous f32
-// [B, C, Z, Y, X] buffer that the kernel adds into.
+// [B, C, Z, Y, X] buffer that the kernel adds into.  dims, the limits and the
+// launch geometry are the forward's: the same launch_geometry, refused unless
+// gx * tx * 2 >= X.
 extern "C" int warp3d_backward(const void* img, const void* flow, const void* g,
                                void* dflow, void* dimg, const int64_t* dims,
                                const int64_t* fs, const int64_t* gs, int64_t r_z,
-                               int64_t r_yx, int64_t zeros, int64_t bf16,
+                               int64_t r_yx, int64_t zeros, int64_t bf16, int64_t gx,
+                               int64_t gy, int64_t gz, int64_t tx, int64_t ty,
                                void* stream) {
+  if (gx * tx * kV < dims[4]) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dims d = {dims[0], dims[1], dims[2], dims[3], dims[4]};
   const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
   const Strides gg = {gs[0], gs[1], gs[2], gs[3], gs[4]};
-  if (blocks_for(d) == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
   const int z = zeros ? 1 : 0;
   if (bf16)
-    launch_bwd<__nv_bfloat16>(img, flow, g, dflow, dimg, d, f, gg, (float)r_z,
-                              (float)r_yx, z, s);
+    launch_bwd<__nv_bfloat16>(img, flow, g, dflow, dimg, dims, f, gg, (float)r_z, (float)r_yx, z,
+                              grid, block, s);
   else
-    launch_bwd<float>(img, flow, g, dflow, dimg, d, f, gg, (float)r_z,
-                      (float)r_yx, z, s);
+    launch_bwd<float>(img, flow, g, dflow, dimg, dims, f, gg, (float)r_z, (float)r_yx, z, grid,
+                      block, s);
   return (int)cudaGetLastError();
 }

@@ -21,12 +21,12 @@ component and ``r_yx`` for the in-plane ones), and a flow component with
 ``|flow| >= r`` carries no gradient: the clip's adjoint is zero at the
 boundary too, as in the TPU kernel (``ops/pallas/warp.py:323``).
 
-The forward kernels run on a grid of (x tiles, row tiles, planes) that
-``launch_geometry`` computes from the image's shape alone, each thread on 4
-(2-D) or 2 (3-D) consecutive x of one row; their offsets inside one plane
-(2-D) or volume (3-D) are 32-bit, and so are the 2-D backward's, so a plane of
-2^31 elements or more, or a volume of 2^31 voxels or more, is refused with a
-``ValueError`` before anything is allocated.
+The forward kernels and the 3-D backward run on a grid of (x tiles, row
+tiles, planes) that ``launch_geometry`` computes from the image's shape alone,
+each thread on 4 (2-D) or 2 (3-D) consecutive x of one row; their offsets
+inside one plane (2-D) or volume (3-D) are 32-bit, and so are the 2-D
+backward's, so a plane of 2^31 elements or more, or a volume of 2^31 voxels or
+more, is refused with a ``ValueError`` before anything is allocated.
 ``warp2d_with_mask`` gets UPFlow's validity mask from the same launch as the
 warp.
 
@@ -57,13 +57,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 _MAX_INDEX = 2**31  # 32-bit offsets inside one plane or volume, 32-bit plane counts
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
-_THREADS = 256  # per block: __launch_bounds__ of the forward kernels
-# consecutive x of one row per forward thread: kV of csrc/warp2d.cu and csrc/warp3d.cu
+_THREADS = 256  # per block: __launch_bounds__ of the forward kernels and the 3-D backward
+# consecutive x of one row per thread: kV of csrc/warp2d.cu and csrc/warp3d.cu
 _PER_THREAD = {4: 4, 5: 2}
 
 
 class Launch(NamedTuple):
-    """Grid ``(gx, gy, gz)`` and block ``(tx, ty)`` of one forward launch,
+    """Grid ``(gx, gy, gz)`` and block ``(tx, ty)`` of one warp launch,
     each thread on ``per_thread`` consecutive x of one row.
 
     ``strided``: the rows or the planes exceed the grid, and the kernel's
@@ -90,7 +90,7 @@ def _check_extent(shape: Sequence[int]) -> None:
 def launch_geometry(shape: Sequence[int]) -> Launch:
     """The forward warp's launch over an image ``[B, C, H, W]`` (rows H,
     planes B) or ``[B, C, Z, Y, X]`` (rows Y, planes B * Z), from its shape
-    alone.
+    alone; the 3-D backward launches on the same grid.
 
     A thread takes 4 consecutive x of a 2-D image, whatever its channels,
     and 2 of a volume.  A block holds ``tx`` threads along a row, enough to
@@ -314,7 +314,7 @@ def _library3d() -> ctypes.CDLL:
         )
         lib.warp3d_forward.restype = ctypes.c_int
         lib.warp3d_backward.argtypes = (
-            [ctypes.c_void_p] * 5 + [ints] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ints] * 3 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
         )
         lib.warp3d_backward.restype = ctypes.c_int
     return lib
@@ -343,8 +343,10 @@ def _launch3d_backward(
     img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, r_z: int, r_yx: int,
     padding: str, need_dimg: bool,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
-    """One launch of the 3-D backward kernel: ``(dimg or None, dflow)``."""
+    """One launch of the 3-D backward kernel, on the forward's grid:
+    ``(dimg or None, dflow)``."""
     _check_grad(img, grad_out, "warp3d")
+    geometry = launch_geometry(img.shape)  # refuses 2^31 voxels before allocating
     dflow = torch.empty((img.shape[0], 3) + tuple(img.shape[2:]), dtype=flow.dtype,
                         device=flow.device)
     acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_dimg else None
@@ -355,7 +357,8 @@ def _launch3d_backward(
             img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), dflow.data_ptr(),
             acc.data_ptr() if need_dimg else None,
             _I64x5(*img.shape), _I64x5(*flow.stride()), _I64x5(*grad_out.stride()),
-            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16), stream,
+            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16),
+            *geometry.grid, *geometry.block, stream,
         )
     if err:
         raise RuntimeError(f"warp3d backward kernel launch failed with CUDA error {err}")

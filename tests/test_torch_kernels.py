@@ -862,6 +862,119 @@ def test_warp_kernels_grid_stride_loops_on_card(dtype):
             assert _check_forward(out, tw.warp3d_plain(img, flow, 8, 8, padding), dt), shape
 
 
+def _warp3d_grads(fn, img, flow6, g, radii, padding, img_grad):
+    """``(dimg or None, dflow)`` of ``fn`` on the last three channels of
+    ``flow6``, kept in its layout."""
+    leaf = flow6.detach().clone(memory_format=torch.preserve_format).requires_grad_(True)
+    im = img.detach().clone().requires_grad_(img_grad)
+    fn(im, leaf[:, 3:], *radii, padding).backward(g)
+    return im.grad, leaf.grad[:, 3:]
+
+
+def _check_warp3d_backward(img, flow6, g, radii, padding, img_grad):
+    """One launch of the backward kernel against autograd through the plain
+    version, at the tolerances above; ``dflow`` exactly 0 at and beyond each
+    radius."""
+    dt = img.dtype
+    before = dict(LAUNCHES)
+    dimg, dflow = _warp3d_grads(warp3d, img, flow6, g, radii, padding, img_grad)
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1
+    dimg_ref, dflow_ref = _warp3d_grads(tw.warp3d_plain, img, flow6, g, radii, padding, img_grad)
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    pairs = [(dflow, dflow_ref)] + ([(dimg, dimg_ref)] if img_grad else [])
+    assert img_grad or dimg is None
+    for got, want in pairs:
+        assert got.dtype == dt and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= rel * scale
+    flow = flow6[:, 3:].float()
+    for component, r in ((slice(0, 1), radii[0]), (slice(1, 3), radii[1])):
+        if r:
+            clamped = flow[:, component].abs() >= r
+            assert bool((dflow[:, component][clamped] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img_grad", [False, True], ids=["no_dimg", "dimg"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp3d_backward_at_the_models_shape_on_card(dtype, img_grad):
+    """[4, 1, 64, 64, 64] with radii (8, 8), border padding, the flow the
+    last three channels of a 6-channel flow, as the model passes it."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    img, flow6 = _inputs3d(70, (4, 1, 64, 64, 64), 6.0, off_integer=True)
+    g = torch.from_numpy(np.random.default_rng(71).standard_normal(img.shape).astype(np.float32))
+    img, flow6, g = (t.cuda().to(dt) for t in (img, flow6, g))
+    assert bool((flow6[:, 3:].float().abs() >= 8).any())
+    _check_warp3d_backward(img, flow6, g, (8, 8), "border", img_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last_3d"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+def test_warp3d_backward_ragged_x_on_card(padding, dtype, layout):
+    """The backward's element paths: ragged rows (X = 1, 5, 13, 62) and a
+    single row, flow and incoming gradient contiguous or channels-last-3d,
+    radii (8, 8), (4, 0) and (0, 0), with and without ``dimg``."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    fmt = torch.channels_last_3d if layout == "channels_last_3d" else torch.contiguous_format
+    for i, shape in enumerate([(2, 1, 6, 7, 1), (1, 2, 5, 3, 5), (2, 3, 4, 1, 13),
+                               (1, 1, 9, 10, 62)]):
+        img, flow6 = _inputs3d(80 + i, shape, 6.0, off_integer=True)
+        g = np.random.default_rng(90 + i).standard_normal(shape).astype(np.float32)
+        img = img.cuda().to(dt)
+        flow6 = flow6.cuda().to(dt).contiguous(memory_format=fmt)
+        g = torch.from_numpy(g).cuda().to(dt).contiguous(memory_format=fmt)
+        for radii in RADII:
+            for img_grad in (False, True):
+                _check_warp3d_backward(img, flow6, g, radii, padding, img_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp3d_backward_grid_stride_loops_on_card(dtype):
+    """Planes (B * Z) and rows beyond the grid's 65535 limit, so that the
+    backward's grid-stride loops carry the rest."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import launch_geometry
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for shape in ((2, 1, 40000, 2, 3), (1, 1, 1, 65535 * 256 + 1, 1)):
+        assert launch_geometry(shape).strided
+        b, _, z, y, x = shape
+        img = torch.rand(shape, generator=gen, device="cuda").to(dt)
+        flow6 = (torch.randn((b, 6, z, y, x), generator=gen, device="cuda") * 3).to(dt)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        for padding in ("border", "zeros"):
+            for img_grad in (False, True):
+                _check_warp3d_backward(img, flow6, g, (8, 8), padding, img_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last_3d"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp3d_backward_repeats_bit_for_bit_on_card(dtype, layout):
+    """``dflow`` is written once per voxel with no atomics: two runs of the
+    model's shape agree bit for bit."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch3d_backward
+
+    dt = getattr(torch, dtype)
+    fmt = torch.channels_last_3d if layout == "channels_last_3d" else torch.contiguous_format
+    img, flow6 = _inputs3d(72, (4, 1, 64, 64, 64), 6.0)
+    g = torch.from_numpy(np.random.default_rng(73).standard_normal(img.shape).astype(np.float32))
+    img = img.cuda().to(dt)
+    flow = flow6.cuda().to(dt).contiguous(memory_format=fmt)[:, 3:]
+    g = g.cuda().to(dt).contiguous(memory_format=fmt)
+    first = _launch3d_backward(img, flow, g, 8, 8, "border", False)[1]
+    second = _launch3d_backward(img, flow, g, 8, 8, "border", False)[1]
+    assert torch.equal(first, second) and bool(first.abs().sum() > 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bfloat16", [False, True], ids=["f32", "bf16"])
 def test_upflow_train_step_on_card_goes_through_the_kernels(bfloat16, tmp_path):

@@ -1,8 +1,9 @@
-"""PyTorch port: the forward warp kernels' launch geometry and the validity
-mask, on the CPU.
+"""PyTorch port: the warp kernels' launch geometry and the validity mask, on
+the CPU.
 
 ``ops.kernels.warp.launch_geometry`` decides every forward launch of
-``csrc/warp2d.cu`` and ``csrc/warp3d.cu`` from the image's shape alone: a
+``csrc/warp2d.cu`` and ``csrc/warp3d.cu``, and every launch of the 3-D
+backward, from the image's shape alone: a
 grid of (x tiles, row tiles, planes), blocks of at most 256 threads that each
 own 4 (2-D images) or 2 (volumes) consecutive x of one row, grid-stride loops
 where the rows or planes exceed CUDA's 65535 limit, and a refusal of any plane or volume that 32-bit
@@ -11,12 +12,17 @@ give the kernels and at the limits; the kernels themselves run in the
 ``cuda``-marked cases of ``tests/test_torch_kernels.py``.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
 from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+from opticalflowscivis_tpu_torch.ops.kernels import warp as kernels_warp
 from opticalflowscivis_tpu_torch.ops.kernels.warp import (
+    _launch3d_backward,
     launch_geometry,
     warp2d,
     warp2d_with_mask,
@@ -185,3 +191,133 @@ def test_warp2d_with_mask_rejects_what_warp2d_rejects(kwargs):
     flow = torch.zeros(kwargs.get("flow_shape", (1, 2, 8, 10)))
     with pytest.raises(ValueError):
         warp2d_with_mask(img, flow, kwargs.get("padding", "zeros"))
+
+
+# -- the 3-D backward: the forward's grid -------------------------------------------
+
+
+def _replay_visits(shape, launch, with_dimg):
+    """How often the 3-D backward's loops visit each voxel ``[B, Z, Y, X]``,
+    replayed in numpy.  Thread ``tx`` of block column ``bx`` owns two voxels
+    of a row: ``x0 = 2 * (bx * TX + tx)`` and ``x0 + 1`` (``dflow`` only),
+    or ``x0 = 2 * bx * TX + tx`` and ``x0 + TX`` (with ``dimg``), those below
+    X; block row ``(by, ty)`` walks rows ``by * TY + ty`` in steps of
+    ``gy * TY``; block plane ``bz`` walks planes ``p = bz, bz + gz, ...``
+    below ``B * Z``, each split by one division into ``b = p // Z``,
+    ``z = p - b * Z``.  The three loops are independent, so a voxel's visits
+    are the product of its column's, row's and plane's."""
+    b_, _, z_, y_, x_ = shape
+    (gx, gy, gz), (tx, ty) = launch.grid, launch.block
+    v = launch.per_thread
+    bx, t = np.meshgrid(np.arange(gx), np.arange(tx), indexing="ij")
+    if with_dimg:
+        cols = np.concatenate([(v * bx * tx + t + j * tx).ravel() for j in range(v)])
+    else:
+        cols = np.concatenate([(v * (bx * tx + t) + j).ravel() for j in range(v)])
+    x_visits = np.bincount(cols[cols < x_], minlength=x_)
+    starts, step = np.arange(gy * ty), gy * ty
+    ys = np.concatenate([starts + k * step for k in range(-(-y_ // step))])
+    y_visits = np.bincount(ys[ys < y_], minlength=y_)
+    planes = np.concatenate([np.arange(gz) + k * gz for k in range(-(-(b_ * z_) // gz))])
+    planes = planes[planes < b_ * z_]
+    b, z = planes // z_, planes - (planes // z_) * z_
+    p_visits = np.zeros((b_, z_), np.int64)
+    np.add.at(p_visits, (b, z), 1)
+    return p_visits, y_visits, x_visits
+
+
+# the model's volumes, ragged rows (X = 1, 5, 13, 17, 62), and the two
+# grid-stride shapes: planes B * Z and rows beyond the grid's 65535 limit
+BACKWARD_SHAPES = [
+    (4, 1, 64, 64, 64),
+    (1, 1, 256, 256, 256),
+    (2, 1, 6, 7, 1),
+    (1, 2, 5, 3, 5),
+    (2, 3, 4, 1, 13),
+    (2, 3, 11, 13, 17),
+    (1, 1, 9, 10, 62),
+    (2, 1, 40000, 2, 3),
+    (1, 1, 1, 65535 * 256 + 1, 1),
+]
+
+
+@pytest.mark.parametrize("with_dimg", [False, True], ids=["dflow", "dimg"])
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES, ids=str)
+def test_warp3d_backward_grid_visits_every_voxel_once(shape, with_dimg):
+    launch = launch_geometry(shape)
+    assert launch.strided == (shape[0] * shape[2] > 65535 or shape[3] > 65535 * 256)
+    p_visits, y_visits, x_visits = _replay_visits(shape, launch, with_dimg)
+    assert (p_visits == 1).all() and (y_visits == 1).all() and (x_visits == 1).all()
+    if np.prod(shape) <= 2**21:  # the voxel grid itself, where it is small
+        visits = np.einsum("bz,y,x->bzyx", p_visits, y_visits, x_visits)
+        assert visits.shape == (shape[0],) + shape[2:] and (visits == 1).all()
+
+
+@pytest.fixture
+def _recorded_backward(monkeypatch):
+    """``_launch3d_backward`` on meta tensors with the library, the device
+    and the stream stood in for: returns the arguments each call hands the
+    C entry ``warp3d_backward``."""
+    calls = []
+
+    def warp3d_backward(*args):
+        calls.append(args)
+        return 0
+
+    lib = types.SimpleNamespace(warp3d_backward=warp3d_backward)
+    monkeypatch.setattr(kernels_warp, "_library3d", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("need_dimg", [False, True], ids=["dflow", "dimg"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES[:3] + BACKWARD_SHAPES[-2:], ids=str)
+def test_warp3d_backward_launches_on_the_forward_grid(_recorded_backward, shape, dtype, need_dimg):
+    """One launch a call, on ``launch_geometry``'s grid and block; the flow a
+    slice of a 6-channel flow in the channels-last-3d layout, read through
+    its strides; ``dflow`` and ``dimg`` shaped as the image."""
+    dt = getattr(torch, dtype)
+    b, c, z, y, x = shape
+    img = torch.empty(shape, dtype=dt, device="meta")
+    flow6 = torch.empty((b, 6, z, y, x), dtype=dt, device="meta").contiguous(
+        memory_format=torch.channels_last_3d)
+    flow, g = flow6[:, 3:], torch.empty(shape, dtype=dt, device="meta")
+    before = dict(LAUNCHES)
+    dimg, dflow = _launch3d_backward(img, flow, g, 8, 8, "border", need_dimg)
+    assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1
+    (args,) = _recorded_backward
+    launch = launch_geometry(shape)
+    assert tuple(args[-6:-1]) == launch.grid + launch.block
+    assert list(args[5]) == list(shape)
+    assert list(args[6]) == list(flow.stride()) and list(args[7]) == list(g.stride())
+    assert tuple(args[8:12]) == (8, 8, 0, int(dt == torch.bfloat16))
+    assert dflow.shape == (b, 3, z, y, x) and dflow.dtype == dt
+    assert (dimg is not None) == need_dimg and (args[4] is not None) == need_dimg
+    if need_dimg:
+        assert dimg.shape == shape and dimg.dtype == dt
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1291, 1291, 1291), (1, 2, 2**11, 2**10, 2**10)],
+                         ids=str)
+def test_warp3d_backward_refuses_2_31_voxels_before_allocating(monkeypatch, shape):
+    """A volume that 32-bit offsets cannot address raises ``ValueError``
+    before any buffer is made or the library is asked for; nothing counts
+    as launched."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("allocated or built before refusing")
+
+    b, _, z, y, x = shape
+    img = torch.empty(shape, device="meta")
+    flow = torch.empty((b, 3, z, y, x), device="meta")
+    monkeypatch.setattr(kernels_warp, "_library3d", refuse)
+    monkeypatch.setattr(torch, "empty", refuse)
+    monkeypatch.setattr(torch, "zeros", refuse)
+    before = dict(LAUNCHES)
+    for need_dimg in (False, True):
+        with pytest.raises(ValueError, match="32-bit"):
+            _launch3d_backward(img, flow, img, 8, 8, "border", need_dimg)
+    assert LAUNCHES == before
