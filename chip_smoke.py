@@ -18,21 +18,26 @@ the same weights on the CPU, and times them.
 Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time,
      each kernel's registers and spills (none allowed in ``corr_fwd_kernel``,
-     ``corr_bwd_kernel`` or ``warp3d_bwd_kernel``), and the warps' blocks per SM;
+     ``corr_bwd_kernel``, ``warp3d_bwd_kernel`` or ``warp2d_bwd_kernel``, each
+     with its count of instances), and the warps' blocks per SM;
   2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
      case against a stated tolerance; the 2-D warp also at UPFlow's feature
      shapes, in float32 and with a bf16 image under a float32 flow, its fused
      validity mask bit for bit against the warp of ones; the forwards' vector
      and element paths (ragged rows, misaligned and channels-last flows, all
-     type modes) and their grid-stride loops on thin shapes; the 3-D backward
-     on the same ragged rows and grid-stride shapes, and twice bit for bit at
-     the model's shape;
+     type modes) and their grid-stride loops on thin shapes; the 2-D backward
+     at UPFlow's four warped feature levels and on the same paths in every
+     instance (one channel, a channel loop, channel groups; with and without
+     ``dimg``), each case's ``dflow`` twice bit for bit; the 3-D backward on
+     the same ragged rows and grid-stride shapes, and twice bit for bit at the
+     model's shape;
   3. 2-D serving path at full width, f32 and bf16, with launch counts, the CPU
      comparison and the series metrics against the linear baseline;
   4. 2-D training path at full width, f32 and bf16: ``fit`` lowers ``loss_G``,
      10 forward and 10 backward launches per train step (10 / 0 per eval
-     step), ``loss.json``, checkpoint round trip; one train step against the
-     CPU; the CLI verbs;
+     step), ``loss.json``, checkpoint round trip, what each backward call of
+     one step hands the kernel (2 of the 10 with ``dimg``); one train step
+     against the CPU; the CLI verbs;
   5. 3-D serving path at full width at [4, 64, 64, 64, 1]: 6 ``warp3d``
      launches per forward (12 with TTA), the CPU comparison, a ``rectangle_3d``
      series against the linear baseline;
@@ -53,12 +58,19 @@ Phases, printed in order:
      hands the cost volume (``corr layouts``); ``fit`` in f32 and bf16 (5 + 5
      ``corr`` / ``corr_bwd`` launches per train step, 10 + 10 with the
      ex_runner recipe), one train step against the CPU, checkpoint round trip,
-     both decode forms, the CLI verbs;
+     what each 2-D backward call of an f32 and a bf16 RIFE-2D and UPFlow train
+     step hands the kernel (``warp2d layouts``), both decode forms, the CLI
+     verbs;
   9. times (CUDA events, warm-up, inputs that vary from call to call) and
      profiles of all paths; each forward warp kernel against ``F.grid_sample``
      in turns (the median of 5 profiler windows of 40 calls each), also at
-     UPFlow's finest feature warp; the 3-D backward on iid and smooth flows,
-     f32 and bf16, at 64^3 and 256^3 (``warp3d_bwd cases``);
+     UPFlow's finest feature warp; the 2-D backward where training runs it
+     (``warp2d_bwd cases``: RIFE-2D's shape on iid and smooth flows, f32 and
+     bf16, with ``dimg``; UPFlow's photometric warp and its four feature levels
+     with ``dimg``, f32 and bf16 features), each with the call's device time,
+     the host's µs per call, its bound and autograd through ``F.grid_sample``;
+     the 3-D backward on iid and smooth flows, f32 and bf16, at 64^3 and
+     256^3 (``warp3d_bwd cases``);
  10. one ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
@@ -66,8 +78,9 @@ CUDA device or without the port beside it.
 
 ``--kernel-times ROOT`` runs only the kernels' timings, through the package
 of another checkout at ``ROOT`` (a commit unpacked with ``git archive``): the
-warps' of phase 9 (the 3-D backward also on smooth flows, in bf16 and at
-[1, 1, 256, 256, 256]), and ``corr`` and ``corr_bwd`` at the finest UPFlow level
+warps' of phase 9 (the 2-D backward's ``warp2d_bwd cases``; the 3-D backward
+also on smooth flows, in bf16 and at [1, 1, 256, 256, 256]), and ``corr`` and
+``corr_bwd`` at the finest UPFlow level
 in f32 and bf16, both at all five levels in f32, and ``corr`` at the finest
 level on channels-last f32 maps; it ends with one ``corr kernel times {...}``
 and one ``kernel times {...}`` line of their medians.  Two versions of the kernels
@@ -131,6 +144,12 @@ CORR_VEC_EDGE_SHAPE = (3, 45, 11, 52)
 # [B, H, W, C] of UPFlow's feature warps at the finest and the coarsest decoded
 # level of the same forward; the features are bf16 by default, the flow float32
 UPFLOW_WARP_SHAPES = ((16, 64, 208, 32), (16, 4, 13, 196))
+# [B, H, W, C] of the four feature maps a train step warps under a gradient
+# (/32, /16, /8, /4, coarsest first), and of the photometric term's warps of
+# the input frames at 256 x 832, batch 8
+UPFLOW_FEATURE_LEVELS = ((16, 8, 26, 128), (16, 16, 52, 96), (16, 32, 104, 64),
+                         (16, 64, 208, 32))
+PHOTO_SHAPE = (8, 256, 832, 3)
 # bf16 model against the float32 one from the same seed-0 weights, on flow_f:
 # the largest difference as a share of the float32 flow's largest component
 # (bf16 rounding of the features through five decode levels, each doubling the
@@ -333,6 +352,42 @@ def grid2d(torch, flow, r: int):
                         2.0 * (ys + fl[:, 0]) / (h - 1) - 1.0], dim=-1)
 
 
+def clipped_grid2d(torch, flow, r: int):
+    """``grid2d`` with the clip written as ``torch.where``: the 2-D backward's
+    library yardstick (since PR 2), whose autograd gives 0 at and beyond r."""
+    if r:
+        flow = torch.where(flow.abs() < r, flow, torch.sign(flow.detach()) * r)
+    return grid2d(torch, flow, 0)
+
+
+def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+    """Device ms per call of ``fn(i)`` for each kernel it runs, from one
+    profiler window: which kernels a library time covers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return {ev.key[:60]: ev.self_device_time_total / iters / 1e3
+            for ev in prof.key_averages() if is_kernel(ev, DeviceType)}
+
+
+def library_record(library, iters: int = 20) -> dict:
+    """The 2-D backward's library yardstick, autograd through
+    ``F.grid_sample`` and its grid: the whole pass's device ms, the sampler's
+    backward kernel alone (ATen's ``grid_sampler_2d_backward_kernel`` or
+    cuDNN's), and each kernel of the pass."""
+    kernels = device_ms_by_kernel(library, iters)
+    return {"library_ms": device_ms(library, iters),
+            "library_sampler_ms": sum(ms for k, ms in kernels.items() if "ampler" in k),
+            "library_kernels_ms": kernels}
+
+
 def card_line() -> str:
     """``nvidia-smi``'s name and power limit of the first card."""
     return subprocess.run(
@@ -369,6 +424,11 @@ def phase_card(torch):
     bwd3 = {k: v for k, v in ptxas.items() if k.startswith("warp3d_bwd_kernel")}
     check(len(bwd3) == 16 and all(v.get("spill_stores") == 0 for v in bwd3.values()),
           f"warp3d_bwd_kernel's 16 instances should build without spills: {bwd3}")
+    # three type modes, with and without dimg, one channel, a channel loop or
+    # channel groups
+    bwd2 = {k: v for k, v in ptxas.items() if k.startswith("warp2d_bwd_kernel")}
+    check(len(bwd2) == 18 and all(v.get("spill_stores") == 0 for v in bwd2.values()),
+          f"warp2d_bwd_kernel's 18 instances should build without spills: {bwd2}")
     return smi
 
 
@@ -562,6 +622,100 @@ def phase_warp2d_layouts_vs_plain(torch):
             cases += 1
     print(f"warp2d layout cases: {cases}")
     return worst_f32
+
+
+# the backward's paths: LAYOUT_SHAPES (one channel group each), then shapes
+# whose small planes and many channels take channel groups, the last group
+# of the first one short (37 channels in groups of 5)
+BWD_LAYOUT_SHAPES = LAYOUT_SHAPES + ((2, 37, 3, 13), (1, 64, 5, 37))
+
+
+def phase_warp2d_bwd_layouts_vs_plain(torch):
+    """The backward's vector and element paths against autograd through the
+    plain version, in every instance the kernel is built with: ragged rows,
+    single rows and pixels, aligned and misaligned NCHW flow slices and
+    channels-last flows (with a channels-last g), both paddings, r 16 and 0,
+    all three type modes, with and without ``dimg``, with one channel group and
+    with several; each case's ``dflow`` twice bit for bit; then the grid-stride
+    loops on thin shapes.  bf16 results are held against the plain version on
+    float32 copies of the same inputs: the kernel computes in float32 and
+    rounds each result once."""
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import backward_geometry, warp2d
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    def grads(fn, img, flow, g, r, padding, img_grad):
+        im = img.detach().clone().requires_grad_(img_grad)
+        fl = flow.detach().clone(memory_format=torch.preserve_format).requires_grad_(True)
+        fn(im, fl, r, padding).backward(g)
+        return im.grad, fl.grad
+
+    def held(img, flow, g, r, padding, img_grad, tol, what):
+        """Largest error over the largest reference gradient of one case; raises
+        where it exceeds ``tol``, where dflow is not 0 at and beyond r, or where
+        two runs differ."""
+        got = grads(warp2d, img, flow, g, r, padding, img_grad)
+        want = grads(warp2d_plain, img.float(), flow.float(), g.float(), r, padding, img_grad)
+        ratio = 0.0
+        for name, a, ref in zip(("dimg", "dflow"), got, want):
+            if ref is None:
+                check(a is None, "an image gradient nobody asked for")
+                continue
+            check(a.dtype == (img.dtype if name == "dimg" else flow.dtype)
+                  and a.shape == ref.shape, f"{name} type ({what})")
+            err = float((a.float() - ref).abs().max())
+            ratio = max(ratio, err / max(float(ref.abs().max()), 1e-30))
+        if r:
+            check(bool((got[1][flow.float().abs() >= r] == 0).all()),
+                  f"dflow not 0 at and beyond r ({what})")
+        check(ratio <= tol, f"warp2d backward disagrees with plain ({what}): {ratio:.3e}")
+        check(dflow_repeats(torch, img, flow, g, r, padding, img_grad),
+              f"two warp2d backward runs differ ({what})")
+        return ratio
+
+    cases = 0
+    gen = torch.Generator(device="cuda").manual_seed(2000)
+    for img_type, flow_type in TYPE_MODES:
+        dt, ft = getattr(torch, img_type), getattr(torch, flow_type)
+        tol = BWD_F32_TOL if dt == torch.float32 else BWD_BF16_TOL
+        name = f"{img_type} img, {flow_type} flow"
+        for padding in ("border", "zeros"):
+            for r in (16, 0):
+                worst = 0.0
+                for b, c, h, w in BWD_LAYOUT_SHAPES:
+                    img = torch.rand((b, c, h, w), generator=gen, device="cuda").to(dt)
+                    flow = torch.randn((b, 2, h, w), generator=gen, device="cuda") * 10
+                    flow = torch.round(flow * 4) / 4 + 0.11  # off the weights' kinks
+                    g = torch.randn((b, c, h, w), generator=gen, device="cuda").to(dt)
+                    for layout, view in flow_views(torch, flow.to(ft)).items():
+                        gv = g.contiguous(memory_format=torch.channels_last
+                                          if layout == "nhwc" else torch.contiguous_format)
+                        for img_grad in (False, True):
+                            what = f"{(b, c, h, w)}, {layout}, {padding}, r={r}, {name}, " \
+                                   f"dimg={img_grad}"
+                            worst = max(worst, held(img, view, gv, r, padding, img_grad, tol,
+                                                    what))
+                            cases += 1
+                print(f"warp2d_bwd layouts {padding:6s} r={r:2d} {name}: "
+                      f"{len(BWD_LAYOUT_SHAPES)} shapes (channel groups "
+                      f"{[backward_geometry((b, c, h, w)).groups for b, c, h, w in BWD_LAYOUT_SHAPES]}"
+                      f") x nchw / misaligned / nhwc x dimg or not: worst err/max|ref| "
+                      f"{worst:.3e} tol={tol:g}, dflow repeats bit-equal ok")
+    for shape in ((70000, 1, 1, 5), (70000, 16, 1, 5), (1, 2, 65535 * 256 + 3, 1)):
+        geometry = backward_geometry(shape)
+        check(geometry.strided, f"{shape} takes no grid-stride loop")
+        b, c, h, w = shape
+        img = torch.rand(shape, generator=gen, device="cuda")
+        flow = torch.round(torch.randn((b, 2, h, w), generator=gen, device="cuda") * 12) + 0.11
+        g = torch.randn(shape, generator=gen, device="cuda")
+        for padding in ("border", "zeros"):
+            for img_grad in (False, True):
+                ratio = held(img, flow, g, 16, padding, img_grad, BWD_F32_TOL,
+                             f"grid-stride {shape}, {padding}, dimg={img_grad}")
+                print(f"warp2d_bwd grid-stride {list(shape)} {padding:6s} r=16 float32 "
+                      f"img_grad={int(img_grad)} grid={geometry.grid} groups={geometry.groups} "
+                      f"err/max|ref|={ratio:.3e} tol={BWD_F32_TOL:g}")
+                cases += 1
+    print(f"warp2d_bwd layout cases: {cases}")
 
 
 def phase_main_path(torch):
@@ -837,8 +991,19 @@ def warp_grads(torch, fn, img, flow4, g, r, padding, img_grad: bool):
     return im.grad, fl.grad[:, 2:4]
 
 
+def dflow_repeats(torch, img, flow, g, r: int, padding: str, need_dimg: bool) -> bool:
+    """Whether two launches of the 2-D backward give the same ``dflow`` bit
+    for bit (it is written once per pixel, channel groups added in order)."""
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch_backward
+
+    runs = [_launch_backward(img, flow, g, r, padding, need_dimg)[1] for _ in range(2)]
+    return torch.equal(runs[0], runs[1])
+
+
 def phase_backward_vs_plain(torch):
-    """The backward kernel against autograd through the plain version."""
+    """The backward kernel against autograd through the plain version, each
+    case's ``dflow`` twice bit for bit: RIFE-2D's shape and a ragged one, then
+    UPFlow's four warped feature levels and its coarsest map."""
     from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
     from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
     from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
@@ -883,17 +1048,22 @@ def phase_backward_vs_plain(torch):
                         if r > 0:  # clamped components carry no gradient
                             clamped = flow4[:, 2:4].float().abs() >= r
                             ok = ok and bool((dflow[clamped] == 0).all())
+                        same = dflow_repeats(torch, img, flow4[:, 2:4], g, r, padding, img_grad)
                         name = str(dtype).replace("torch.", "")
                         shown = " ".join(f"{k}_err={e:.3e} (max|ref|={m:.3e})"
                                          for k, (e, m) in errs.items())
                         print(f"warp2d_bwd {list(shape)} {padding:6s} r={r:2d} {name:8s} "
                               f"{'nhwc' if cl else 'nchw'} img_grad={int(img_grad)} {shown} "
-                              f"tol={tol:g}*max|ref| {'ok' if ok else 'FAIL'}")
+                              f"tol={tol:g}*max|ref| dflow repeats bit-equal={same} "
+                              f"{'ok' if ok and same else 'FAIL'}")
+                        check(same, f"two warp2d backward runs differ ({shape}, {padding}, "
+                                    f"r={r}, {name}, img_grad={img_grad})")
                         check(ok, f"warp2d backward disagrees with plain ({shape}, {padding}, "
                                   f"r={r}, {name}, img_grad={img_grad})")
     # UPFlow's feature warps: unbounded, with the image's gradient, float32 and
-    # the mixed form, whose dimg is bf16 and whose dflow stays float32
-    for shape in UPFLOW_WARP_SHAPES:
+    # the mixed form, whose dimg is bf16 and whose dflow stays float32; the four
+    # warped levels, finest first, and the coarsest map
+    for shape in UPFLOW_FEATURE_LEVELS[::-1] + UPFLOW_WARP_SHAPES[1:]:
         for padding in ("border", "zeros"):
             for dtype in (torch.float32, torch.bfloat16):
                 for cl in (False, True):
@@ -921,11 +1091,14 @@ def phase_backward_vs_plain(torch):
                         if dtype == torch.float32:
                             worst_f32 = max(worst_f32, err)
                     name = "float32" if dtype == torch.float32 else "bf16 img, f32 flow"
+                    same = dflow_repeats(torch, img, flow4[:, 2:4], g, 0, padding, True)
                     print(f"warp2d_bwd {list(shape)} {padding:6s} r= 0 {name:18s} "
                           f"{'nhwc' if cl else 'nchw'} img_grad=1 {' '.join(shown)} "
-                          f"tol={tol:g}*max|ref| {'ok' if ok else 'FAIL'}")
+                          f"tol={tol:g}*max|ref| dflow repeats bit-equal={same} "
+                          f"{'ok' if ok else 'FAIL'}")
                     check(ok, f"warp2d backward disagrees with plain ({shape}, {padding}, r=0, "
                               f"{name})")
+                    check(same, f"two warp2d backward runs differ ({shape}, {padding}, {name})")
     return worst_f32
 
 
@@ -1013,7 +1186,61 @@ def phase_training(torch, tmp: str):
         trainers[name] = (tr, train)
     print(f"training path: launches={launches}")
     check(all(v > 0 for v in launches.values()), "the training path missed a kernel")
+    for name, (tr, train) in trainers.items():
+        # the photometric term's 2 warps of the prediction carry its gradient
+        record_warp2d_layouts(torch, f"rife_{name}",
+                              lambda tr=tr, train=train: tr.train_step(tr.upload(train[:b])), 10, 2)
     return launches, trainers
+
+
+# what each backward call of one train step hands the 2-D backward kernel,
+# per path and type (the ``warp2d layouts`` line)
+WARP2D_LAYOUTS: dict[str, list] = {}
+
+
+def warp2d_row_path(t, pair: bool) -> str:
+    """The path the 2-D backward kernel's rows of 4 pixels take through ``t``
+    (a flow if ``pair``, else g): a channels-last (dy, dx) pair is one load
+    ("pair"), a row of 4 aligned elements one vector load ("vector"),
+    anything else element by element ("element")."""
+    size = t.element_size()
+    if pair and t.stride(1) == 1 and t.stride(-1) % 2 == 0 and t.data_ptr() % (2 * size) == 0:
+        return "pair"
+    aligned = t.data_ptr() % (4 * size) == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
+    return "vector" if t.stride(-1) == 1 and aligned and t.shape[-1] % 4 == 0 else "element"
+
+
+def record_warp2d_layouts(torch, name: str, step, calls: int, with_dimg: int) -> list:
+    """Run one train step (``step()``) and keep, under ``name`` in
+    ``WARP2D_LAYOUTS``, the image's shape and type, the flow's type and
+    strides, g's strides, padding, r, ``need_dimg`` and the rows' paths of
+    each of its ``calls`` calls of ``_launch_backward``, ``with_dimg`` of
+    which ask for the image's gradient."""
+    from opticalflowscivis_tpu_torch.ops.kernels import warp as kernels_warp
+
+    original = kernels_warp._launch_backward
+    seen = []
+
+    def record(img, flow, grad_out, r, padding, need_dimg):
+        seen.append({
+            "shape": list(img.shape), "dtype": str(img.dtype).replace("torch.", ""),
+            "flow_dtype": str(flow.dtype).replace("torch.", ""),
+            "flow_strides": list(flow.stride()), "grad_strides": list(grad_out.stride()),
+            "rows": [warp2d_row_path(flow, True), warp2d_row_path(grad_out, False)],
+            "padding": padding, "r": r, "need_dimg": bool(need_dimg)})
+        return original(img, flow, grad_out, r, padding, need_dimg)
+
+    try:
+        kernels_warp._launch_backward = record
+        step()
+    finally:
+        kernels_warp._launch_backward = original
+    torch.cuda.synchronize()
+    check(len(seen) == calls, f"{name}: {len(seen)} warp2d backward calls a step, expected {calls}")
+    check(sum(c["need_dimg"] for c in seen) == with_dimg,
+          f"{name}: expected {with_dimg} of the {calls} calls with dimg: {seen}")
+    WARP2D_LAYOUTS[name] = seen
+    return seen
 
 
 def phase_train_step_vs_cpu(torch, tmp: str):
@@ -1122,28 +1349,55 @@ def phase_train_times(torch, trainers):
     return times, warp2d_backward_times(torch)
 
 
+def warp2d_backward_work(shape, size: int, flow_size: int, with_dimg: bool) -> tuple[int, int]:
+    """Bytes and f32 operations of the 2-D backward at ``[B, H, W, C]``, image
+    and g in elements of ``size`` bytes, flow and dflow of ``flow_size``:
+    image, flow and g read once, dflow (and dimg, in the image's type) written
+    once; clip, coordinates and 4 weights a pixel, and per channel the 4 taps'
+    differences (and the 4 scattered products)."""
+    b, h, w, c = shape
+    px = b * h * w
+    function_bytes = px * (2 * size * c + 4 * flow_size + (size * c if with_dimg else 0))
+    flops = px * (30 + 16 * c + (8 * c if with_dimg else 0))
+    return function_bytes, flops
+
+
+def warp2d_backward_bound_ms(shape, size: int, flow_size: int,
+                             with_dimg: bool) -> tuple[float, str]:
+    """The 2-D backward's bound: its bytes over the HBM rate against its
+    operations over the f32 rate, whichever is larger, and which it is."""
+    function_bytes, flops = warp2d_backward_work(shape, size, flow_size, with_dimg)
+    bytes_ms = function_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def host_us_per_call(torch, fn, iters: int = 40) -> float:
+    """Microseconds of the host's time per call of ``fn(i)``: the loop's
+    enqueue time, before the final synchronize."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    host = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return host
+
+
 def warp2d_backward_times(torch):
     """The backward kernel at the training path's shape, [64, 1, 128, 128]
-    f32, border, r = 16, without and with ``dimg``: alone, against autograd
-    through its plain version and through ``F.grid_sample``, and its bound."""
+    f32, border, r = 16, iid flows, without and with ``dimg``: alone, against
+    autograd through its plain version and through ``F.grid_sample``, and its
+    bound; then every case of ``warp2d_backward_cases``."""
     import torch.nn.functional as F
 
     from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch_backward
     from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
 
-    b, h, w, c = TRAIN_SHAPE
     sets = [backward_inputs(torch, TRAIN_SHAPE, torch.float32, 300 + i, False) for i in range(4)]
-
-    def clipped_grid(flow):
-        fl = torch.where(flow.abs() < 16, flow, torch.sign(flow.detach()) * 16)
-        ys = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
-        xs = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
-        gx = 2.0 * (xs + fl[:, 1]) / (w - 1) - 1.0
-        gy = 2.0 * (ys + fl[:, 0]) / (h - 1) - 1.0
-        return torch.stack([gx, gy], dim=-1)
-
     out = {}
-    px = b * h * w
     for with_dimg in (False, True):
         graphs = {"plain": [], "library": []}
         for img, flow4, g in sets:
@@ -1153,7 +1407,7 @@ def warp2d_backward_times(torch):
                 if kind == "plain":
                     res = warp2d_plain(im, fl, 16, "border")
                 else:
-                    res = F.grid_sample(im, clipped_grid(fl), mode="bilinear",
+                    res = F.grid_sample(im, clipped_grid2d(torch, fl, 16), mode="bilinear",
                                         padding_mode="border", align_corners=True)
                 graphs[kind].append((res, (im, fl) if with_dimg else (fl,), g))
 
@@ -1168,12 +1422,11 @@ def warp2d_backward_times(torch):
             return run
 
         tag = "with_dimg" if with_dimg else "dflow_only"
-        # bytes the function must move: image, flow and g read, dflow written,
-        # and with dimg that written too; the design also zero-fills the f32
-        # accumulator and reads it back under the atomics
-        function_bytes = px * (4 * c + 8 + 4 * c + 8 + (4 * c if with_dimg else 0))
+        # the design also zero-fills the f32 accumulator and reads it back
+        # under the atomics, beyond the function's bytes
+        function_bytes, flops = warp2d_backward_work(TRAIN_SHAPE, 4, 4, with_dimg)
+        px, c = math.prod(TRAIN_SHAPE[:3]), TRAIN_SHAPE[3]
         design_bytes = function_bytes + (px * 8 * c if with_dimg else 0)
-        flops = px * (30 + 16 * c + (8 * c if with_dimg else 0))
         bytes_ms = function_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
         kernel_only = device_ms(kernel, 40, only="warp2d_bwd_kernel", launches=1)
@@ -1181,7 +1434,7 @@ def warp2d_backward_times(torch):
             "kernel_ms": kernel_only,
             "call_device_ms": device_ms(kernel, 40),  # with the zero-fill
             "plain_ms": device_ms(through("plain"), 20),
-            "library_ms": device_ms(through("library"), 20),
+            **library_record(through("library")),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
@@ -1192,7 +1445,165 @@ def warp2d_backward_times(torch):
         }
     print("warp2d_bwd times " + json.dumps(out)
           + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+    out.update(warp2d_backward_cases(torch))
     return out
+
+
+def upflow_step_backward_calls(torch, bfloat16: bool) -> list:
+    """The arguments ``(img, flow, g, r, padding, need_dimg)`` of each
+    ``_launch_backward`` call of one UPFlow train step at full width
+    (``upflow_config``, seed weights, batch 8 of ``upflow_pairs`` at 256 x
+    832): the flows, features and gradients training hands the 2-D backward,
+    in their own layouts."""
+    from opticalflowscivis_tpu_torch.ops.kernels import warp as kernels_warp
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainer
+
+    pairs, _ = upflow_pairs(UPFLOW_BATCH, UPFLOW_HW, seed=1)
+    original = kernels_warp._launch_backward
+    calls = []
+
+    def record(*args):
+        calls.append(tuple(a.detach() if hasattr(a, "detach") else a for a in args))
+        return original(*args)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tr = UPFlowTrainer(upflow_config(tmp, "step_calls", bfloat16))
+        tr.init_state()
+        batch = tr._batch(tr.upload(pairs))
+        try:
+            kernels_warp._launch_backward = record
+            tr.train_step(batch)
+        finally:
+            kernels_warp._launch_backward = original
+        torch.cuda.synchronize()
+    del tr
+    check(len(calls) == 6 and sum(c[5] for c in calls) == 4,
+          f"a UPFlow train step made {len(calls)} warp2d backward calls, expected 6 (4 dimg)")
+    return calls
+
+
+def warp2d_backward_cases(torch) -> dict:
+    """The 2-D backward where training runs it, each case one call of
+    ``_launch_backward`` on the layouts the ``warp2d layouts`` line shows:
+    RIFE-2D's shape [64, 1, 128, 128], border, r = 16, on iid and smooth flows
+    (``smooth_flow``, scale 10), the flow a slice of a 4-channel flow, in f32
+    and in bf16 (the bf16 model's flow channels-last, also its NCHW form), and
+    with ``dimg`` under zeros padding on smooth flows (the photometric term's
+    warp of the prediction); UPFlow's photometric warp of the input frames,
+    [8, 3, 256, 832] f32, border, r = 0, g channels-last; UPFlow's four
+    feature levels (``UPFLOW_FEATURE_LEVELS``) with ``dimg``, zeros, r = 0, in
+    f32 and with a bf16 image under a float32 flow, on smooth flows of scale
+    min(10, H / 2); and the 6 calls of one UPFlow train step, f32 and bf16,
+    on the inputs it hands the kernel (``upflow_step_backward_calls``).  Per
+    case: the kernel's device time (median of 5 profiler
+    windows of 40 calls over 4 input sets, the cases of one group in turns),
+    the call's device time (with the zero-filled accumulator and the cast of
+    ``dimg``), the host's µs per call, the bound, and autograd through
+    ``F.grid_sample`` (``library_record``)."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch_backward
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rife = dict(shape=TRAIN_SHAPE, dt=f32, ft=f32, smooth=False, padding="border", r=16,
+                dimg=False, flow="slice", g="nchw")
+    upflow = dict(padding="zeros", r=0, dimg=True, smooth=True, flow="own", g="nchw")
+    # the cases of a group, each a name and how it differs from the group's first
+    groups = (
+        {"iid": rife, "smooth": {**rife, "smooth": True},
+         "bf16_iid": {**rife, "dt": bf16, "ft": bf16},
+         "bf16_smooth": {**rife, "dt": bf16, "ft": bf16, "smooth": True},
+         "bf16_nhwc_iid": {**rife, "dt": bf16, "ft": bf16, "flow": "slice_nhwc"},
+         "bf16_nhwc_smooth": {**rife, "dt": bf16, "ft": bf16, "flow": "slice_nhwc",
+                              "smooth": True},
+         "smooth_zeros_dimg": {**rife, "smooth": True, "padding": "zeros", "dimg": True}},
+        {"photo": {**rife, "shape": PHOTO_SHAPE, "smooth": True, "r": 0, "flow": "own",
+                   "g": "nhwc"}},
+        {f"upflow_{tag}_{name}": {**upflow, "shape": shape, "dt": dt, "ft": f32}
+         for name, dt in (("f32", f32), ("bf16", bf16))
+         for tag, shape in zip(("32", "16", "8", "4"), UPFLOW_FEATURE_LEVELS)},
+    )
+    cases = {}
+
+    def time_group(members: dict) -> None:
+        """Time the cases of one group in turns; ``members`` maps a name to
+        (4 input sets (img, flow, g), r, padding, dimg, flows)."""
+        fns, meta = {}, {}
+        for name, (sets, r, padding, with_dimg, flows) in members.items():
+            img, flow, g = sets[0]
+            dt, ft = img.dtype, flow.dtype
+            graphs = []
+            for img, flow, g in sets:
+                im = img.detach().clone().requires_grad_(with_dimg)
+                fl = flow.detach().clone().requires_grad_(True)
+                res = F.grid_sample(im, clipped_grid2d(torch, fl, r).to(dt), mode="bilinear",
+                                    padding_mode=padding, align_corners=True)
+                graphs.append((res, (im, fl) if with_dimg else (fl,), g))
+
+            def run(i, sets=sets, r=r, padding=padding, with_dimg=with_dimg):
+                img, flow, g = sets[i % 4]
+                return _launch_backward(img, flow, g, r, padding, with_dimg)
+
+            def library(i, graphs=graphs):
+                res, leaves, g = graphs[i % 4]
+                return torch.autograd.grad(res, leaves, g, retain_graph=True)
+
+            fns[name] = run
+            b, c, h, w = sets[0][0].shape
+            bound, by = warp2d_backward_bound_ms((b, h, w, c), 2 if dt == bf16 else 4,
+                                                 2 if ft == bf16 else 4, with_dimg)
+            meta[name] = {
+                "shape": [b, h, w, c], "dtype": str(dt).replace("torch.", ""),
+                "flow_dtype": str(ft).replace("torch.", ""),
+                "flows": flows, "padding": padding, "r": r,
+                "dimg": with_dimg, "flow_strides": list(sets[0][1].stride()),
+                "grad_strides": list(sets[0][2].stride()),
+                "bound_ms": bound, "bound_by": by,
+                "call_device_ms": device_ms(run, 40),
+                "host_us_per_call": host_us_per_call(torch, run),
+                **library_record(library),
+            }
+        timed = interleaved_device_ms(fns, only="warp2d_bwd_kernel", launches=1)
+        for name, t in timed.items():
+            cases[name] = {"kernel_ms": t["median_ms"], "windows_ms": t["windows_ms"],
+                           **meta[name], "bound_share": meta[name]["bound_ms"] / t["median_ms"]}
+        del fns
+        torch.cuda.empty_cache()
+
+    for group in groups:
+        members = {}
+        for k, (name, case) in enumerate(group.items()):
+            shape, dt, ft = case["shape"], case["dt"], case["ft"]
+            b, h, w, c = shape
+            scale = 10.0 if case["r"] else min(10.0, h / 2)
+            sets = []
+            for i in range(4):
+                seed = 1200 + 20 * k + i
+                img, flow4, g = backward_inputs(torch, shape, dt, seed, case["g"] == "nhwc",
+                                                scale=scale, flow_dtype=ft)
+                if case["smooth"]:
+                    flow4 = smooth_flow(torch, (b, 4, h, w), scale, seed).to(ft)
+                if case["flow"] == "slice_nhwc":  # the bf16 model's channels-last flow
+                    flow4 = flow4.contiguous(memory_format=torch.channels_last)
+                flow = flow4[:, 2:4]
+                if case["flow"] == "own":  # a flow of its own, [B, 2, H, W] contiguous
+                    flow = flow.contiguous()
+                sets.append((img, flow, g))
+            members[name] = (sets, case["r"], case["padding"], case["dimg"],
+                             "smooth" if case["smooth"] else "iid")
+        time_group(members)
+    # the flows, features and gradients of one UPFlow train step, as it hands them over
+    for name, bfloat16 in (("f32", False), ("bf16", True)):
+        members = {}
+        for i, (img, flow, g, r, padding, with_dimg) in enumerate(
+                upflow_step_backward_calls(torch, bfloat16)):
+            _, c, h, w = img.shape
+            members[f"step_{name}_{i}_{c}x{h}x{w}{'_dimg' if with_dimg else ''}"] = (
+                [(img, flow, g)] * 4, r, padding, with_dimg, "upflow_step")
+        time_group(members)
+    print("warp2d_bwd cases " + json.dumps(cases)
+          + "  (bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+    return cases
 
 
 # -- 3-D: the trilinear warp kernels, ifnet_3d serving and training ------------------
@@ -2435,6 +2846,13 @@ def phase_upflow_training(torch, tmp: str):
         trainers[name] = (tr, train)
     print(f"UPFlow training path: launches={launches}")
     check(all(v > 0 for v in launches.values()), "the UPFlow training path missed a kernel")
+    for name, (tr, train) in trainers.items():
+        # the 4 feature warps carry the features' gradient, the photometric
+        # term's 2 warps of the input frames none
+        record_warp2d_layouts(torch, f"upflow_{name}",
+                              lambda tr=tr, train=train: tr.train_step(
+                                  tr._batch(tr.upload(train[:b]))), 6, 4)
+    print("warp2d layouts " + json.dumps(WARP2D_LAYOUTS))
 
     # the two-stream decode gives the flows of the stacked one from the same weights
     tr = trainers["f32"][0]
@@ -2740,7 +3158,8 @@ def kernel_times_of(torch, root: str) -> int:
            for name, t in upflow.items()},
         "warp3d": {k: fwd3[k] for k in ("kernel_ms", "library_ms")},
         "warp3d_smooth": {k: fwd3["smooth_flow"][k] for k in ("kernel_ms", "library_ms")},
-        **{f"warp2d_bwd_{tag}": bwd2[tag]["kernel_ms"] for tag in bwd2},
+        **{f"warp2d_bwd_{tag}": {k: t[k] for k in ("kernel_ms", "call_device_ms")}
+           for tag, t in bwd2.items()},
         **{f"warp3d_bwd_{tag}": bwd3[tag]["kernel_ms"] for tag in bwd3},
         **{tag: t["ms"] for tag, t in corr.items() if not tag.endswith("_levels")},
         **{tag: {name: t["ms"] for name, t in levels.items()}
@@ -2774,6 +3193,7 @@ def main(argv: list) -> int:
     worst_f32 = phase_kernel_vs_plain(torch)
     worst_f32 = max(worst_f32, phase_warp2d_layouts_vs_plain(torch))
     worst_bwd_f32 = phase_backward_vs_plain(torch)
+    phase_warp2d_bwd_layouts_vs_plain(torch)
     worst3d = phase_warp3d_vs_plain(torch)
     launches, interps = phase_main_path(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2827,7 +3247,9 @@ def main(argv: list) -> int:
         "card": smi,
     }, {
         # ms, bound and the other times are those of the call without an
-        # image gradient (8 of the 10 calls of a train step)
+        # image gradient (8 of the 10 calls of a RIFE-2D train step, `warp2d
+        # layouts`); the call with it, and the cases where training runs it
+        # (UPFlow's photometric warp and its four feature levels), beside them
         "name": "warp2d_bwd",
         "route": "cuda",
         "source": source,
@@ -2844,6 +3266,10 @@ def main(argv: list) -> int:
         "with_dimg": {k: bwd["with_dimg"][k] for k in
                       ("kernel_ms", "call_device_ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
+        "cases": {tag: {k: t[k] for k in ("kernel_ms", "call_device_ms", "host_us_per_call",
+                                          "bound_ms", "bound_share", "library_ms", "shape",
+                                          "dtype", "flows", "dimg")}
+                  for tag, t in bwd.items() if "flows" in t},
         "shape": list(TRAIN_SHAPE),
         "card": smi,
     }, {

@@ -49,19 +49,39 @@
 // the accumulation of an image of ones rounds: the two are bit-equal.  On iid
 // random flows the gathers are the limit: each touches its own cache line.
 //
-// Backward design (simple first): one thread per output pixel (b, y, x),
-// consecutive threads on consecutive x so reads of g and writes of dflow
-// coalesce; a loop over C; f32 arithmetic, stored in the dtype of the image
-// (f32 or bf16).  The flow and dflow share the image's dtype, or are f32
-// beside a bf16 image: UPFlow keeps its flows in f32 while its features run in
-// bf16, and rounding a 40-pixel flow to bf16 would move the taps by a quarter
-// pixel.  Forward and backward share `make_taps`, so the backward recomputes
-// exactly the forward's clip, coordinate clamp, corners and weights.  dflow is
-// written once per pixel with no atomics.  dimg is accumulated with f32
-// atomicAdd into an f32 buffer that the wrapper zero-fills and casts
-// afterwards (bf16 atomics would round every add); the kernel is compiled
-// without that part for calls whose image needs no gradient.  The flow and g
-// are read through their four strides, so the model's channel slices of a
+// Backward design.  At 24 B a pixel (f32, one channel) the backward, like the
+// forward, is held by per-thread instructions and loads in flight, not by
+// DRAM; at UPFlow's deep coarse levels (3,328 pixels under 128 channels at
+// /32) by the pixels alone, which leave most of the card empty; and wherever
+// dimg is wanted by the L2's atomic updates, several to each image element.
+// It runs on the forward's row grid (ops/kernels/warp.py::backward_geometry):
+// a thread holds kV = 4 pixels of one row (consecutive, or blockDim.x apart
+// for dimg over several channels), rows and batch are grid-stride loops, no
+// index is divided, and the corner offsets are 32-bit with a 64-bit (b, c)
+// base.  Where the pixels alone cannot fill the card and
+// C > 3, the block's third dimension splits the channels into groups, each
+// walking its share for the same pixels; the partial dflow sums meet in shared
+// memory and are added in group order by one thread per pixel, which alone
+// writes dflow (two runs agree bit for bit).  The geometry picks the groups
+// from the shape alone, one at C <= 3 (RIFE's one channel, the photometric
+// three), where the shared memory and the barriers are compiled away.  Per row
+// a thread reads the flow with `load_flow_row` (a channels-last (dy, dx) pair
+// one load, a contiguous row of 4 one vector load) and g with `load_row`,
+// gathers the 4 x 4 corners of a channel through the read-only path, and
+// writes dflow's rows with one vector store each where aligned; the element
+// path takes ragged rows, misaligned slices and channels-last tensors.  f32
+// arithmetic, stored in the dtype of the image (f32 or bf16).  The flow and
+// dflow share the image's dtype, or are f32 beside a bf16 image: UPFlow keeps
+// its flows in f32 while its features run in bf16, and rounding a 40-pixel
+// flow to bf16 would move the taps by a quarter pixel.  Forward and backward
+// share `make_taps`, so the backward recomputes exactly the forward's clip,
+// coordinate clamp, corners and weights; a flow component at or beyond r gets
+// exactly 0.  dimg is accumulated with f32 atomic adds into an f32 buffer that
+// the wrapper zero-fills and casts afterwards (bf16 atomics would round every
+// add), skipping corners of weight 0: at one channel a pixel's two corners of
+// a row in one vector atomic (sm_90), over several channels a warp's lanes on
+// consecutive pixels, so fewer updates reach the L2 either way.  The flow and
+// g are read through their four strides, so the model's channel slices of a
 // 4-channel flow, and a g in the channels-last layout cuDNN may hand back,
 // need no copy.
 //
@@ -147,7 +167,7 @@ __device__ __forceinline__ void load_flow_row(const F* p, int64_t fsc, int64_t f
   load_row<V>(p + fsc, fsw, n, dx);
 }
 
-constexpr int kV = 4;  // consecutive output pixels of one row per forward thread
+constexpr int kV = 4;  // output pixels of one row per thread, forward and backward
 
 // At most 80 registers, so that 3 blocks of 256 threads share an SM.
 template <typename T, typename F>
@@ -203,56 +223,210 @@ warp2d_kernel(const T* __restrict__ img, const F* __restrict__ flow, T* __restri
   }
 }
 
+// Four element strides of a [B, C, H, W] view.
+struct Strides {
+  int64_t b, c, h, w;
+};
+
+// dimg's atomic adds into the f32 buffer.  Hopper adds 2 or 4 consecutive
+// floats in one vector atomic (8 B / 16 B aligned); the buffer is 16 B
+// aligned and padded by 4 floats (the wrapper's), so a 16 B window that holds
+// the values may reach past them, adding 0 to its other elements.
+
+// a to p[0] and b to p[1]: one vector atomic unless a 16 B boundary splits them
+__device__ __forceinline__ void add_pair(float* p, float a, float b) {
+  if (a == 0.f && b == 0.f) return;
+  const unsigned q = (unsigned)(reinterpret_cast<uintptr_t>(p) >> 2) & 3u;
+  if ((q & 1u) == 0) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+  } else if (q == 1u) {
+    atomicAdd(reinterpret_cast<float4*>(p - 1), make_float4(0.f, a, b, 0.f));
+  } else {
+    if (a != 0.f) atomicAdd(p, a);
+    if (b != 0.f) atomicAdd(p + 1, b);
+  }
+}
+
+constexpr int kBwdThreads = 256;  // at most per backward block: its __launch_bounds__
+
 // NEED_DIMG = false compiles the image-gradient scatter away: the model's
-// warps sample input frames, which carry no gradient.
-template <typename T, typename F, bool NEED_DIMG>
-__global__ void warp2d_bwd_kernel(
-    const T* __restrict__ img, const F* __restrict__ flow,
-    const T* __restrict__ g, F* __restrict__ dflow, float* __restrict__ dimg,
-    int64_t B, int64_t C, int64_t H, int64_t W, int64_t fsb, int64_t fsc,
-    int64_t fsh, int64_t fsw, int64_t gsb, int64_t gsc, int64_t gsh,
-    int64_t gsw, float r, int zeros) {
-  const int64_t n = B * H * W;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t x = i % W;
-  const int64_t t = i / W;
-  const int64_t y = t % H;
-  const int64_t b = t / H;
+// warps sample input frames, which carry no gradient.  A thread holds kV = 4
+// pixels of one row.  They are consecutive in x, so that its flow, g and
+// dflow rows move as vectors and, for dimg at one channel, each pixel's two
+// corners of a row go in one vector atomic where 16 B alignment allows;
+// except for dimg over several channels (SPREAD: UPFlow's feature warps),
+// where they lie blockDim.x apart, as in warp3d_bwd, so that a warp's lanes
+// sit on consecutive pixels and, under a smooth flow, a warp's scalar atomics
+// fall on few sectors of the L2.  On an NVIDIA H100 80GB HBM3 at 700 W:
+// consecutive pixels ran RIFE's one-channel dimg 1.2-1.5 times faster,
+// spread ones UPFlow's train step's dimg calls at /4 and /8 1.1-1.3 times
+// faster.  The corners' weight flags and the clip's flags are held as bits
+// of one register.  CHANNELS: kOne, one channel (RIFE's), no channel loop
+// (the loop's instance ran RIFE's shape 4 % slower in f32 and 20 % in bf16);
+// kLoop, a channel loop that recomputes the taps per channel (held across it
+// they took the registers that let a third block share an SM without dimg);
+// kGroups, the block's threadIdx.z splits the channels into blockDim.z
+// groups of consecutive channels, each walking its share for the same pixels
+// with the taps held; the groups' partial dflow sums meet in shared memory and
+// are added in group order by the group-0 thread, which alone writes dflow, so
+// two runs agree bit for bit.  Without groups the shared memory and the
+// barriers are compiled away.
+enum Channels { kOne, kLoop, kGroups };
 
-  const F* f = flow + b * fsb + y * fsh + x * fsw;
-  const Taps k = make_taps(load_f32(f), load_f32(f + fsc), (int)y, (int)x, (int)H, (int)W, r,
-                           zeros);
-  const float w00 = (1.f - k.ay) * (1.f - k.ax) * k.m00;
-  const float w01 = (1.f - k.ay) * k.ax * k.m01;
-  const float w10 = k.ay * (1.f - k.ax) * k.m10;
-  const float w11 = k.ay * k.ax * k.m11;
+// Blocks of 256 threads an SM that an instance's registers leave room for
+// (its __launch_bounds__): one channel without dimg at most 64 registers, with
+// dimg 80, the channel loop 80 without dimg and 128 with it (at 80 it
+// spilled), the grouped ones, which hold their taps across the channel loop,
+// 128 (at 80 they spilled).  None ran slower than with fewer blocks on an
+// NVIDIA H100 80GB HBM3 at 700 W.
+constexpr int bwd_min_blocks(bool need_dimg, int channels) {
+  if (channels == kOne) return need_dimg ? 3 : 4;
+  return channels == kLoop && !need_dimg ? 3 : 2;
+}
 
-  const int64_t plane = H * W;
-  const T* src = img + b * C * plane;
-  const T* gp = g + b * gsb + y * gsh + x * gsw;
-  float* dst = NEED_DIMG ? dimg + b * C * plane : nullptr;
-  float gy = 0.f, gx = 0.f;
-  for (int64_t c = 0; c < C; ++c) {
-    const T* p = src + c * plane;
-    const float gc = load_f32(gp + c * gsc);
-    const float v00 = k.m00 * load_f32(p + k.o00);
-    const float v01 = k.m01 * load_f32(p + k.o01);
-    const float v10 = k.m10 * load_f32(p + k.o10);
-    const float v11 = k.m11 * load_f32(p + k.o11);
-    gy += gc * ((1.f - k.ax) * (v10 - v00) + k.ax * (v11 - v01));
-    gx += gc * ((1.f - k.ay) * (v01 - v00) + k.ay * (v11 - v10));
-    if (NEED_DIMG) {
-      float* d = dst + c * plane;
-      if (w00 != 0.f) atomicAdd(d + k.o00, w00 * gc);
-      if (w01 != 0.f) atomicAdd(d + k.o01, w01 * gc);
-      if (w10 != 0.f) atomicAdd(d + k.o10, w10 * gc);
-      if (w11 != 0.f) atomicAdd(d + k.o11, w11 * gc);
+template <typename T, typename F, bool NEED_DIMG, int CHANNELS>
+__global__ void __launch_bounds__(kBwdThreads, bwd_min_blocks(NEED_DIMG, CHANNELS))
+warp2d_bwd_kernel(const T* __restrict__ img, const F* __restrict__ flow,
+                  const T* __restrict__ g, F* __restrict__ dflow, float* __restrict__ dimg,
+                  int B, int C, int H, int W, Strides fs, Strides gs, float r, int zeros) {
+  constexpr bool GROUPED = CHANNELS == kGroups;
+  constexpr bool SPREAD = NEED_DIMG && CHANNELS != kOne;
+  // a block covers blockDim.x * kV pixels of a row: each thread kV consecutive
+  // ones, or (SPREAD) kV at a stride of sx = blockDim.x
+  const int sx = SPREAD ? (int)blockDim.x : 1;
+  const int first_x = (int)(blockIdx.x * blockDim.x) * kV + (SPREAD ? (int)threadIdx.x
+                                                                     : (int)threadIdx.x * kV);
+  // a grouped block's threads all reach its barriers, those past the row too
+  if (!GROUPED && first_x >= W) return;
+  const int n = first_x < W ? min(kV, (W - first_x + sx - 1) / sx) : 0;
+  int c_begin = 0, c_end = CHANNELS == kOne ? 1 : C;
+  if (GROUPED) {
+    const int per = (C + (int)blockDim.z - 1) / (int)blockDim.z;
+    c_begin = min(C, (int)threadIdx.z * per);
+    c_end = min(C, c_begin + per);
+  }
+  const int plane = H * W;
+  // unsigned: a stride past the last row or batch stays below 2^32; the loops
+  // run alike for every thread of a block, whose barriers they hold
+  for (unsigned b = blockIdx.z; b < (unsigned)B; b += gridDim.z) {
+    for (unsigned y0 = blockIdx.y * blockDim.y; y0 < (unsigned)H; y0 += gridDim.y * blockDim.y) {
+      const unsigned y = y0 + threadIdx.y;
+      const bool active = n > 0 && y < (unsigned)H;
+      float gy[kV], gx[kV];
+#pragma unroll
+      for (int j = 0; j < kV; ++j) gy[j] = gx[j] = 0.f;
+      // bit 4j + k: corner k of pixel j carries weight (always in border
+      // mode); bit 16 + j / 20 + j: pixel j's dy / dx passes the clip
+      unsigned bits = 0;
+      int x0 = first_x;
+      asm volatile("" : "+r"(x0));
+      if (active) {
+        float dy[kV], dx[kV];
+        load_flow_row<kV>(flow + (int64_t)b * fs.b + (int64_t)y * fs.h + x0 * fs.w, fs.c,
+                          fs.w * sx, n, dy, dx);
+        float ay[kV], ax[kV];
+        int o[kV][4];
+        auto taps = [&]() {
+          bits = 0;
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            const Taps k = make_taps(dy[j], dx[j], (int)y, x0 + j * sx, H, W, r, zeros);
+            ay[j] = k.ay; ax[j] = k.ax;
+            o[j][0] = k.o00; o[j][1] = k.o01; o[j][2] = k.o10; o[j][3] = k.o11;
+            bits |= (k.m00 != 0.f ? 1u : 0u) << (4 * j) | (k.m01 != 0.f ? 2u : 0u) << (4 * j) |
+                    (k.m10 != 0.f ? 4u : 0u) << (4 * j) | (k.m11 != 0.f ? 8u : 0u) << (4 * j) |
+                    (k.live_y ? 1u : 0u) << (16 + j) | (k.live_x ? 1u : 0u) << (20 + j);
+          }
+        };
+        if (CHANNELS != kLoop) taps();
+        const int64_t base = (int64_t)b * C * plane;
+        const T* gp = g + (int64_t)b * gs.b + (int64_t)y * gs.h + x0 * gs.w;
+#pragma unroll 1
+        for (int c = c_begin; c < c_end; ++c) {
+          if (CHANNELS == kLoop) {
+#pragma unroll
+            for (int j = 0; j < kV; ++j) asm volatile("" : "+f"(dy[j]), "+f"(dx[j]));
+            taps();
+          }
+          float gc[kV];
+          load_row<kV>(gp + c * gs.c, gs.w * sx, n, gc);
+          const T* p = img + base + (int64_t)c * plane;
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            float v[4];  // the corners, 0 where one carries no weight
+#pragma unroll
+            for (int k = 0; k < 4; ++k) v[k] = bits >> (4 * j + k) & 1u ? ldg(p + o[j][k]) : 0.f;
+            gy[j] += gc[j] * ((1.f - ax[j]) * (v[2] - v[0]) + ax[j] * (v[3] - v[1]));
+            gx[j] += gc[j] * ((1.f - ay[j]) * (v[1] - v[0]) + ay[j] * (v[3] - v[2]));
+          }
+          if (NEED_DIMG) {
+            float* d = dimg + base + (int64_t)c * plane;
+#pragma unroll
+            for (int j = 0; j < kV; ++j) {
+              if (j >= n) break;
+              const float wy0 = (1.f - ay[j]) * gc[j], wy1 = ay[j] * gc[j];
+              float w[4] = {wy0 * (1.f - ax[j]), wy0 * ax[j], wy1 * (1.f - ax[j]), wy1 * ax[j]};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) w[k] = bits >> (4 * j + k) & 1u ? w[k] : 0.f;
+#pragma unroll
+              for (int row = 0; row < 4; row += 2) {
+                if (!SPREAD && o[j][row + 1] == o[j][row] + 1) {
+                  add_pair(d + o[j][row], w[row], w[row + 1]);
+                } else {
+                  if (w[row] != 0.f) atomicAdd(d + o[j][row], w[row]);
+                  if (w[row + 1] != 0.f) atomicAdd(d + o[j][row + 1], w[row + 1]);
+                }
+              }
+            }
+          }
+        }
+      }
+      if constexpr (GROUPED) {
+        // partial sums of groups 1.. to shared memory, added to group 0's in group order
+        __shared__ float part[2 * kV][kBwdThreads];
+        const int per_group = (int)(blockDim.x * blockDim.y);
+        const int pixel = (int)(threadIdx.y * blockDim.x + threadIdx.x);
+        if (threadIdx.z > 0) {
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            part[j][pixel + threadIdx.z * per_group] = gy[j];
+            part[kV + j][pixel + threadIdx.z * per_group] = gx[j];
+          }
+        }
+        __syncthreads();
+        if (threadIdx.z == 0) {
+          for (int k = 1; k < (int)blockDim.z; ++k) {
+#pragma unroll
+            for (int j = 0; j < kV; ++j) {
+              gy[j] += part[j][pixel + k * per_group];
+              gx[j] += part[kV + j][pixel + k * per_group];
+            }
+          }
+        }
+        __syncthreads();
+      }
+      if (active && (!GROUPED || threadIdx.z == 0)) {
+        // a component at or beyond r carries no gradient: exactly 0
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          gy[j] = bits >> (16 + j) & 1u ? gy[j] : 0.f;
+          gx[j] = bits >> (20 + j) & 1u ? gx[j] : 0.f;
+        }
+        F* df = dflow + (int64_t)b * 2 * plane + (int)y * W + x0;
+        if constexpr (!SPREAD) {
+          store_row<kV>(df, gy, n);
+          store_row<kV>(df + plane, gx, n);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kV; ++j)
+            if (j < n) {
+              store(df + j * sx, gy[j]);
+              store(df + plane + j * sx, gx[j]);
+            }
+        }
+      }
     }
   }
-  F* df = dflow + b * 2 * plane + y * W + x;
-  store(df, k.live_y ? gy : 0.f);
-  store(df + plane, k.live_x ? gx : 0.f);
 }
 
 template <typename T, typename F>
@@ -264,27 +438,35 @@ void launch(const void* img, const void* flow, void* out, void* mask, int64_t B,
       static_cast<T*>(mask), (int)B, (int)C, (int)H, (int)W, fsb, fsc, fsh, fsw, (float)r, zeros);
 }
 
+template <typename T, typename F, bool NEED_DIMG>
+void launch_bwd_channels(const T* img, const F* flow, const T* g, F* dflow, float* dimg,
+                         const int64_t* d, const Strides& fs, const Strides& gs, float r,
+                         int zeros, dim3 grid, dim3 block, cudaStream_t stream) {
+  const int B = (int)d[0], C = (int)d[1], H = (int)d[2], W = (int)d[3];
+  if (block.z > 1)
+    warp2d_bwd_kernel<T, F, NEED_DIMG, kGroups><<<grid, block, 0, stream>>>(
+        img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, zeros);
+  else if (C == 1)
+    warp2d_bwd_kernel<T, F, NEED_DIMG, kOne><<<grid, block, 0, stream>>>(
+        img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, zeros);
+  else
+    warp2d_bwd_kernel<T, F, NEED_DIMG, kLoop><<<grid, block, 0, stream>>>(
+        img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, zeros);
+}
+
 template <typename T, typename F>
-void launch_bwd(const void* img, const void* flow, const void* g, void* dflow,
-                void* dimg, int64_t B, int64_t C, int64_t H, int64_t W,
-                const int64_t* fs, const int64_t* gs, int64_t r, int zeros,
-                cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t n = B * H * W;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+void launch_bwd(const void* img, const void* flow, const void* g, void* dflow, void* dimg,
+                const int64_t* d, const Strides& fs, const Strides& gs, float r, int zeros,
+                dim3 grid, dim3 block, cudaStream_t stream) {
   const T* i = static_cast<const T*>(img);
   const F* f = static_cast<const F*>(flow);
   const T* gg = static_cast<const T*>(g);
   F* df = static_cast<F*>(dflow);
   float* di = static_cast<float*>(dimg);
   if (dimg)
-    warp2d_bwd_kernel<T, F, true><<<blocks, threads, 0, stream>>>(
-        i, f, gg, df, di, B, C, H, W, fs[0], fs[1], fs[2], fs[3], gs[0], gs[1],
-        gs[2], gs[3], (float)r, zeros);
+    launch_bwd_channels<T, F, true>(i, f, gg, df, di, d, fs, gs, r, zeros, grid, block, stream);
   else
-    warp2d_bwd_kernel<T, F, false><<<blocks, threads, 0, stream>>>(
-        i, f, gg, df, di, B, C, H, W, fs[0], fs[1], fs[2], fs[3], gs[0], gs[1],
-        gs[2], gs[3], (float)r, zeros);
+    launch_bwd_channels<T, F, false>(i, f, gg, df, di, d, fs, gs, r, zeros, grid, block, stream);
 }
 
 }  // namespace
@@ -322,24 +504,38 @@ extern "C" int warp2d_forward(const void* img, const void* flow, void* out, void
 // img [B, C, H, W] contiguous; flow [B, 2, H, W] and g [B, C, H, W] with the
 // given strides; dflow [B, 2, H, W] contiguous, every element written.  bf16 =
 // 0: img, flow, g and dflow f32; 1: all bf16; 2: img and g bf16, flow and dflow
-// f32.  dimg is null (no image
-// gradient wanted) or a zero-filled contiguous f32 [B, C, H, W] buffer that
-// the kernel adds into.  H * W < 2^31.
+// f32.  dimg is null (no image gradient wanted) or a zero-filled contiguous f32
+// [B, C, H, W] buffer, 16 B aligned and followed by 4 more floats, that the
+// kernel adds into.  H * W < 2^31.  The launch
+// geometry, (gx, gy, gz) blocks of (tx, ty, groups) threads with kV = 4 pixels
+// each, comes from the wrapper (ops/kernels/warp.py::backward_geometry):
+// gx * tx * 4 >= W, at most 256 threads a block and 64 channel groups, else the
+// call is refused; any gy, gz within the grid's limits (rows and batch are
+// grid-stride loops).
 extern "C" int warp2d_backward(const void* img, const void* flow, const void* g,
                                void* dflow, void* dimg, int64_t B, int64_t C,
                                int64_t H, int64_t W, int64_t fsb, int64_t fsc,
                                int64_t fsh, int64_t fsw, int64_t gsb,
                                int64_t gsc, int64_t gsh, int64_t gsw, int64_t r,
-                               int64_t zeros, int64_t bf16, void* stream) {
+                               int64_t zeros, int64_t bf16, int64_t gx, int64_t gy,
+                               int64_t gz, int64_t tx, int64_t ty, int64_t groups,
+                               void* stream) {
+  if (gx * tx * kV < W || groups < 1 || groups > 64 || tx * ty * groups > kBwdThreads)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int z = zeros ? 1 : 0;
-  const int64_t fs[4] = {fsb, fsc, fsh, fsw};
-  const int64_t gs[4] = {gsb, gsc, gsh, gsw};
+  const int64_t d[4] = {B, C, H, W};
+  const Strides fs = {fsb, fsc, fsh, fsw};
+  const Strides gs = {gsb, gsc, gsh, gsw};
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);
+  const dim3 block((unsigned)tx, (unsigned)ty, (unsigned)groups);
   if (bf16 == 2)
-    launch_bwd<__nv_bfloat16, float>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
+    launch_bwd<__nv_bfloat16, float>(img, flow, g, dflow, dimg, d, fs, gs, (float)r, z, grid,
+                                     block, s);
   else if (bf16)
-    launch_bwd<__nv_bfloat16, __nv_bfloat16>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
+    launch_bwd<__nv_bfloat16, __nv_bfloat16>(img, flow, g, dflow, dimg, d, fs, gs, (float)r, z,
+                                             grid, block, s);
   else
-    launch_bwd<float, float>(img, flow, g, dflow, dimg, B, C, H, W, fs, gs, r, z, s);
+    launch_bwd<float, float>(img, flow, g, dflow, dimg, d, fs, gs, (float)r, z, grid, block, s);
   return (int)cudaGetLastError();
 }

@@ -23,17 +23,21 @@ boundary too, as in the TPU kernel (``ops/pallas/warp.py:323``).
 
 The forward kernels and the 3-D backward run on a grid of (x tiles, row
 tiles, planes) that ``launch_geometry`` computes from the image's shape alone,
-each thread on 4 (2-D) or 2 (3-D) consecutive x of one row; their offsets
-inside one plane (2-D) or volume (3-D) are 32-bit, and so are the 2-D
-backward's, so a plane of 2^31 elements or more, or a volume of 2^31 voxels or
-more, is refused with a ``ValueError`` before anything is allocated.
+each thread on 4 (2-D) or 2 (3-D) consecutive x of one row; the 2-D backward
+on the same grid with, where the pixels alone leave the card empty, channel
+groups along the block's third dimension (``backward_geometry``).  Offsets
+inside one plane (2-D) or volume (3-D) are 32-bit, so a plane of 2^31
+elements or more, or a volume of 2^31 voxels or more, is refused with a
+``ValueError`` before anything is allocated.
 ``warp2d_with_mask`` gets UPFlow's validity mask from the same launch as the
 warp.
 
-The backward kernels write ``dflow`` once per pixel and accumulate ``dimg``
-with float32 atomics into a float32 buffer that is zero-filled here and cast
-to the image's dtype afterwards; atomics sum in an order that changes from run
-to run, so ``dimg`` is reproducible only to float32 rounding.  When the image
+The backward kernels write ``dflow`` once per pixel, so two runs agree bit
+for bit, and accumulate ``dimg`` with float32 atomics into a float32 buffer
+that is zero-filled here and cast to the image's dtype afterwards (in 2-D
+padded by 4 floats, which the kernel's vector atomics may touch with zeros);
+atomics sum in an order that changes from run to run, so ``dimg`` is
+reproducible only to float32 rounding.  When the image
 needs no gradient (the model's warps sample the input frames) the buffer and
 the atomics are skipped.  The flow and the incoming gradient are read through
 their strides, in whatever layout the caller or autograd hands them over,
@@ -57,7 +61,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 _MAX_INDEX = 2**31  # 32-bit offsets inside one plane or volume, 32-bit plane counts
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
-_THREADS = 256  # per block: __launch_bounds__ of the forward kernels and the 3-D backward
+_THREADS = 256  # per block: __launch_bounds__ of the warp kernels
 # consecutive x of one row per thread: kV of csrc/warp2d.cu and csrc/warp3d.cu
 _PER_THREAD = {4: 4, 5: 2}
 
@@ -67,12 +71,14 @@ class Launch(NamedTuple):
     each thread on ``per_thread`` consecutive x of one row.
 
     ``strided``: the rows or the planes exceed the grid, and the kernel's
-    grid-stride loops cover the rest."""
+    grid-stride loops cover the rest.  ``groups``: the 2-D backward's channel
+    groups, the block's third dimension (1 everywhere else)."""
 
     grid: tuple[int, int, int]
     block: tuple[int, int]
     per_thread: int
     strided: bool
+    groups: int = 1
 
 
 def _check_extent(shape: Sequence[int]) -> None:
@@ -115,6 +121,41 @@ def launch_geometry(shape: Sequence[int]) -> Launch:
     return Launch(grid, (tx, ty), per_thread, row_tiles > _MAX_GRID_YZ or planes > _MAX_GRID_YZ)
 
 
+# The 2-D backward's channel groups: as many as bring the threads of a launch
+# up to what the card holds at once (132 SMs x 2048), at least 4 channels a
+# group, at most 256 threads a block; none at C <= 3
+_RESIDENT_THREADS = 132 * 2048
+_MIN_GROUP_CHANNELS = 4
+
+
+def backward_geometry(shape: Sequence[int]) -> Launch:
+    """The 2-D backward's launch over an image ``[B, C, H, W]``, from its
+    shape alone: the forward's grid of (x tiles, row tiles, planes), each
+    thread on 4 consecutive pixels of one row, and where the pixels alone
+    leave the card empty (UPFlow's deep coarse levels: many channels over
+    small planes) ``groups`` channel groups along the block's third
+    dimension, each walking its share of the channels for the same pixels,
+    with as many rows ``ty`` a block as fit in 256 threads.  Raises
+    ``ValueError`` as ``launch_geometry`` does."""
+    if len(shape) != 4:
+        raise ValueError(f"expected [B, C, H, W], got {tuple(shape)}")
+    forward = launch_geometry(shape)
+    b, c, h, w = shape
+    tx = forward.block[0]
+    threads = b * h * forward.grid[0] * tx
+    groups = 1
+    while (2 * groups * _MIN_GROUP_CHANNELS <= c and 2 * groups * tx <= _THREADS
+           and threads * groups < _RESIDENT_THREADS):
+        groups *= 2
+    if groups == 1:
+        return forward
+    ty = min(_THREADS // (tx * groups), h)
+    row_tiles = -(-h // ty)
+    grid = (forward.grid[0], min(row_tiles, _MAX_GRID_YZ), forward.grid[2])
+    return Launch(grid, (tx, ty), forward.per_thread,
+                  row_tiles > _MAX_GRID_YZ or b > _MAX_GRID_YZ, groups)
+
+
 def _library() -> ctypes.CDLL:
     lib = load("warp2d")
     if lib.warp2d_forward.argtypes is None:
@@ -123,7 +164,7 @@ def _library() -> ctypes.CDLL:
         )
         lib.warp2d_forward.restype = ctypes.c_int
         lib.warp2d_backward.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 15 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 21 + [ctypes.c_void_p]
         )
         lib.warp2d_backward.restype = ctypes.c_int
     return lib
@@ -177,12 +218,16 @@ def _launch_backward(
     img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, r: int,
     padding: str, need_dimg: bool,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
-    """One launch of the backward kernel: ``(dimg or None, dflow)``."""
+    """One launch of the backward kernel, on ``backward_geometry``'s grid:
+    ``(dimg or None, dflow)``."""
     _check_grad(img, grad_out, "warp2d")
-    _check_extent(img.shape)
+    geometry = backward_geometry(img.shape)  # refuses 2^31 elements before allocating
     b, c, h, w = img.shape
     dflow = torch.empty((b, 2, h, w), dtype=flow.dtype, device=flow.device)
-    acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_dimg else None
+    acc = None
+    if need_dimg:  # 4 floats beyond the image: the kernel's vector atomics may add 0 there
+        acc = torch.zeros(img.numel() + 4, dtype=torch.float32, device=img.device)
+        acc = acc[: img.numel()].view(img.shape)
     fn = _library().warp2d_backward
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
@@ -190,7 +235,8 @@ def _launch_backward(
             img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), dflow.data_ptr(),
             acc.data_ptr() if need_dimg else None,
             b, c, h, w, *flow.stride(), *grad_out.stride(),
-            r, int(padding == "zeros"), _type_code(img, flow), stream,
+            r, int(padding == "zeros"), _type_code(img, flow),
+            *geometry.grid, *geometry.block, geometry.groups, stream,
         )
     if err:
         raise RuntimeError(f"warp2d backward kernel launch failed with CUDA error {err}")

@@ -1010,3 +1010,54 @@ def test_upflow_train_step_on_card_goes_through_the_kernels(bfloat16, tmp_path):
     if not bfloat16:
         for key, ref in parts["cpu"].items():
             assert float(parts["cuda"][key]) == pytest.approx(float(ref), rel=1e-3, abs=1e-6), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img_grad", [True, False], ids=["dimg", "no_dimg"])
+@pytest.mark.parametrize("mode", list(TYPE_MODES))
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+@pytest.mark.parametrize("shape", [(2, 37, 3, 13), (2, 32, 8, 26), (1, 3, 9, 53)], ids=str)
+def test_warp2d_backward_channel_groups_and_repeats_on_card(shape, padding, mode, img_grad):
+    """The 2-D backward with channel groups (small planes under many channels,
+    the last group of 37 channels short) and without (3 channels): ``dimg``
+    and ``dflow`` against autograd through the plain version on float32
+    copies of the same inputs, one launch a call, and ``dflow`` twice bit for
+    bit; flows of the plane's size leave the image on every side, and a ramp
+    is smooth, as a model's flows are."""
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch_backward, backward_geometry
+
+    _cuda_or_skip()
+    dt, ft = (getattr(torch, name) for name in TYPE_MODES[mode])
+    b, c, h, w = shape
+    assert (backward_geometry(shape).groups > 1) == (c > 3)
+    rng = np.random.default_rng(sum(shape) + len(mode))
+    img = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).cuda().to(dt)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(dt)
+    iid = np.round(rng.standard_normal((b, 2, h, w)) * h * 2) / 4 + 0.11
+    ramp = np.linspace(0.3, 1.4, w)[None, None, None, :] + np.zeros((b, 2, h, 1))
+    for flow_np in (iid, ramp):
+        flow = torch.from_numpy(flow_np.astype(np.float32)).cuda().to(ft)
+
+        def through(fn, im, fl):
+            im = im.detach().clone().requires_grad_(img_grad)
+            fl = fl.detach().clone().requires_grad_(True)
+            fn(im, fl, 0, padding).backward(g.float() if im.dtype == torch.float32 else g)
+            return im.grad, fl.grad
+
+        before = dict(LAUNCHES)
+        dimg, dflow = through(warp2d, img, flow)
+        torch.cuda.synchronize()
+        assert LAUNCHES["warp2d_bwd"] == before["warp2d_bwd"] + 1
+        dimg_ref, dflow_ref = through(tw.warp2d_plain, img.float(), flow.float())
+        rel = 1e-4 if dt == torch.float32 else 1e-2
+        assert dflow.dtype == ft
+        scale = float(dflow_ref.abs().max())
+        assert float((dflow.float() - dflow_ref).abs().max()) <= rel * scale
+        if img_grad:
+            assert dimg.dtype == dt
+            scale = float(dimg_ref.abs().max())
+            assert float((dimg.float() - dimg_ref).abs().max()) <= rel * scale
+        else:
+            assert dimg is None
+        runs = [_launch_backward(img, flow, g, 0, padding, img_grad)[1] for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])

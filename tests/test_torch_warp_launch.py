@@ -321,3 +321,208 @@ def test_warp3d_backward_refuses_2_31_voxels_before_allocating(monkeypatch, shap
         with pytest.raises(ValueError, match="32-bit"):
             _launch3d_backward(img, flow, img, 8, 8, "border", need_dimg)
     assert LAUNCHES == before
+
+
+# -- the 2-D backward: the forward's grid, with channel groups ------------------------
+
+from opticalflowscivis_tpu_torch.ops.kernels.warp import (  # noqa: E402
+    _launch_backward,
+    backward_geometry,
+)
+
+
+def _replay_visits2d(shape, launch, spread=False):
+    """How often the 2-D backward's loops visit each pixel ``[B, H, W]`` and
+    each channel, replayed in numpy from the kernel's own arithmetic.  Thread
+    ``tx`` of block column ``bx`` takes the pixels ``x0 = 4 * (bx * TX + tx)``
+    to ``x0 + n - 1``, ``n = min(4, W - x0)``, or with ``spread`` (``dimg``
+    over several channels) ``x0 = 4 * bx * TX + tx`` and ``x0 + j * TX`` for
+    ``j < n = min(4, ceil((W - x0) / TX))``, where ``x0`` is below W; block
+    row ``by`` walks row tiles ``by * TY, by * TY + gy * TY, ...`` below H, its
+    thread ``ty`` the row ``tile + ty`` where that is below H; block plane
+    ``bz`` walks ``bz, bz + gz, ...`` below B; group ``k`` of G takes the
+    channels ``[k * per, min(C, (k + 1) * per))``, ``per = ceil(C / G)``.  The
+    loops are independent, so visits multiply; only the group-0 thread of a
+    pixel writes its ``dflow``, so a pixel visited once is written once."""
+    b_, c_, h_, w_ = shape
+    (gx, gy, gz), (tx, ty), groups = launch.grid, launch.block, launch.groups
+    xs = []
+    for bx in range(gx):
+        for t in range(tx):
+            x0, step = (4 * bx * tx + t, tx) if spread else (4 * (bx * tx + t), 1)
+            if x0 < w_:
+                n = min(4, -(-(w_ - x0) // step))
+                xs.extend(range(x0, x0 + n * step, step))
+    xs = np.asarray(xs, np.int64)
+    x_visits = np.bincount(xs, minlength=w_)
+    tiles = np.concatenate([np.arange(by * ty, h_, gy * ty) for by in range(gy)])
+    rows = (tiles[:, None] + np.arange(ty)[None]).ravel()
+    y_visits = np.bincount(rows[rows < h_], minlength=h_)
+    planes = np.concatenate([np.arange(bz, b_, gz) for bz in range(gz)])
+    p_visits = np.bincount(planes, minlength=b_)
+    per = -(-c_ // groups)
+    c_visits = np.zeros(c_, np.int64)
+    for k in range(groups):
+        c_visits[min(c_, k * per):min(c_, (k + 1) * per)] += 1
+    return p_visits, y_visits, x_visits, c_visits
+
+
+# RIFE-2D's training shape, UPFlow's photometric warp, its four warped
+# feature levels and its coarsest map, ragged widths (1, 3, 5, 13, 37, 53,
+# 1023, 1025), channels that do not divide into the groups, and the
+# grid-stride shapes: batch and rows beyond the grid's 65535 limit, with one
+# channel group and with several
+BACKWARD2D_SHAPES = [
+    (64, 1, 128, 128),
+    (8, 3, 256, 832),
+    (16, 128, 8, 26),
+    (16, 96, 16, 52),
+    (16, 64, 32, 104),
+    (16, 32, 64, 208),
+    (16, 196, 4, 13),
+    (2, 3, 5, 1),
+    (1, 3, 1, 37),
+    (3, 1, 9, 53),
+    (2, 37, 3, 13),
+    (1, 64, 5, 37),
+    (2, 1, 7, 1023),
+    (2, 9, 7, 1025),
+    (3, 100, 2, 3),
+    (2, 16, 1, 5),
+    (70000, 1, 1, 5),
+    (70000, 16, 1, 5),
+    (1, 2, 65535 * 256 + 3, 1),
+]
+
+
+@pytest.mark.parametrize("spread", [False, True], ids=["consecutive", "spread"])
+@pytest.mark.parametrize("shape", BACKWARD2D_SHAPES, ids=str)
+def test_warp2d_backward_grid_visits_every_pixel_and_channel_once(shape, spread):
+    launch = backward_geometry(shape)
+    (gx, gy, gz), (tx, ty) = launch.grid, launch.block
+    assert tx * ty * launch.groups <= 256 and 1 <= launch.groups <= 64
+    assert gx * tx * 4 >= shape[3] and (gx - 1) * tx * 4 < shape[3]
+    assert 1 <= gy <= 65535 and 1 <= gz <= 65535
+    assert launch.strided == (shape[0] > 65535 or -(-shape[2] // ty) > 65535)
+    p_visits, y_visits, x_visits, c_visits = _replay_visits2d(shape, launch, spread)
+    # every pixel once (so its dflow by one group-0 thread), every channel by one group
+    assert (p_visits == 1).all() and (y_visits == 1).all() and (x_visits == 1).all()
+    assert (c_visits == 1).all()
+    if np.prod(shape) <= 2**21:  # the (pixel, channel) grid itself, where it is small
+        visits = np.einsum("b,c,y,x->bcyx", p_visits, c_visits, y_visits, x_visits)
+        assert visits.shape == tuple(shape) and (visits == 1).all()
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("plane", [(1, 1), (4, 13), (8, 26), (64, 208), (128, 128), (256, 832)],
+                         ids=str)
+def test_warp2d_backward_takes_one_channel_group_at_three_channels_or_fewer(plane, channels):
+    """RIFE's one channel and the photometric three: the forward's launch, no
+    groups, so the kernel without shared memory and barriers runs them."""
+    for batch in (1, 16, 64):
+        shape = (batch, channels) + plane
+        launch = backward_geometry(shape)
+        assert launch.groups == 1 and launch == launch_geometry(shape)
+
+
+@pytest.mark.parametrize(
+    "shape, groups",
+    [
+        ((16, 128, 8, 26), 32),  # /32
+        ((16, 96, 16, 52), 16),  # /16
+        ((16, 64, 32, 104), 8),  # /8
+        ((16, 32, 64, 208), 4),  # /4
+        ((16, 196, 4, 13), 32),  # the coarsest map
+        ((64, 32, 256, 256), 1),  # pixels enough to fill the card alone
+        ((16, 7, 4, 13), 1),  # fewer than 8 channels: no two groups of 4
+        ((16, 8, 4, 13), 2),
+    ],
+)
+def test_warp2d_backward_channel_groups_at_upflows_levels(shape, groups):
+    """Channel groups where the pixels alone leave the card empty: doubled
+    while the launch's threads stay below the 132 x 2048 the card holds at
+    once, each group keeps at least 4 channels and a block at most 256
+    threads."""
+    launch = backward_geometry(shape)
+    assert launch.groups == groups
+    tx, ty = launch.block
+    assert -(-shape[1] // groups) >= 4 and tx * ty * groups <= 256
+    if groups > 1:  # rows fill what the groups leave of 256 threads
+        assert ty == min(256 // (tx * groups), shape[2])
+
+
+@pytest.fixture
+def _recorded_backward2d(monkeypatch):
+    """``_launch_backward`` on meta tensors with the library, the device and
+    the stream stood in for: returns the arguments each call hands the C
+    entry ``warp2d_backward``."""
+    calls = []
+
+    def warp2d_backward(*args):
+        calls.append(args)
+        return 0
+
+    lib = types.SimpleNamespace(warp2d_backward=warp2d_backward)
+    monkeypatch.setattr(kernels_warp, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("need_dimg", [False, True], ids=["dflow", "dimg"])
+@pytest.mark.parametrize(
+    "dtype, flow_dtype, code",
+    [("float32", "float32", 0), ("bfloat16", "bfloat16", 1), ("bfloat16", "float32", 2)],
+    ids=["f32", "bf16", "bf16_img_f32_flow"],
+)
+@pytest.mark.parametrize("shape", [BACKWARD2D_SHAPES[i] for i in (0, 2, 5, 10, 17, 18)], ids=str)
+def test_warp2d_backward_launches_on_backward_geometry(_recorded_backward2d, shape, dtype,
+                                                      flow_dtype, code, need_dimg):
+    """One launch a call, on ``backward_geometry``'s grid, block and groups;
+    the flow a slice of a channels-last 4-channel flow and g channels-last,
+    both read through their strides; ``dflow`` in the flow's type, ``dimg``
+    in the image's."""
+    dt, ft = getattr(torch, dtype), getattr(torch, flow_dtype)
+    b, c, h, w = shape
+    img = torch.empty(shape, dtype=dt, device="meta")
+    flow4 = torch.empty((b, 4, h, w), dtype=ft, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    flow = flow4[:, 2:4]
+    g = torch.empty(shape, dtype=dt, device="meta").contiguous(memory_format=torch.channels_last)
+    before = dict(LAUNCHES)
+    dimg, dflow = _launch_backward(img, flow, g, 0, "zeros", need_dimg)
+    assert LAUNCHES["warp2d_bwd"] == before["warp2d_bwd"] + 1
+    (args,) = _recorded_backward2d
+    launch = backward_geometry(shape)
+    assert tuple(args[-7:-1]) == launch.grid + launch.block + (launch.groups,)
+    assert tuple(args[5:9]) == shape
+    assert tuple(args[9:13]) == flow.stride() and tuple(args[13:17]) == g.stride()
+    assert tuple(args[17:20]) == (0, 1, code)
+    assert dflow.shape == (b, 2, h, w) and dflow.dtype == ft
+    assert (dimg is not None) == need_dimg and (args[4] is not None) == need_dimg
+    if need_dimg:
+        assert dimg.shape == shape and dimg.dtype == dt
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 46341, 46341), (1, 2, 2**31, 1), (1, 1, 1, 2**31)],
+                         ids=str)
+def test_warp2d_backward_refuses_2_31_elements_a_plane_before_allocating(monkeypatch, shape):
+    """A plane that 32-bit offsets cannot address raises ``ValueError``
+    before any buffer is made or the library is asked for; nothing counts
+    as launched."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("allocated or built before refusing")
+
+    b, _, h, w = shape
+    img = torch.empty(shape, device="meta")
+    flow = torch.empty((b, 2, h, w), device="meta")
+    monkeypatch.setattr(kernels_warp, "_library", refuse)
+    monkeypatch.setattr(torch, "empty", refuse)
+    monkeypatch.setattr(torch, "zeros", refuse)
+    before = dict(LAUNCHES)
+    for need_dimg in (False, True):
+        with pytest.raises(ValueError, match="32-bit"):
+            _launch_backward(img, flow, img, 0, "zeros", need_dimg)
+    assert LAUNCHES == before
