@@ -9,11 +9,14 @@ holds each kernel against its plain PyTorch version on the card, drives the
 main paths at the full width of ``ifnet_2d``, ``ifnet_3d`` and ``UPFlowNet``
 and shows that each went through the kernels: interpolation serving
 (``Interpolator``, ``interpolate_series``) and training (``Trainer.fit``, then
-the CLI verbs generate → train → test → inference_video), on 2-D frames and on
-64^3 volumes, the ``train256`` module at 128^3, and UPFlow flow estimation
-(``UPFlowTrainer.predict``) and training (``UPFlowTrainer.fit``, then
-``train_upflow`` → ``test_upflow``) at 256 x 832.  It compares each path with
-the same weights on the CPU, and times them.
+the CLI verbs generate → train → test → inference_video → select), on 2-D
+frames and on 64^3 volumes, the ``train256`` module at 128^3, UPFlow flow
+estimation (``UPFlowTrainer.predict``) and training (``UPFlowTrainer.fit``,
+then ``train_upflow`` → ``test_upflow``) at 256 x 832, and UPFlow on KITTI-sized
+frames: training from the device-resident frame store (``fit_kitti_hbm``) and
+streamed (``fit_kitti``), and the Evaluation_bench (``evaluate_kitti``) at
+384 x 1280.  It compares each path with the same weights on the CPU or with
+the plain kernels, and times them.
 
 Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time,
@@ -61,7 +64,16 @@ Phases, printed in order:
      what each 2-D backward call of an f32 and a bf16 RIFE-2D and UPFlow train
      step hands the kernel (``warp2d layouts``), both decode forms, the CLI
      verbs;
-  9. times (CUDA events, warm-up, inputs that vary from call to call) and
+  9. KITTI multiview at full width (bf16, crop 256 x 832, batch 8): a frame
+     store of 210 frames at 375 x 1242 from ``KittiHBMCache.from_frames``,
+     the first batch cut on the card against numpy, ``fit_kitti_hbm`` for 16
+     steps (5 ``corr`` / ``corr_bwd``, 6 ``warp2d``, 4 ``warp2d_bwd`` a step)
+     and a second call on the same store, ``fit_kitti`` through a
+     ``PrefetchSampler``, ``evaluate_kitti`` on 4 pairs against the plain
+     kernels' report (bf16 and float32), the share of
+     ``boundary_dilated_warp``, and ``corr``, ``corr_bwd`` and the masked
+     ``warp2d`` at the five 384 x 1280 evaluation levels;
+ 10. times (CUDA events, warm-up, inputs that vary from call to call) and
      profiles of all paths; each forward warp kernel against ``F.grid_sample``
      in turns (the median of 5 profiler windows of 40 calls each), also at
      UPFlow's finest feature warp; the 2-D backward where training runs it
@@ -71,7 +83,7 @@ Phases, printed in order:
      the host's µs per call, its bound and autograd through ``F.grid_sample``;
      the 3-D backward on iid and smooth flows, f32 and bf16, at 64^3 and
      256^3 (``warp3d_bwd cases``);
- 10. one ``{"kernels": [...]}`` line.
+ 11. one ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no result; it also does so without a
 CUDA device or without the port beside it.
@@ -401,6 +413,14 @@ def phase_card(torch):
     print(smi)
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}")
+    # the optional modules the readers (cv2) and the panels (matplotlib) need
+    found = {}
+    for name in ("cv2", "matplotlib", "PIL"):
+        try:
+            found[name] = getattr(__import__(name), "__version__", "present")
+        except ImportError:
+            found[name] = None
+    print("host modules " + json.dumps(found))
     from opticalflowscivis_tpu_torch.ops.kernels.build import build
 
     t0 = time.perf_counter()
@@ -469,9 +489,49 @@ def blocks_per_sm(registers: int, threads: int) -> int:
     return min(65536 // per_warp // warps, 2048 // threads, 32)
 
 
-def phase_kernel_vs_plain(torch):
+def upflow_warp_case(torch, shape, padding: str, dtype, cl: bool, seed: int) -> float:
+    """UPFlow's warp (unbounded, a float32 flow) at ``shape`` [B, H, W, C]
+    against ``warp2d_plain``, and its fused validity mask bit for bit against
+    the warp of ones; returns the largest error."""
     from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
     from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp2d_with_mask
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    # flows of the plane's own size, so that taps fall on both sides of its edge
+    img, flow = warp_inputs(shape, dtype, seed, scale=min(10.0, shape[1] / 2),
+                            channels_last=cl, flow_dtype=torch.float32)
+    out = warp2d(img, flow, 0, padding)
+    ref = warp2d_plain(img, flow, 0, padding)
+    torch.cuda.synchronize()
+    check(out.dtype == dtype and out.shape == ref.shape, "kernel output type")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if dtype == torch.float32:
+        ok, tol = err <= F32_TOL, f"{F32_TOL:g}"
+    else:
+        ok = bool((diff <= bf16_ulp(ref.float())).all())
+        tol = "1 bf16 ulp"
+    name = "float32" if dtype == torch.float32 else "bf16 img, f32 flow"
+    # UPFlow's masked warp: one launch writes the warp and the
+    # validity mask, which is the warp of ones bit for bit
+    before = LAUNCHES["warp2d"]
+    warped, mask = warp2d_with_mask(img, flow, padding)
+    torch.cuda.synchronize()
+    check(LAUNCHES["warp2d"] == before + 1, "warp2d_with_mask launch count")
+    ones = torch.ones_like(mask)
+    fused = (torch.equal(mask, warp2d(ones, flow, 0, "zeros"))
+             and torch.equal(warped, out))
+    print(f"warp2d {list(shape)} {padding:6s} r= 0 {name:18s} "
+          f"{'nhwc' if cl else 'nchw'} max_abs_err={err:.3e} tol={tol} "
+          f"fused mask bit-equal={fused} {'ok' if ok else 'FAIL'}")
+    check(ok, f"warp2d kernel disagrees with plain ({shape}, {padding}, r=0, {name})")
+    check(fused, f"warp2d's fused mask differs from the warp of ones ({shape}, "
+                 f"{padding}, {name})")
+    return err
+
+
+def phase_kernel_vs_plain(torch):
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
     from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
 
     worst_f32 = 0.0
@@ -506,37 +566,9 @@ def phase_kernel_vs_plain(torch):
             for dtype in (torch.float32, torch.bfloat16):
                 for cl in (False, True):
                     seed += 1
-                    # flows of the plane's own size, so that taps fall on both sides of its edge
-                    img, flow = warp_inputs(shape, dtype, seed, scale=min(10.0, shape[1] / 2),
-                                            channels_last=cl, flow_dtype=torch.float32)
-                    out = warp2d(img, flow, 0, padding)
-                    ref = warp2d_plain(img, flow, 0, padding)
-                    torch.cuda.synchronize()
-                    check(out.dtype == dtype and out.shape == ref.shape, "kernel output type")
-                    diff = (out.float() - ref.float()).abs()
-                    err = float(diff.max())
+                    err = upflow_warp_case(torch, shape, padding, dtype, cl, seed)
                     if dtype == torch.float32:
-                        ok, tol = err <= F32_TOL, f"{F32_TOL:g}"
                         worst_f32 = max(worst_f32, err)
-                    else:
-                        ok = bool((diff <= bf16_ulp(ref.float())).all())
-                        tol = "1 bf16 ulp"
-                    name = "float32" if dtype == torch.float32 else "bf16 img, f32 flow"
-                    # UPFlow's masked warp: one launch writes the warp and the
-                    # validity mask, which is the warp of ones bit for bit
-                    before = LAUNCHES["warp2d"]
-                    warped, mask = warp2d_with_mask(img, flow, padding)
-                    torch.cuda.synchronize()
-                    check(LAUNCHES["warp2d"] == before + 1, "warp2d_with_mask launch count")
-                    ones = torch.ones_like(mask)
-                    fused = (torch.equal(mask, warp2d(ones, flow, 0, "zeros"))
-                             and torch.equal(warped, out))
-                    print(f"warp2d {list(shape)} {padding:6s} r= 0 {name:18s} "
-                          f"{'nhwc' if cl else 'nchw'} max_abs_err={err:.3e} tol={tol} "
-                          f"fused mask bit-equal={fused} {'ok' if ok else 'FAIL'}")
-                    check(ok, f"warp2d kernel disagrees with plain ({shape}, {padding}, r=0, {name})")
-                    check(fused, f"warp2d's fused mask differs from the warp of ones ({shape}, "
-                                 f"{padding}, {name})")
     return worst_f32
 
 
@@ -1287,7 +1319,8 @@ def phase_train_step_vs_cpu(torch, tmp: str):
 
 
 def phase_cli(torch, tmp: str):
-    """generate → train (1 epoch) → test → inference_video, in process, on the card."""
+    """generate → train (1 epoch) → test → inference_video → select (the linear
+    baseline, then the checkpoint), in process, on the card."""
     from opticalflowscivis_tpu_torch.cli.__main__ import main as cli
     from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
 
@@ -1300,6 +1333,13 @@ def phase_cli(torch, tmp: str):
     cli(["test", "--dataset", "rectangle2d", *dirs])
     cli(["inference_video", "--dataset", "rectangle2d", "--factors", "2,4", "--max_frames", "9",
          *dirs])
+    # time-step selection: the linear baseline, then through the checkpoint
+    selections = {}
+    for flag in ("--linear", None):
+        cli(["select", "--dataset", "rectangle2d", "--factor", "2", "--factors", "2,4,8",
+             *([flag] if flag else []), *dirs])
+        with open(os.path.join(tmp, "cli_r", "selection_rectangle2d.json")) as f:
+            selections[flag or "model"] = json.load(f)
     torch.cuda.synchronize()
     run = os.path.join(tmp, "cli_r", "rectangle2d")
     with open(os.path.join(run, "2x", "flownet", "loss.json")) as f:
@@ -1315,8 +1355,15 @@ def phase_cli(torch, tmp: str):
                                             for v in row.values()), "cli interp report")
     check(os.path.isfile(os.path.join(tmp, "cli_l", "rectangle2d", "flownet.ckpt")),
           "cli checkpoint")
+    for name, sel in selections.items():
+        print(f"cli select {name}: selected {sel['n_selected']} of the interpolated frames, "
+              f"threshold {sel['psnr_threshold']} dB, curve {json.dumps(sel['curve'])}")
+        check(isinstance(sel["selected_timesteps"], list)
+              and all(t % 2 == 1 for t in sel["selected_timesteps"])
+              and set(sel["curve"]) <= {"2", "4", "8"} and "2" in sel["curve"],
+              f"cli select {name} report")
     delta = {k: LAUNCHES[k] - before[k] for k in ("warp2d", "warp2d_bwd")}
-    print(f"cli: generate, train, test, inference_video ok; launches={delta}")
+    print(f"cli: generate, train, test, inference_video, select ok; launches={delta}")
     check(all(v > 0 for v in delta.values()), "the CLI run missed a kernel")
 
 
@@ -2412,15 +2459,11 @@ def corr_inputs(torch, shape, dtype, seed: int, channels_last: bool):
     return f1, f2, grad
 
 
-def phase_corr_vs_plain(torch):
+def corr_case(torch, shape, md: int, dtype, cl: bool, seed: int, needs_all: bool,
+              worst: dict) -> None:
     """``corr`` against ``cost_volume_plain`` and ``corr_bwd`` against autograd
-    through it: the five model shapes and an odd one, md 4 and 2 (the odd shape
-    also md 1 and 3: every md the kernels are built for), f32 and bf16,
-    contiguous and channels-last; the odd shape, and two on the backward
-    tile's edges (at md 1 and 3, and at md 4 with rows of a multiple of 4),
-    also with each gradient alone.  Then channel
-    slices of wider maps, two runs of each kernel bit for bit, and the
-    launch geometries against ``forward_launch`` and ``backward_launch``."""
+    through it on one case (``needs_all``: also with each gradient alone), at
+    the tolerances of ``PERF.md`` §2; the worst errors go into ``worst``."""
     from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
     from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
     from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
@@ -2430,6 +2473,79 @@ def phase_corr_vs_plain(torch):
         b = f2.detach().clone(memory_format=torch.preserve_format).requires_grad_(needs != "f1")
         fn(a, b, md).backward(g)
         return a.grad, b.grad
+
+    name = str(dtype).replace("torch.", "")
+    tag = f"{list(shape)} md={md} {name:8s} {'nhwc' if cl else 'nchw'}"
+    f1, f2, grad = corr_inputs(torch, shape, dtype, seed, cl)
+    before = dict(LAUNCHES)
+    out = cost_volume_kernel(f1, f2, md)
+    torch.cuda.synchronize()
+    ref = cost_volume_plain(f1, f2, md)
+    check(LAUNCHES["corr"] == before["corr"] + 1
+          and LAUNCHES["corr_bwd"] == before["corr_bwd"], "corr launch count")
+    check(out.dtype == dtype and out.shape == ref.shape and out.is_contiguous(),
+          "corr output type")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if dtype == torch.float32:
+        ok, tol = err <= F32_TOL, f"{F32_TOL:g}"
+        worst["fwd"] = max(worst["fwd"], err)
+    else:
+        # the float32 sums of C products that cancel differ by up
+        # to F32_TOL whatever the result's size; each side then
+        # rounds once to bf16
+        near = within_one_bf16_ulp(out, ref, slack=F32_TOL)
+        ok, tol = bool(near.all()), f"1 bf16 ulp + {F32_TOL:g}"
+    print(f"corr {tag} max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        at = int((~near).flatten().nonzero()[0])
+        print(f"  first element beyond: kernel {float(out.flatten()[at]):.8e} "
+              f"plain {float(ref.flatten()[at]):.8e}")
+    check(ok, f"corr kernel disagrees with plain ({tag})")
+    worst["fwd_cases"] += 1
+
+    g = grad(md)
+    for needs in (("both", "f1", "f2") if needs_all else ("both",)):
+        before = dict(LAUNCHES)
+        got = grads(cost_volume_kernel, f1, f2, g, md, needs)
+        torch.cuda.synchronize()
+        check(LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1,
+              "corr backward launch count")
+        want = grads(cost_volume_plain, f1, f2, g, md, needs)
+        check(LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1,
+              "the plain version launched")
+        rel = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+        ok, shown = True, []
+        for what, x, y in zip(("df1", "df2"), got, want):
+            if y is None:
+                check(x is None, f"a gradient nobody asked for ({what})")
+                continue
+            check(x.dtype == dtype and x.shape == y.shape, f"{what} type")
+            err = float((x.float() - y.float()).abs().max())
+            scale = float(y.float().abs().max())
+            ok = ok and err <= rel * scale
+            shown.append(f"{what}_err={err:.3e} (max|ref|={scale:.3e})")
+            if dtype == torch.float32:
+                worst["bwd"] = max(worst["bwd"], err)
+            else:
+                worst["bwd_bf16_rel"] = max(worst["bwd_bf16_rel"], err / scale)
+        worst["bwd_cases"] += 1
+        print(f"corr_bwd {tag} needs={needs:4s} {' '.join(shown)} "
+              f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
+        check(ok, f"corr backward disagrees with plain ({tag}, {needs})")
+
+
+def phase_corr_vs_plain(torch):
+    """``corr`` against ``cost_volume_plain`` and ``corr_bwd`` against autograd
+    through it: the five model shapes and an odd one, md 4 and 2 (the odd shape
+    also md 1 and 3: every md the kernels are built for), f32 and bf16,
+    contiguous and channels-last; the odd shape, and two on the backward
+    tile's edges (at md 1 and 3, and at md 4 with rows of a multiple of 4),
+    also with each gradient alone.  Then channel
+    slices of wider maps, two runs of each kernel bit for bit, and the
+    launch geometries against ``forward_launch`` and ``backward_launch``."""
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+    from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
 
     # worst float32 errors (absolute), worst bf16 gradient error relative to
     # the largest gradient of its case, and the number of cases
@@ -2443,65 +2559,7 @@ def phase_corr_vs_plain(torch):
             for dtype in (torch.float32, torch.bfloat16):
                 for cl in (False, True):
                     seed += 1
-                    name = str(dtype).replace("torch.", "")
-                    tag = f"{list(shape)} md={md} {name:8s} {'nhwc' if cl else 'nchw'}"
-                    f1, f2, grad = corr_inputs(torch, shape, dtype, seed, cl)
-                    before = dict(LAUNCHES)
-                    out = cost_volume_kernel(f1, f2, md)
-                    torch.cuda.synchronize()
-                    ref = cost_volume_plain(f1, f2, md)
-                    check(LAUNCHES["corr"] == before["corr"] + 1
-                          and LAUNCHES["corr_bwd"] == before["corr_bwd"], "corr launch count")
-                    check(out.dtype == dtype and out.shape == ref.shape and out.is_contiguous(),
-                          "corr output type")
-                    diff = (out.float() - ref.float()).abs()
-                    err = float(diff.max())
-                    if dtype == torch.float32:
-                        ok, tol = err <= F32_TOL, f"{F32_TOL:g}"
-                        worst["fwd"] = max(worst["fwd"], err)
-                    else:
-                        # the float32 sums of C products that cancel differ by up
-                        # to F32_TOL whatever the result's size; each side then
-                        # rounds once to bf16
-                        near = within_one_bf16_ulp(out, ref, slack=F32_TOL)
-                        ok, tol = bool(near.all()), f"1 bf16 ulp + {F32_TOL:g}"
-                    print(f"corr {tag} max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        at = int((~near).flatten().nonzero()[0])
-                        print(f"  first element beyond: kernel {float(out.flatten()[at]):.8e} "
-                              f"plain {float(ref.flatten()[at]):.8e}")
-                    check(ok, f"corr kernel disagrees with plain ({tag})")
-                    worst["fwd_cases"] += 1
-
-                    g = grad(md)
-                    for needs in (("both", "f1", "f2") if odd else ("both",)):
-                        before = dict(LAUNCHES)
-                        got = grads(cost_volume_kernel, f1, f2, g, md, needs)
-                        torch.cuda.synchronize()
-                        check(LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1,
-                              "corr backward launch count")
-                        want = grads(cost_volume_plain, f1, f2, g, md, needs)
-                        check(LAUNCHES["corr_bwd"] == before["corr_bwd"] + 1,
-                              "the plain version launched")
-                        rel = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
-                        ok, shown = True, []
-                        for what, x, y in zip(("df1", "df2"), got, want):
-                            if y is None:
-                                check(x is None, f"a gradient nobody asked for ({what})")
-                                continue
-                            check(x.dtype == dtype and x.shape == y.shape, f"{what} type")
-                            err = float((x.float() - y.float()).abs().max())
-                            scale = float(y.float().abs().max())
-                            ok = ok and err <= rel * scale
-                            shown.append(f"{what}_err={err:.3e} (max|ref|={scale:.3e})")
-                            if dtype == torch.float32:
-                                worst["bwd"] = max(worst["bwd"], err)
-                            else:
-                                worst["bwd_bf16_rel"] = max(worst["bwd_bf16_rel"], err / scale)
-                        worst["bwd_cases"] += 1
-                        print(f"corr_bwd {tag} needs={needs:4s} {' '.join(shown)} "
-                              f"tol={rel:g}*max|ref| {'ok' if ok else 'FAIL'}")
-                        check(ok, f"corr backward disagrees with plain ({tag}, {needs})")
+                    corr_case(torch, shape, md, dtype, cl, seed, odd, worst)
     corr_bwd_slices_and_repeats(torch, worst)
     corr_fwd_geometry(torch)
     corr_bwd_geometry(torch)
@@ -3064,6 +3122,343 @@ def phase_upflow_times(torch, serving, training):
     return times, out
 
 
+# KITTI multiview: 10 sequences of 21 frames at KITTI's 375 x 1242 (210
+# frames, 200 pairs, 0.59 GB in bf16), cut from the CLI's default of 1000
+# pairs (--hbm_cache) to keep this phase within the script's time
+KITTI_FRAME_HW = (375, 1242)
+KITTI_SEQUENCES, KITTI_FRAMES = 10, 21
+KITTI_SHIFT = (3, -5)  # px a frame; the forward flow of every pair
+KITTI_CROP, KITTI_RHO = (256, 832), 8
+KITTI_STEPS = 16
+KITTI_EVAL_PAIRS = 4
+# the Evaluation_bench pads KITTI-2015's frames to 384 x 1280 at batch 1: the
+# five cost volumes [B, C, H, W] (both directions stacked, coarsest first) and
+# the feature warps [B, H, W, C] of the same levels
+KITTI_EVAL_CORR = ((2, 196, 6, 20), (2, 128, 12, 40), (2, 96, 24, 80), (2, 64, 48, 160),
+                   (2, 32, 96, 320))
+KITTI_EVAL_WARPS = tuple((b, h, w, c) for b, c, h, w in KITTI_EVAL_CORR)
+# kernels' report against the plain versions' on the same trainer: float32
+# as the CPU comparisons (CPU_TOL of the larger of 1 and the score); bf16
+# features at the bf16 model's mean-flow bound
+KITTI_REPORT_TOL = {"float32": CPU_TOL, "bfloat16": UPFLOW_BF16_FLOW_MEAN_TOL}
+
+
+def kitti_frames(torch, seed: int):
+    """``(frames, raw)``: ``[S * T, H, W, 3]`` float32 frames normalized as
+    KITTI training wants them (``kitti_photometric_normalize``), and the first
+    sequence in [0, 1].  Each sequence is a smooth multi-octave texture (noise
+    on grids of 8, 32 and 128 px, upsampled) seen through a window that moves
+    by ``KITTI_SHIFT`` a frame: frame t+1 at p is frame t at p - shift."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.data import kitti_photometric_normalize
+
+    h, w = KITTI_FRAME_HW
+    n, t = KITTI_SEQUENCES, KITTI_FRAMES
+    dy, dx = KITTI_SHIFT
+    big = (h + abs(dy) * (t - 1), w + abs(dx) * (t - 1))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tex = torch.zeros((n, 3) + big, device="cuda")
+    for cell, amp in ((8, 0.125), (32, 0.25), (128, 0.5)):
+        coarse = torch.rand((n, 3, big[0] // cell + 2, big[1] // cell + 2), generator=gen,
+                            device="cuda")
+        tex += amp * F.interpolate(coarse, size=big, mode="bicubic", align_corners=True)
+    tex = (tex / 0.875).clamp(0, 1)
+    oy, ox = max(dy, 0) * (t - 1), max(dx, 0) * (t - 1)
+    seq = torch.stack([tex[:, :, oy - dy * f : oy - dy * f + h, ox - dx * f : ox - dx * f + w]
+                       for f in range(t)], dim=1)  # [n, t, 3, h, w]
+    raw = seq.permute(0, 1, 3, 4, 2).reshape(n * t, h, w, 3).cpu().numpy()
+    return kitti_photometric_normalize(raw), raw[:t]
+
+
+def kitti_eval_samples(raw):
+    """``KITTI_EVAL_PAIRS`` samples as ``load_kitti_eval_pairs`` yields them:
+    consecutive frames in [0, 1] with their known flow, valid everywhere in
+    ``flow_occ`` and, in ``flow_noc``, where the shift stays in the frame."""
+    h, w = KITTI_FRAME_HW
+    dy, dx = KITTI_SHIFT
+    flow = np.broadcast_to(np.asarray(KITTI_SHIFT, np.float32), (h, w, 2)).copy()
+    ys, xs = np.mgrid[0:h, 0:w]
+    noc = ((ys + dy >= 0) & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w))
+    noc = noc[..., None].astype(np.float32)
+    occ = np.ones((h, w, 1), np.float32)
+    return [(f"{i:06d}", raw[i], raw[i + 1], flow, occ, flow * noc, noc)
+            for i in range(KITTI_EVAL_PAIRS)]
+
+
+def numpy_kitti_batch(frames, pid, offs, flip, swap, crop, rho) -> dict:
+    """A KITTI training batch cut in numpy from ``frames`` (indexable by frame
+    number, each ``[H, W, 3]``) as ``KittiPairDataset.sample`` cuts it: the
+    raw window around each crop, flipped, the frames swapped."""
+    ch, cw = crop
+    out = {k: [] for k in ("im1", "im2", "im1_raw", "im2_raw")}
+    for (a, b), (y0, x0), fl, sw in zip(pid, offs, flip, swap):
+        r1, r2 = (frames[int(i)][y0 - rho : y0 + ch + rho, x0 - rho : x0 + cw + rho]
+                  for i in (a, b))
+        if fl:
+            r1, r2 = r1[:, ::-1], r2[:, ::-1]
+        if sw:
+            r1, r2 = r2, r1
+        for k, r in (("1", r1), ("2", r2)):
+            out[f"im{k}_raw"].append(r)
+            out[f"im{k}"].append(r[rho : rho + ch, rho : rho + cw])
+    batch = {k: np.stack(v).astype(np.float32) for k, v in out.items()}
+    batch["start"] = np.full((len(pid), 2), float(rho), np.float32)
+    return batch
+
+
+class StoreSampler:
+    """``sample(batch)`` over a ``KittiHBMCache``'s host frames, the draws of
+    ``KittiHBMCache.draw`` cut as ``KittiPairDataset`` cuts them: the
+    streamed path's dataset without PNG files."""
+
+    def __init__(self, cache, seed: int):
+        self.cache, self.rng = cache, np.random.default_rng(seed)
+
+    def sample(self, batch: int) -> dict:
+        c = self.cache
+        return numpy_kitti_batch(c.frames, *c.draw(self.rng, batch), c.crop, c.rho)
+
+
+@contextlib.contextmanager
+def plain_kernels(torch):
+    """The UPFlow model's and losses' kernel wrappers replaced by their plain
+    PyTorch versions (``cost_volume_plain``, ``warp2d_plain`` and its mask as
+    the warp of ones), for a report to hold the kernels' against."""
+    from opticalflowscivis_tpu_torch.models import upflow as upflow_model
+    from opticalflowscivis_tpu_torch.ops.correlation import cost_volume_plain
+    from opticalflowscivis_tpu_torch.ops.kernels import warp as kernel_warp
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    def with_mask(img, flow, padding="zeros"):
+        ones = torch.ones((img.shape[0], 1) + tuple(img.shape[2:]), dtype=img.dtype,
+                          device=img.device)
+        return warp2d_plain(img, flow, 0, padding), warp2d_plain(ones, flow, 0, "zeros")
+
+    swaps = [(upflow_model, "cost_volume_kernel", cost_volume_plain),
+             (upflow_model, "warp2d", warp2d_plain), (upflow_model, "warp2d_with_mask", with_mask),
+             (kernel_warp, "warp2d", warp2d_plain), (kernel_warp, "warp2d_with_mask", with_mask)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def kitti_reports_agree(torch, tr, samples, what: str) -> dict:
+    """``evaluate_kitti`` of ``tr`` through the kernels, and again through
+    their plain versions (no launch), each score within ``KITTI_REPORT_TOL``
+    of the larger of 1 and the plain report's."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import evaluate_kitti
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+
+    dtype = "bfloat16" if tr.cfg.bfloat16 else "float32"
+    with deterministic_cudnn(torch):
+        got = evaluate_kitti(tr, samples)
+        before = dict(LAUNCHES)
+        with plain_kernels(torch):
+            want = evaluate_kitti(tr, samples)
+        check(dict(LAUNCHES) == before, "the plain versions launched a kernel")
+    tol = KITTI_REPORT_TOL[dtype]
+    worst = max(abs(got[k] - want[k]) / max(1.0, abs(want[k])) for k in want)
+    print(f"kitti eval {what} {dtype}: kernels {json.dumps(got)} plain {json.dumps(want)} "
+          f"worst rel diff {worst:.3e} tol={tol:g}")
+    check(set(got) == set(want) and all(math.isfinite(v) for v in got.values()),
+          f"kitti eval {what}: report not finite")
+    check(worst <= tol, f"kitti eval {what} {dtype}: the kernels' report disagrees")
+    return got
+
+
+def kitti_eval_kernels(torch) -> dict:
+    """``corr`` and ``corr_bwd`` at the five cost volumes of a 384 x 1280
+    evaluation pair and the masked ``warp2d`` at the same levels, f32 and
+    bf16, against their plain versions at ``PERF.md`` §2's tolerances."""
+    worst = {"fwd": 0.0, "bwd": 0.0, "bwd_bf16_rel": 0.0, "fwd_cases": 0, "bwd_cases": 0}
+    warp_worst = 0.0
+    seed = 1200
+    for corr_shape, warp_shape in zip(KITTI_EVAL_CORR, KITTI_EVAL_WARPS):
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            corr_case(torch, corr_shape, 4, dtype, False, seed, True, worst)
+            for padding in ("zeros", "border"):
+                err = upflow_warp_case(torch, warp_shape, padding, dtype, False, seed)
+                if dtype == torch.float32:
+                    warp_worst = max(warp_worst, err)
+    out = {"corr": worst["fwd"], "corr_bwd": worst["bwd"],
+           "corr_bwd_bf16_rel": worst["bwd_bf16_rel"], "warp2d": warp_worst}
+    print("kitti eval kernels vs plain " + json.dumps(out))
+    return out
+
+
+def phase_kitti(torch, tmp: str):
+    """KITTI multiview at full width (``UPFlowTrainConfig()``, bf16, crop
+    256 x 832, batch 8): the frame store from ``KittiHBMCache.from_frames``,
+    the first batch cut on the card against numpy, ``fit_kitti_hbm`` for
+    ``KITTI_STEPS`` steps and a second call on the same store, ``fit_kitti``
+    through a ``PrefetchSampler``, ``evaluate_kitti`` against the plain
+    kernels' report, and the kernels at the 384 x 1280 evaluation levels."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import evaluate_kitti
+    from opticalflowscivis_tpu_torch.data import KittiHBMCache, PrefetchSampler, device_batch
+    from opticalflowscivis_tpu_torch.ops import warp as ops_warp
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainer
+
+    t0 = time.perf_counter()
+    frames, raw = kitti_frames(torch, seed=12)
+    n, t = KITTI_SEQUENCES, KITTI_FRAMES
+    pairs = [(s * t + f, s * t + f + 1) for s in range(n) for f in range(t - 1)]
+    cache = KittiHBMCache.from_frames(frames, pairs, crop=KITTI_CROP, rho=KITTI_RHO)
+    del frames
+    samples = kitti_eval_samples(raw)
+    print(f"kitti frames: {cache.frames.shape} {len(cache)} pairs, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(cache.frames.shape == (n * t,) + KITTI_FRAME_HW + (3,) and len(cache) == n * (t - 1),
+          "kitti cache shape")
+
+    cfg = upflow_config(tmp, "kitti", True)
+    check(cfg.batch_size == 8 and cfg.bfloat16, "kitti: UPFlowTrainConfig's defaults")
+    tr = UPFlowTrainer(cfg)
+    tr.init_state()
+    h2d0 = time.perf_counter()
+    store = tr.kitti_store(cache)
+    torch.cuda.synchronize()
+    store_bytes = store.numel() * store.element_size()
+    print(f"kitti store: {list(store.shape)} {store.dtype} {store_bytes / 1e9:.3f} GB, "
+          f"uploaded in {time.perf_counter() - h2d0:.2f} s")
+    check(store.dtype == torch.bfloat16 and tuple(store.shape) == cache.frames.shape,
+          "kitti store type")
+
+    # the first batch fit_kitti_hbm draws, cut on the card, against numpy crops
+    # of the same store's frames
+    drawn = cache.draw(np.random.default_rng(cfg.seed + 2), cfg.batch_size)
+    got = device_batch(store, *(torch.from_numpy(np.asarray(a)) for a in drawn),
+                       cache.crop, cache.rho)
+    used = {int(i): store[int(i)].float().cpu().numpy() for i in np.unique(drawn[0])}
+    want = numpy_kitti_batch(used, *drawn, cache.crop, cache.rho)
+    for k, v in want.items():
+        check(got[k].dtype == torch.float32 and np.array_equal(got[k].cpu().numpy(), v),
+              f"kitti: the batch cut on the card differs from numpy's ({k})")
+    print(f"kitti first batch: pid {drawn[0].tolist()} offs {drawn[1].tolist()} flip "
+          f"{drawn[2].astype(int).tolist()} swap {drawn[3].astype(int).tolist()}: equal to numpy")
+
+    zero_epe = float(np.mean([np.linalg.norm(s[3], axis=-1).mean() for s in samples]))
+    with deterministic_cudnn(torch):
+        before_fit = evaluate_kitti(tr, samples)
+
+    # the main path: fit_kitti_hbm from the store
+    keys = ("corr", "corr_bwd", "warp2d", "warp2d_bwd")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the KITTI training path's run starts here
+    spe = KITTI_STEPS // 2
+    hist = tr.fit_kitti_hbm(cache, spe, epochs=2, log_every=spe)
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] for k in keys}  # read just after the run
+    peak = torch.cuda.max_memory_allocated()
+    print(f"kitti fit_kitti_hbm: {KITTI_STEPS} steps launches={counts} loss_total "
+          f"{hist[0]['loss_total']:.5f} -> {hist[-1]['loss_total']:.5f} peak memory "
+          f"{peak / 1e9:.2f} GB")
+    check(tr.state.step == KITTI_STEPS and len(hist) == 2
+          and all(math.isfinite(v) for parts in hist for v in parts.values()),
+          "kitti fit_kitti_hbm losses")
+    check(all(counts[k] > 0 for k in keys), "the KITTI training path missed a kernel")
+    check(all(counts[k] % KITTI_STEPS == 0 for k in keys), f"kitti launches {counts}")
+    per_step = {k: v // KITTI_STEPS for k, v in counts.items()}
+    ptr = store.data_ptr()
+    again = tr.fit_kitti_hbm(cache, 1, epochs=1, log_every=0)
+    check(tr.kitti_store(cache).data_ptr() == ptr and math.isfinite(again[0]["loss_total"]),
+          "kitti: a second fit_kitti_hbm call uploaded the store again")
+    with open(os.path.join(cfg.exp_dir, "loss.json")) as f:
+        check(len(json.load(f)["loss"]) == 3, "kitti loss.json")
+    check(os.path.isfile(tr.checkpoint_path()), "kitti checkpoint")
+
+    # one step's launches, and its time from the store (the batch cut included)
+    rng = np.random.default_rng(99)
+
+    def kitti_step(i):
+        drawn = [torch.from_numpy(np.asarray(a)) for a in cache.draw(rng, cfg.batch_size)]
+        return tr.train_step(device_batch(store, *drawn, cache.crop, cache.rho))
+
+    before = dict(LAUNCHES)
+    kitti_step(0)
+    torch.cuda.synchronize()
+    step_delta = launch_delta(before)
+    PER_CALL["kitti_train_step"] = step_delta
+    # the photometric term's two warps are boundary_dilated_warp's plain
+    # gathers: the 4 feature warps (with their gradient) and the occlusion
+    # check's 2 are the kernels'
+    print(f"kitti train step launches {step_delta}")
+    check(step_delta == per_step == {"corr": 5, "corr_bwd": 5, "warp2d": 6, "warp2d_bwd": 4},
+          f"kitti step launches {step_delta}, per step of the run {per_step}")
+    step_ms, step_host_ms = cuda_and_host_ms(kitti_step, iters=8)
+    profile_forward(torch, "upflow_kitti_train_bf16", kitti_step, iters=2, unit="train_step")
+    step_device_ms = device_ms(kitti_step, 2)
+
+    # boundary_dilated_warp's forward and backward at the step's shapes, as
+    # the photometric term calls it twice a step: its device time over the
+    # step's
+    b = cfg.batch_size
+    ch, cw = KITTI_CROP
+    batch = device_batch(store, *(torch.from_numpy(np.asarray(a)) for a in cache.draw(rng, b)),
+                         cache.crop, cache.rho)
+    flows = [(torch.randn((b, ch, cw, 2), device="cuda") * 4).requires_grad_(True)
+             for _ in range(2)]
+    grad = torch.randn((b, ch, cw, 3), device="cuda")
+
+    def photometric_warps(i):
+        for raw_img, fl in zip((batch["im2_raw"], batch["im1_raw"]), flows):
+            ops_warp.boundary_dilated_warp(raw_img, fl, batch["start"]).backward(grad)
+
+    bdw_ms = device_ms(photometric_warps, 5)
+    times = {
+        "kitti_train_step_ms": step_ms, "kitti_train_step_host_ms": step_host_ms,
+        "kitti_train_pairs_per_sec": b * 1e3 / step_ms,
+        "kitti_train_step_device_ms": step_device_ms,
+        "boundary_dilated_warp_device_ms_per_step": bdw_ms,
+        "boundary_dilated_warp_share": bdw_ms / step_device_ms,
+        "store_bytes": store_bytes, "peak_memory_bytes": peak,
+    }
+
+    # the streamed path: fit_kitti through two prefetch threads
+    sampler = PrefetchSampler(batch_size=b, workers=2, depth=2,
+                              make_dataset=lambda w: StoreSampler(cache, seed=50 + w))
+    try:
+        before = dict(LAUNCHES)
+        hist = tr.fit_kitti(sampler, 2, epochs=1, log_every=0)
+        torch.cuda.synchronize()
+        streamed = launch_delta(before)
+    finally:
+        sampler.close()
+    print(f"kitti fit_kitti: 2 streamed steps launches={streamed} "
+          f"loss_total {hist[0]['loss_total']:.5f}")
+    check(math.isfinite(hist[0]["loss_total"]) and streamed == {k: 2 * v for k, v in
+                                                                per_step.items()},
+          f"kitti fit_kitti launches {streamed}")
+
+    # the Evaluation_bench on 4 pairs at 375 x 1242 (padded to 384 x 1280)
+    after = kitti_reports_agree(torch, tr, samples, "after training")
+    f32 = UPFlowTrainer(upflow_config(tmp, "kitti_f32", False))
+    f32.init_state()
+    f32.net.load_state_dict(tr.net.state_dict())
+    kitti_reports_agree(torch, f32, samples, "after training")
+    print(f"kitti eval epe_all before {before_fit['epe_all']:.4f} after {after['epe_all']:.4f} "
+          f"(zero flow {zero_epe:.4f}; information, no bound)")
+    one = np.stack([samples[0][1], samples[0][2]])[None]
+    eval_ms = cuda_ms(lambda i: tr.predict(one), iters=8)
+    t1 = time.perf_counter()
+    evaluate_kitti(tr, samples)
+    times["kitti_eval_pair_ms"] = eval_ms
+    times["kitti_eval_pair_host_ms"] = (time.perf_counter() - t1) * 1e3 / len(samples)
+    times["kitti_eval_epe_before"] = before_fit["epe_all"]
+    times["kitti_eval_epe_after"] = after["epe_all"]
+    times["kitti_eval_epe_zero_flow"] = zero_epe
+    print("kitti times " + json.dumps(times))
+    eval_kernels = kitti_eval_kernels(torch)
+    return counts, eval_kernels, times
+
+
 def corr_kernel_times(torch) -> dict:
     """Device ms per call of ``corr`` and ``corr_bwd`` (both gradients) at the
     finest UPFlow level, [16, 32, 64, 208] md 4, in f32 and bf16, the two
@@ -3218,6 +3613,9 @@ def main(argv: list) -> int:
         phase_upflow_step_vs_cpu(torch, tmp)
         phase_upflow_cli(torch, tmp)
         _, corr_times = phase_upflow_times(torch, upflow_predictors, upflow_trainers)
+        del upflow_predictors, upflow_trainers  # free the UPFlow models before KITTI
+        torch.cuda.empty_cache()
+        kitti_launches, kitti_eval_errs, _ = phase_kitti(torch, tmp)
 
     source = "opticalflowscivis_tpu_torch/csrc/warp2d.cu"
     kernels = [{
@@ -3347,6 +3745,15 @@ def main(argv: list) -> int:
     kernels[0]["launches_upflow_paths"] = upflow_serving["warp2d"] + upflow_launches["warp2d"]
     kernels[1]["launches"] += upflow_launches["warp2d_bwd"]
     kernels[1]["launches_upflow_paths"] = upflow_launches["warp2d_bwd"]
+    # the KITTI training path (fit_kitti_hbm from the store), and the worst
+    # float32 error at the 384 x 1280 evaluation levels
+    by_name = {k["name"]: k for k in kernels}
+    for name in ("warp2d", "warp2d_bwd", "corr", "corr_bwd"):
+        by_name[name]["launches"] += kitti_launches[name]
+        by_name[name]["launches_kitti_path"] = kitti_launches[name]
+        by_name[name]["launches_per_kitti_train_step"] = PER_CALL["kitti_train_step"][name]
+    for name in ("warp2d", "corr", "corr_bwd"):
+        by_name[name]["kitti_eval_max_abs_err"] = kitti_eval_errs[name]
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

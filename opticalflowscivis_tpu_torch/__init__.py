@@ -14,11 +14,15 @@ module layout so that each counterpart is found under the same path:
 - ``training``   — config, schedule, checkpoint, the ``Trainer`` and the
   ``UPFlowTrainer``.
 - ``cli``        — the verbs: generate, train, test, inference_img / _video,
-  train_upflow, test_upflow.
+  train_upflow, test_upflow (SciVis datasets and KITTI), select.
 - ``scripts``    — ``train256`` (256³ training) and ``forward3d`` (forward timing).
 - ``inference``  — ``Interpolator`` and the series / recursive interpolators.
-- ``evalsuite``  — PSNR / SSIM metrics, the linear baseline, flow EPE / F1.
-- ``data``       — numpy generators, pipeline and dataset registry.
+- ``evalsuite``  — PSNR / SSIM metrics, the linear baseline, flow EPE / F1,
+  time-step selection.
+- ``data``       — numpy generators, pipeline, dataset registry, the KITTI
+  readers, samplers and frame store.
+- ``viz``        — flow colourings and the matplotlib panels.
+- ``utils``      — profiling (``trace``), ``StepTimer``, ``check_tensor``.
 
 Conventions at the public functions are the reference's: channels-last
 arrays and row-major flow, (dy, dx) in 2-D and (dz, dy, dx) in 3-D.
@@ -26,8 +30,9 @@ Inside ``nn.Module``s tensors are channels-first.  Entry points run on ``cuda`` 
 the caller passes ``device="cpu"``; they raise when CUDA is asked for and
 absent (``device.resolve_device``).
 
-This package imports torch, numpy and the standard library only — never jax,
-flax or ``opticalflowscivis_tpu``.
+This package imports torch, numpy and the standard library — never jax, flax
+or ``opticalflowscivis_tpu`` — and, inside the functions that need them, cv2
+(KITTI's PNGs) and matplotlib (``viz``).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,13 @@
 """CLI dispatcher: ``python -m opticalflowscivis_tpu_torch.cli <verb> [flags]``.
 
 The RIFE verbs of ``opticalflowscivis_tpu.cli`` with the same flags, on 2-D and
-3-D datasets, and the UPFlow verbs ``train_upflow`` / ``test_upflow`` on the
-SciVis datasets.  ``--cpu`` selects ``device="cpu"``; without it every verb
-runs on the GPU and raises when there is none.
+3-D datasets; the UPFlow verbs ``train_upflow`` / ``test_upflow`` on the
+SciVis datasets and on KITTI (multiview training, the Evaluation_bench
+protocol); and ``select``, time-step selection.  ``--cpu`` selects
+``device="cpu"``; without it every verb runs on the GPU and raises when there
+is none.  The verbs that draw panels import the plotting module inside their
+drawing step: without matplotlib they say so in one line and write their
+reports all the same.
 """
 
 from __future__ import annotations
@@ -18,8 +22,6 @@ import numpy as np
 
 # verbs that wait for a later slice, with the ROADMAP item that brings them
 WAITING_VERBS = {
-    "select": "time-step selection (evalsuite/selection.py) is ported with the "
-              "remaining tooling (ROADMAP A.11)",
     "bench": "the port's bench comes with the first benchmark (ROADMAP A.7)",
 }
 
@@ -38,6 +40,19 @@ def _add_common(p: argparse.ArgumentParser):
 
 def _device(args) -> str | None:
     return "cpu" if args.cpu else None
+
+
+def _viz():
+    """The plotting module, or None after one line saying that the panels
+    are not drawn, where matplotlib is missing."""
+    try:
+        from opticalflowscivis_tpu_torch import viz
+    except ImportError as e:
+        if not (e.name or "").startswith("matplotlib"):
+            raise
+        print("panels not drawn: matplotlib is missing", flush=True)
+        return None
+    return viz
 
 
 def _spec(dataset: str):
@@ -134,7 +149,7 @@ def cmd_test(argv):
     import torch
 
     from opticalflowscivis_tpu_torch.data import load_data
-    from opticalflowscivis_tpu_torch.evalsuite import calculate_metrics
+    from opticalflowscivis_tpu_torch.evalsuite import calculate_diff, calculate_metrics
     from opticalflowscivis_tpu_torch.inference import Interpolator, batched_pair_inference
     from opticalflowscivis_tpu_torch.losses import epe
 
@@ -150,18 +165,33 @@ def cmd_test(argv):
     )  # factor huge → every frame counts as interpolated
     report = {"psnr": psnr, "ssim": ssim_v}
 
+    flow_gt = None
     if spec.has_flow:
         ndim = spec.ndim
-        flow_gt = torch.from_numpy(test[:, 2, ..., 1 : 1 + ndim] * spec.gt_flow_stride)
+        flow_gt = test[:, 2, ..., 1 : 1 + ndim] * spec.gt_flow_stride
         flow = torch.from_numpy(res["flow"])
-        report["epe_ft1"] = float(epe(flow[..., ndim:], flow_gt))
-        report["epe_ft0"] = float(epe(flow[..., :ndim], -flow_gt))
+        report["epe_ft1"] = float(epe(flow[..., ndim:], torch.from_numpy(flow_gt)))
+        report["epe_ft0"] = float(epe(flow[..., :ndim], -torch.from_numpy(flow_gt)))
 
-    # the reference also draws a test panel (in 3-D a mid-depth slice and a
-    # volume render) and the loss curve here; the plotting module is not
-    # ported yet (ROADMAP A.11)
-    os.makedirs(tr.results_dir, exist_ok=True)
-    with open(os.path.join(tr.results_dir, "test_report.json"), "w") as f:
+    dir_res = tr.results_dir
+    os.makedirs(dir_res, exist_ok=True)
+    viz = _viz()
+    if viz is not None:
+        diffs = calculate_diff(res["gt"], res["pred"])
+        if spec.ndim == 2:
+            viz.visualize_large(
+                res["gt"], res["pred"], diffs, res["mask"],
+                flow_gt, res["flow"][..., spec.ndim:] if spec.has_flow else None,
+                dir_res, title="test_panel",
+            )
+        else:  # a mid-depth slice panel and a volume render
+            viz.visualize_large_3d(res["gt"][..., 0], res["pred"][..., 0],
+                                   diffs[..., 0], dir_res, title="test_panel3d")
+            viz.visualize_3d(res["pred"][0, ..., 0], dir_res, title="pred_volume")
+        loss_json = os.path.join(dir_res, "loss.json")
+        if os.path.exists(loss_json):
+            viz.plot_loss(loss_json, dir_res)
+    with open(os.path.join(dir_res, "test_report.json"), "w") as f:
         json.dump(report, f, indent=2)
     print(json.dumps(report), flush=True)
 
@@ -261,6 +291,10 @@ def cmd_inference_video(argv):
     os.makedirs(dir_res, exist_ok=True)
     with open(os.path.join(dir_res, "interp_report.json"), "w") as f:
         json.dump(results, f, indent=2)
+    if results:
+        viz = _viz()
+        if viz is not None:
+            viz.plot_factor_comparison(results, dir_res)
     print(json.dumps(results), flush=True)
 
 
@@ -358,16 +392,17 @@ def cmd_train_upflow(argv):
                    help="train on PAIRS device-generated pan pairs per epoch "
                         "(not ported yet)")
     p.add_argument("--kitti_image_dir", default=None,
-                   help="KITTI multiview image dir, with --dataset kitti (not ported yet)")
-    p.add_argument("--steps_per_epoch", type=int, default=0, help="KITTI path")
-    p.add_argument("--hbm_cache", type=int, default=1000, help="KITTI path")
-    p.add_argument("--prefetch_workers", type=int, default=2, help="KITTI path")
+                   help="KITTI multiview image dir (<seq>_<frame>.png), with --dataset "
+                        "kitti: random crops and boundary-dilated warping")
+    p.add_argument("--steps_per_epoch", type=int, default=0,
+                   help="KITTI path: steps per epoch (0 = len(pairs) // batch)")
+    p.add_argument("--hbm_cache", type=int, default=1000,
+                   help="KITTI path: pairs decoded once into GPU memory, with crops and "
+                        "augmentation on the device (0 = stream host batches through "
+                        "prefetch threads)")
+    p.add_argument("--prefetch_workers", type=int, default=2,
+                   help="KITTI streamed path: host prefetch threads")
     args = p.parse_args(argv)
-    if args.dataset == "kitti":
-        raise SystemExit(
-            "--dataset kitti: the KITTI data paths (data/kitti.py, fit_kitti, "
-            "fit_kitti_hbm) are not ported yet (ROADMAP A.9b)"
-        )
     if args.device_gen:
         raise SystemExit(
             "--device_gen: the on-device generators (data/device_synthetic.py) are "
@@ -401,6 +436,10 @@ def cmd_train_upflow(argv):
         kw["model"] = dataclasses.replace(UPFlowTrainConfig().model, if_sgu_upsample=True)
     cfg = (UPFlowTrainConfig.preset_ex_runner(**kw)
            if args.recipe == "ex_runner" else UPFlowTrainConfig(**kw))
+    if args.dataset == "kitti":
+        hist = _train_upflow_kitti(args, cfg)
+        print(json.dumps({"final": hist[-1] if hist else None}), flush=True)
+        return
     spec = _spec(args.dataset)
     tr = UPFlowTrainer(cfg, device=_device(args))
     frames = load_raw_series(args.dataset, args.data_dir, "train")[..., :1]
@@ -419,40 +458,98 @@ def cmd_train_upflow(argv):
     print(json.dumps({"final": hist[-1] if hist else None}), flush=True)
 
 
+def _train_upflow_kitti(args, cfg) -> list:
+    """KITTI multiview training: a ``KittiHBMCache`` of ``--hbm_cache`` pairs
+    kept on the device, or (``--hbm_cache 0``) host batches of a
+    ``KittiPairDataset`` through a ``PrefetchSampler`` of
+    ``--prefetch_workers`` threads."""
+    from opticalflowscivis_tpu_torch.data import KittiHBMCache, KittiPairDataset, PrefetchSampler
+    from opticalflowscivis_tpu_torch.training.upflow_trainer import UPFlowTrainer
+
+    if not args.kitti_image_dir:
+        raise SystemExit("--dataset kitti requires --kitti_image_dir")
+    tr = UPFlowTrainer(cfg, device=_device(args))
+    if args.hbm_cache > 0:
+        cache = KittiHBMCache(args.kitti_image_dir, max_pairs=args.hbm_cache)
+        spe = args.steps_per_epoch or max(len(cache) // args.batch_size, 1)
+        gib = cache.frames.size * (2 if cfg.bfloat16 else 4) / 2**30
+        print(f"kitti: {len(cache)} pairs kept on the device ({gib:.2f} GiB), "
+              f"{spe} steps/epoch", flush=True)
+        return tr.fit_kitti_hbm(cache, spe, epochs=args.epochs, resume=args.resume)
+    ds = KittiPairDataset(args.kitti_image_dir)
+    spe = args.steps_per_epoch or max(len(ds) // args.batch_size, 1)
+    print(f"kitti: {len(ds)} multiview pairs, {spe} steps/epoch", flush=True)
+    sampler = PrefetchSampler(
+        batch_size=args.batch_size, workers=args.prefetch_workers,
+        make_dataset=lambda w: KittiPairDataset(args.kitti_image_dir, seed=w),
+    ) if args.prefetch_workers > 0 else ds
+    try:
+        return tr.fit_kitti(sampler, spe, epochs=args.epochs, resume=args.resume)
+    finally:
+        if sampler is not ds:
+            sampler.close()
+
+
+def evaluate_kitti(trainer, samples) -> dict[str, float]:
+    """The Evaluation_bench protocol over ``samples``, the tuples that
+    ``data.kitti.load_kitti_eval_pairs`` yields: each pair is predicted alone
+    (edge-padded to the trainer's multiple and cropped back) and scored by
+    ``evaluate_flow`` against its occ and noc ground truth; returns the mean
+    of each score over the pairs."""
+    from opticalflowscivis_tpu_torch.evalsuite import evaluate_flow
+
+    results = []
+    for _, im1, im2, f_occ, m_occ, f_noc, m_noc in samples:
+        _, extras = trainer.predict(np.stack([im1, im2])[None])
+        flow = extras["flow_f"][0].float().cpu().numpy()[: im1.shape[0], : im1.shape[1]]
+        results.append(evaluate_flow(flow[None], f_occ[None], m_occ[None],
+                                     f_noc[None], m_noc[None]))
+    if not results:
+        raise ValueError("no KITTI evaluation pairs")
+    return {k: float(np.mean([r[k] for r in results])) for k in results[0]}
+
+
 def cmd_test_upflow(argv):
-    """Predict the flow of a SciVis test series and report its magnitude and,
-    where the dataset has ground truth, its EPE beside the zero-flow baseline."""
+    """With ``--kitti_root``: the KITTI-2015 Evaluation_bench protocol
+    (``evaluate_kitti``), reported as ``kitti2015``.  Otherwise: predict the
+    flow of a SciVis test series, draw it as quivers, and report its magnitude
+    and, where the dataset has ground truth, its EPE beside the zero-flow
+    baseline."""
     p = argparse.ArgumentParser(prog="test_upflow")
     _add_common(p)
     p.add_argument("--kitti_root", default=None,
-                   help="KITTI-2015 root for the Evaluation_bench protocol (not ported yet)")
+                   help="KITTI-2015 root (runs the Evaluation_bench protocol)")
     p.add_argument("--max_frames", type=int, default=16)
     args = p.parse_args(argv)
-    if args.kitti_root:
-        raise SystemExit(
-            "--kitti_root: the KITTI readers (data/kitti.py) are not ported yet "
-            "(ROADMAP A.9b)"
-        )
 
-    from opticalflowscivis_tpu_torch.data import load_raw_series
     from opticalflowscivis_tpu_torch.training.upflow_trainer import (
         UPFlowTrainConfig,
         UPFlowTrainer,
         frames_to_pairs,
     )
 
-    spec = _spec(args.dataset)
     cfg = UPFlowTrainConfig(exp_dir=_upflow_exp_dir(args), bfloat16=_upflow_bfloat16(args))
     tr = UPFlowTrainer(cfg, device=_device(args))
     tr.init_state()
     tr.load_checkpoint()
+    if args.kitti_root:
+        from opticalflowscivis_tpu_torch.data import load_kitti_eval_pairs
+
+        report = {"kitti2015": evaluate_kitti(tr, load_kitti_eval_pairs(args.kitti_root))}
+        _write_upflow_report(cfg.exp_dir, report)
+        return
+
+    from opticalflowscivis_tpu_torch.data import load_raw_series
+
+    spec = _spec(args.dataset)
     series = load_raw_series(args.dataset, args.data_dir, "test")[: args.max_frames]
     frames = series[..., :1]
     pairs = frames_to_pairs(frames, in_channels=3)
     _, extras = tr.predict(pairs)
     flow = extras["flow_f"].float().cpu().numpy()[:, : frames.shape[1], : frames.shape[2]]
-    # the reference also draws quiver panels here; the plotting module is not
-    # ported yet (ROADMAP A.11)
+    viz = _viz()
+    if viz is not None:
+        viz.visualize_series_flow(frames[:-1, ..., 0], flow, cfg.exp_dir, title="upflow_quiver")
     report = {"scivis": {
         "mean_flow_mag": float(np.mean(np.linalg.norm(flow, axis=-1))),
         "frames": int(frames.shape[0]),
@@ -462,8 +559,85 @@ def cmd_test_upflow(argv):
         gt = series[:-1, ..., 1 : 1 + spec.ndim] * spec.gt_flow_stride
         report["scivis"]["epe"] = float(np.linalg.norm(flow - gt, axis=-1).mean())
         report["scivis"]["epe_zero_flow_baseline"] = float(np.linalg.norm(gt, axis=-1).mean())
-    os.makedirs(cfg.exp_dir, exist_ok=True)
-    with open(os.path.join(cfg.exp_dir, "test_report.json"), "w") as f:
+    _write_upflow_report(cfg.exp_dir, report)
+
+
+def _write_upflow_report(exp_dir: str, report: dict) -> None:
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "test_report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps(report), flush=True)
+
+
+def cmd_select(argv):
+    """Time-step selection: reconstruct the test series by interpolation and
+    report which time steps the interpolator cannot reproduce (the ones worth
+    keeping), and the error against the number of kept frames."""
+    p = argparse.ArgumentParser(prog="select")
+    _add_common(p)
+    p.add_argument("--factor", type=int, default=4)
+    p.add_argument("--factors", default="2,4,8,16,32",
+                   help="comma list for the selection curve")
+    p.add_argument("--linear", action="store_true",
+                   help="use the linear-interpolation baseline, no model needed")
+    p.add_argument("--threshold", type=float, default=None)
+    args = p.parse_args(argv)
+
+    from opticalflowscivis_tpu_torch.data import load_raw_series
+    from opticalflowscivis_tpu_torch.evalsuite import (
+        linear_interpolation_baseline,
+        select_timesteps,
+        selection_curve,
+    )
+
+    frames = load_raw_series(args.dataset, args.data_dir, "test")[..., :1]
+
+    if args.linear:
+        def reconstruct(fr, factor):
+            return linear_interpolation_baseline(fr, factor)
+    else:
+        from opticalflowscivis_tpu_torch.inference import Interpolator, interpolate_series
+        from opticalflowscivis_tpu_torch.training import Trainer
+
+        cfg = _build_cfg(args)
+        tr = Trainer(cfg, device=_device(args))
+        tr.init_state(total_steps=1)
+        if not tr.load_checkpoint():
+            raise SystemExit(
+                "select needs a trained checkpoint (run `train` first, or "
+                "use --linear for the model-free baseline)"
+            )
+        interp = Interpolator(tr.model, cfg.pad_multiple, device=tr.device)
+        cache: dict[int, np.ndarray] = {}
+
+        def reconstruct(fr, factor):
+            # selection_curve revisits args.factor: keep that one series only
+            if factor in cache:
+                return cache[factor]
+            recon, _ = interpolate_series(interp, fr, factor)
+            if factor == args.factor:
+                cache[factor] = recon
+            return recon
+
+    # everything in the model's [0, 1] domain (data_range 1): the same PSNR as
+    # both sides scaled to 255
+    recon = reconstruct(frames, args.factor)
+    n = min(frames.shape[0], recon.shape[0])
+    selected, thr = select_timesteps(
+        frames[:n], recon[:n], args.factor, args.threshold, data_range=1.0
+    )
+    factors = tuple(int(f) for f in args.factors.split(","))
+    curve = selection_curve(frames, reconstruct, factors, data_range=1.0)
+    report = {
+        "dataset": args.dataset,
+        "factor": args.factor,
+        "psnr_threshold": round(thr, 3),
+        "selected_timesteps": selected,
+        "n_selected": len(selected),
+        "curve": {str(k): v for k, v in curve.items()},
+    }
+    os.makedirs(args.results_dir, exist_ok=True)
+    with open(os.path.join(args.results_dir, f"selection_{args.dataset}.json"), "w") as f:
         json.dump(report, f, indent=2)
     print(json.dumps(report), flush=True)
 
@@ -476,6 +650,7 @@ VERBS = {
     "generate": cmd_generate,
     "train_upflow": cmd_train_upflow,
     "test_upflow": cmd_test_upflow,
+    "select": cmd_select,
 }
 
 

@@ -1,6 +1,19 @@
-"""Datasets: numpy generators, host pipeline and dataset registry."""
+"""Datasets: numpy generators, host pipeline, dataset registry and the KITTI
+readers, samplers and frame store."""
 
+from opticalflowscivis_tpu_torch.data.kitti import (
+    KittiHBMCache,
+    KittiPairDataset,
+    device_batch,
+    kitti_photometric_normalize,
+    load_kitti_eval_pairs,
+    read_flo,
+    read_kitti_flow_png,
+    write_flo,
+    write_kitti_flow_png,
+)
 from opticalflowscivis_tpu_torch.data.pipeline import (
+    PrefetchSampler,
     TupleDataset,
     device_flip_augment,
     flip_augment,
@@ -24,6 +37,9 @@ from opticalflowscivis_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
+    "KittiHBMCache", "KittiPairDataset", "device_batch", "kitti_photometric_normalize",
+    "load_kitti_eval_pairs", "read_flo", "read_kitti_flow_png", "write_flo",
+    "write_kitti_flow_png", "PrefetchSampler",
     "TupleDataset", "device_flip_augment", "flip_augment", "group_tuples", "minmax_normalize", "pad_to_multiple",
     "temporal_resample",
     "REGISTRY", "DatasetSpec", "get_spec", "load_data", "load_raw_series",

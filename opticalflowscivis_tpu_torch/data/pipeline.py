@@ -15,12 +15,14 @@ channels 1..ndim the optional GT flow.
   already lies on the device.
 - ``TupleDataset``: shuffled minibatches, or index batches for a dataset kept
   on the device, from one numpy shuffle stream.
-
-The background-thread ``PrefetchSampler`` is ported with the datasets that
-decode per sample (ROADMAP A.9b).
+- ``PrefetchSampler``: background threads that fill a queue of batches from
+  any ``.sample(batch)`` dataset (the KITTI frame pairs decode per sample).
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -161,3 +163,58 @@ class TupleDataset:
             self.rng.shuffle(idx)
         for i in range(n // self.batch_size):
             yield idx[i * self.batch_size : (i + 1) * self.batch_size]
+
+
+class PrefetchSampler:
+    """Background-thread batch prefetch over any ``.sample(batch)`` dataset.
+
+    ``workers`` threads each loop ``dataset.sample(batch_size)`` into a
+    bounded queue (cv2 and numpy release the GIL for the heavy parts), so that
+    the train loop's ``sample`` is a queue pop, as UPFlow's DataLoader workers
+    hide per-sample decoding behind the train step.  ``KittiPairDataset.sample``
+    draws from one numpy Generator per dataset, so with ``workers > 1`` pass
+    ``make_dataset``, which builds one independently seeded dataset for each
+    worker.
+    """
+
+    def __init__(self, dataset=None, batch_size: int = 8, depth: int = 4,
+                 workers: int = 2, make_dataset=None):
+        self.batch_size = batch_size
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._threads = []
+        for w in range(workers):
+            ds = make_dataset(w) if make_dataset is not None else dataset
+            if workers > 1 and make_dataset is None:
+                raise ValueError("workers > 1 needs make_dataset (per-worker RNG)")
+            t = threading.Thread(target=self._loop, args=(ds,), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def _loop(self, ds):
+        while not self._stop.is_set():
+            batch = ds.sample(self.batch_size)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+
+    def sample(self, batch_size: int):
+        if batch_size > self.batch_size:
+            raise ValueError(
+                f"prefetch built for batch {self.batch_size}, asked {batch_size}")
+        batch = self._q.get()
+        if batch_size == self.batch_size:
+            return batch
+        return {k: v[:batch_size] for k, v in batch.items()}
+
+    def close(self):
+        self._stop.set()
+        # drain so producers blocked on put() can observe the stop flag
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass

@@ -1,5 +1,5 @@
-"""Evaluation suite: interpolation metrics and flow accuracy (time-step
-selection is ported in a later slice, ROADMAP A.11)."""
+"""Evaluation suite: interpolation metrics, flow accuracy and time-step
+selection."""
 
 from opticalflowscivis_tpu_torch.evalsuite.flow_eval import (
     evaluate_flow,
@@ -13,9 +13,11 @@ from opticalflowscivis_tpu_torch.evalsuite.metrics import (
     calculate_ssim,
     linear_interpolation_baseline,
 )
+from opticalflowscivis_tpu_torch.evalsuite.selection import select_timesteps, selection_curve
 
 __all__ = [
     "calculate_psnr", "calculate_ssim", "calculate_metrics", "calculate_diff",
     "linear_interpolation_baseline",
     "flow_epe", "flow_outlier_pct", "evaluate_flow",
+    "select_timesteps", "selection_curve",
 ]

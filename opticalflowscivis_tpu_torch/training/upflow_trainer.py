@@ -21,9 +21,15 @@ runs channels-first and its outputs reach the losses as channels-last views.
 Parameters and optimizer state are float32; with ``bfloat16`` the features
 compute in bfloat16 while every flow stays float32.
 
+KITTI multiview training: ``fit_kitti`` takes host batches from any
+``sample(batch)`` dataset (``data.kitti.KittiPairDataset``, usually behind a
+``PrefetchSampler``); ``fit_kitti_hbm`` keeps a ``KittiHBMCache``'s frames on
+the device and sends only indices each step.  Both pass the rho-dilated raw
+windows and the crop offset to the photometric term (boundary-dilated
+warping).
+
 One device only: ``n_data`` other than None / 1 raises (ROADMAP A.12).
-``fit_device_gen`` waits for the on-device generators (A.11) and ``fit_kitti``
-/ ``fit_kitti_hbm`` for the KITTI data paths (A.9b).
+``fit_device_gen`` waits for the on-device generators (A.11).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from opticalflowscivis_tpu_torch.data import TupleDataset, pad_to_multiple
+from opticalflowscivis_tpu_torch.data import TupleDataset, device_batch, pad_to_multiple
 from opticalflowscivis_tpu_torch.device import resolve_device
 from opticalflowscivis_tpu_torch.losses.selfsup import (
     SPTransformConfig,
@@ -338,17 +344,105 @@ class UPFlowTrainer:
             "which is not ported yet (ROADMAP A.11); use fit"
         )
 
-    def fit_kitti(self, *args, **kwargs):
-        raise NotImplementedError(
-            "streamed KITTI-multiview training needs data/kitti.py and the "
-            "PrefetchSampler, which are not ported yet (ROADMAP A.9b)"
-        )
+    def _init_kitti(self, steps_per_epoch: int, resume: bool) -> None:
+        """A fresh state on the first call (restored with ``resume``); later
+        calls go on from the live one."""
+        if self.state is None:
+            self.init_state(steps_per_epoch=steps_per_epoch)
+            if resume:
+                self.load_checkpoint()
 
-    def fit_kitti_hbm(self, *args, **kwargs):
-        raise NotImplementedError(
-            "KITTI training from a GPU-resident frame cache needs data/kitti.py "
-            "(KittiHBMCache), which is not ported yet (ROADMAP A.9b)"
-        )
+    def _kitti_epochs(self, next_batch, steps_per_epoch: int, epochs: int,
+                      log_every: int) -> list[dict[str, float]]:
+        """The epochs of both KITTI loops: ``next_batch()`` gives each step's
+        device batch; ``loss.json`` and the checkpoint every epoch."""
+        history = []
+        t0 = time.time()
+        step = 0
+        for epoch in range(epochs):
+            # the meter stays on the device and is read at the log lines and
+            # once per epoch
+            meter: dict[str, torch.Tensor] = {}
+            n = 0
+            for _ in range(steps_per_epoch):
+                parts = self.train_step(next_batch())
+                for k, v in parts.items():
+                    meter[k] = meter[k] + v if k in meter else v
+                n += 1
+                step += 1
+                if log_every and step % log_every == 0:
+                    print(f"epoch {epoch} step {step} loss "
+                          f"{float(meter['loss_total']) / n:.5f} "
+                          f"({step / (time.time() - t0):.2f} it/s)", flush=True)
+            epoch_means = {k: float(v) / max(n, 1) for k, v in meter.items()}
+            history.append(epoch_means)
+            self._append_loss_json(epoch_means)
+            self.save_checkpoint(epochs_completed=epoch + 1)
+        return history
+
+    def fit_kitti(self, dataset, steps_per_epoch: int, epochs: int | None = None,
+                  log_every: int = 20, resume: bool = False) -> list[dict[str, float]]:
+        """Streamed KITTI-multiview training: each step a host batch from
+        ``dataset.sample(batch)`` (a ``data.kitti.KittiPairDataset``, a
+        ``PrefetchSampler`` over it, or anything that returns its dict of
+        ``im1``, ``im2``, ``im1_raw``, ``im2_raw``, ``start``), sent to the
+        device from pinned memory without blocking; the raw windows and
+        ``start`` route the photometric term through boundary-dilated warping.
+
+        ``resume`` restores the checkpoint when the trainer has no state yet;
+        ``loss.json`` and the checkpoint are written every epoch."""
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg.n_epoch
+        batch = max(1, cfg.batch_size)
+        self._init_kitti(steps_per_epoch, resume)
+        pin = self.device.type == "cuda"
+
+        def next_batch():
+            out = {}
+            for k, v in dataset.sample(batch).items():
+                t = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                out[k] = (t.pin_memory() if pin else t).to(self.device, non_blocking=pin)
+            return out
+
+        return self._kitti_epochs(next_batch, steps_per_epoch, epochs, log_every)
+
+    def kitti_store(self, cache) -> torch.Tensor:
+        """``cache.frames`` on the device, uploaded once per (trainer, cache):
+        bfloat16 with ``cfg.bfloat16``, else float32.  A later call with the
+        same cache returns the same tensor."""
+        if getattr(self, "_kitti_cache", None) is not cache:
+            dtype = torch.bfloat16 if self.cfg.bfloat16 else torch.float32
+            frames = cache.frames
+            store = torch.empty(frames.shape, dtype=dtype, device=self.device)
+            chunk = 16  # frames per copy: the host never holds a second full copy
+            for i in range(0, frames.shape[0], chunk):
+                store[i : i + chunk].copy_(torch.from_numpy(frames[i : i + chunk]))
+            self._kitti_store, self._kitti_cache = store, cache
+        return self._kitti_store
+
+    def fit_kitti_hbm(self, cache, steps_per_epoch: int, epochs: int | None = None,
+                      log_every: int = 20, resume: bool = False) -> list[dict[str, float]]:
+        """KITTI-multiview training from a device-resident ``KittiHBMCache``:
+        the frames go to the device once (``kitti_store``); each step the host
+        draws the pair indices, crop offsets and flip and swap bits from
+        ``np.random.default_rng(cfg.seed + 2)`` (``KittiHBMCache.draw``), only
+        those cross to the device, and ``data.kitti.device_batch`` cuts the
+        crops, the rho-dilated raw windows, the flips and the swaps out of the
+        store there and casts them to float32.  Each call starts the draws
+        afresh.  ``resume``, ``loss.json`` and the checkpoint as in
+        ``fit_kitti``."""
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg.n_epoch
+        batch = max(1, cfg.batch_size)
+        store = self.kitti_store(cache)
+        self._init_kitti(steps_per_epoch, resume)
+        rng = np.random.default_rng(cfg.seed + 2)
+
+        def next_batch():
+            drawn = [torch.from_numpy(np.asarray(a)) for a in cache.draw(rng, batch)]
+            return device_batch(store, *drawn, cache.crop, cache.rho)
+
+        return self._kitti_epochs(next_batch, steps_per_epoch, epochs, log_every)
 
     def predict(self, pairs: np.ndarray):
         """Eval forward on ``[N, 2, H, W, C]`` (edge-padded to the multiple):
