@@ -6,7 +6,8 @@
 
 Builds every Hopper kernel of the port from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card, drives the
-main paths at the full width of ``ifnet_2d``, ``ifnet_3d`` and ``UPFlowNet``
+main paths at the full width of ``ifnet_2d`` (also with its Contextnet/Unet
+refinement), ``ifnet_3d``, the pretrained RIFE zoo models and ``UPFlowNet``
 and shows that each went through the kernels: interpolation serving
 (``Interpolator``, ``interpolate_series``) and training (``Trainer.fit``, then
 the CLI verbs generate → train → test → inference_video → select), on 2-D
@@ -41,6 +42,29 @@ Phases, printed in order:
      step), ``loss.json``, checkpoint round trip, what each backward call of
      one step hands the kernel (2 of the 10 with ``dimg``); one train step
      against the CPU; the CLI verbs;
+ 4a. RIFE's Contextnet/Unet refinement: both 2-D kernels at the Contextnet
+     levels of the serving and the training path (16-128 channels) and at the
+     legacy zoo's context levels (32-256 channels), f32, bf16 features under
+     an f32 flow and all bf16, the backward with ``dimg`` and its ``dflow``
+     twice bit for bit; ``ifnet_2d(refine=True)`` at full width through
+     ``Interpolator`` and ``interpolate_series`` (14 ``warp2d`` launches a
+     forward), f32 and bf16, against the CPU; ``ifnet_3d(refine=True)`` (6
+     ``warp3d`` launches: the context warps are the plain gather) against the
+     CPU; ``Trainer.fit`` with refinement at batch 64 on 128^2 in f32 and
+     bf16 (18 + 18 launches a train step, 10 of the backward calls with
+     ``dimg``; 18 + 0 an eval step), checkpoint round trip with ``contextnet``
+     and ``unet``, a train step against the CPU in 2-D and 3-D; refine
+     forward pairs/s beside the plain model's, the refine train step's time,
+     device time and ``warp2d_bwd`` share (``refine times``);
+ 4b. (run last, after phase 9) the pretrained zoo: random HDv3 (c = 90),
+     HD v1 and v2 (cs = (192, 128, 96, 48), c_fusion = 32) checkpoints in the
+     upstream layout through ``load_pretrained_zoo`` and
+     ``ZooInterpolator.pair`` on a 1080 x 1920 RGB pair (6 / 16 / 16
+     ``warp2d`` launches), each against the CPU at 270 x 480, ms per
+     1088 x 1920 pair with cuDNN's heuristics and autotuned, and a profile
+     (``zoo times``), ``inference_img --zoo_dir`` and ``inference_video
+     --zoo_dir``; ``vgg_perceptual_loss`` forward and backward at
+     [8, 224, 224, 3] against the CPU in float64 and float32;
   5. 3-D serving path at full width at [4, 64, 64, 64, 1]: 6 ``warp3d``
      launches per forward (12 with TTA), the CPU comparison, a ``rectangle_3d``
      series against the linear baseline;
@@ -284,6 +308,19 @@ def kernel_against_library(fns: dict, bound_ms: float, kernel: str, library: str
     return {"kernel_ms": kernel, "library_ms": library, "kernel_over_library": kernel / library,
             "below_library": kernel < library, "bound_share": bound_ms / kernel,
             "windows_ms": {name: t["windows_ms"] for name, t in timed.items()}}
+
+
+@contextlib.contextmanager
+def cudnn_benchmark(torch):
+    """cuDNN choosing each convolution's algorithm by timing the candidates on
+    its first call (``torch.backends.cudnn.benchmark``) instead of by its
+    heuristics."""
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = before
 
 
 @contextlib.contextmanager
@@ -826,9 +863,10 @@ def phase_main_path(torch):
     return total, (interp32, interp16, a, z)
 
 
-def profile_forward(torch, name: str, fn, iters: int = 3, unit: str = "forward") -> None:
+def profile_forward(torch, name: str, fn, iters: int = 3, unit: str = "forward") -> dict:
     """Device time by kernel over ``iters`` forwards (or train steps), and the
-    busy share of the window's wall time (torch.profiler, CUPTI)."""
+    busy share of the window's wall time (torch.profiler, CUPTI); printed and
+    returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -850,7 +888,7 @@ def profile_forward(torch, name: str, fn, iters: int = 3, unit: str = "forward")
     def share(part: str) -> float:
         return sum(t for k, t, _ in kernels if part in k) / max(total, 1e-9)
 
-    print("profile " + json.dumps({
+    record = {
         "compute": name, f"{unit}s": iters,
         f"device_ms_per_{unit}": total / iters / 1e3,
         f"wall_ms_per_{unit}": wall_us / iters / 1e3,
@@ -864,7 +902,9 @@ def profile_forward(torch, name: str, fn, iters: int = 3, unit: str = "forward")
         "kernel_launches": sum(n for _, _, n in kernels) // iters,
         "top": [{"kernel": k[:70], "share": t / max(total, 1e-9), "launches": n // iters}
                 for k, t, n in top],
-    }))
+    }
+    print("profile " + json.dumps(record))
+    return record
 
 
 def phase_times(torch, interps):
@@ -3564,6 +3604,523 @@ def kernel_times_of(torch, root: str) -> int:
     return 0
 
 
+# -- slice 13: RIFE's refinement, the pretrained zoo, the perceptual loss ------------
+
+# [B, H, W, C] of the feature maps a Contextnet warps (1/2 to 1/16 of the
+# frame): at the serving path's [32, 160, 224] and the training path's
+# [64, 128, 128]
+REFINE_SERVING_LEVELS = ((32, 80, 112, 16), (32, 40, 56, 32), (32, 20, 28, 64),
+                         (32, 10, 14, 128))
+REFINE_TRAIN_LEVELS = ((64, 64, 64, 16), (64, 32, 32, 32), (64, 16, 16, 64), (64, 8, 8, 128))
+# the legacy zoo's context maps of a 1088 x 1920 pair at c_fusion = 32 (1/4 to 1/32)
+ZOO_CONTEXT_LEVELS = ((1, 272, 480, 32), (1, 136, 240, 64), (1, 68, 120, 128),
+                      (1, 34, 60, 256))
+ZOO_HW = (1080, 1920)  # padded to 1088 x 1920 by both zoo paddings (32 and 64)
+ZOO_CPU_HW = (270, 480)  # the CPU comparison's frames
+# the widths the JAX package's zoo models default to
+ZOO_HDV3_C = 90
+ZOO_CS = (192, 128, 96, 48)
+ZOO_C_FUSION = 32
+ZOO_WARPS = {"hdv3": 6, "hdv1": 16, "hdv2": 16}  # warp2d launches per pair
+REFINE_EPOCHS = 6
+PERCEPTUAL_SHAPE = (8, 224, 224, 3)
+# the perceptual loss and d/dx against the CPU's in float64.  In float64, card
+# and CPU: the loss within 1e-9 and d/dx within 1e-6 (relative L2), float64
+# convolutions in other summation orders.  In float32 d/dx is not a smooth
+# function of rounding: a pre-activation within rounding of 0 or two values
+# of a max-pool window within rounding of each other route a gradient
+# differently, and the difference spreads back through the receptive field
+# (the CPU's float32 d/dx differs from its float64 one by 1.3e-3 relative L2
+# at [4, 112, 112, 3]; the card's float32 d/dx differed from the CPU's float32
+# one by 6.3e-3 on an H100 at [8, 224, 224, 3], the loss by 4e-7).  So the
+# card's float32 d/dx may lie no further from the float64 one than twice the
+# CPU's float32 d/dx does (plus 1e-4), and its float32 loss within 1e-5.
+PERCEPTUAL_F64_LOSS_TOL = 1e-9
+PERCEPTUAL_F64_GRAD_TOL = 1e-6
+PERCEPTUAL_F32_LOSS_TOL = 1e-5
+
+
+def refine_kernel_case(torch, shape, img_dtype, flow_dtype, seed: int) -> dict:
+    """``warp2d`` and its backward with ``dimg`` (unbounded, border, as the
+    Contextnet warps) at ``shape`` [B, H, W, C] against the plain version,
+    the backward's ``dflow`` twice bit for bit; the float32 errors."""
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    img, flow4, g = backward_inputs(torch, shape, img_dtype, seed, False,
+                                    scale=min(10.0, shape[1] / 2), flow_dtype=flow_dtype)
+    flow = flow4[:, 2:4]
+    out = warp2d(img, flow, 0, "border")
+    ref = warp2d_plain(img, flow, 0, "border")
+    torch.cuda.synchronize()
+    check(out.dtype == img_dtype and out.shape == ref.shape, "kernel output type")
+    diff = (out.float() - ref.float()).abs()
+    fwd_err = float(diff.max())
+    f32 = img_dtype == torch.float32
+    fwd_ok = fwd_err <= F32_TOL if f32 else bool((diff <= bf16_ulp(ref.float())).all())
+
+    before = LAUNCHES["warp2d_bwd"]
+    dimg, dflow = warp_grads(torch, warp2d, img, flow4, g, 0, "border", True)
+    torch.cuda.synchronize()
+    check(LAUNCHES["warp2d_bwd"] == before + 1, "backward launch count")
+    dimg_ref, dflow_ref = warp_grads(torch, warp2d_plain, img, flow4, g, 0, "border", True)
+    check(dimg.dtype == img_dtype and dflow.dtype == flow4.dtype, "gradient types")
+    tol = BWD_F32_TOL if f32 else BWD_BF16_TOL
+    bwd_ok, shown, bwd_err = True, [], 0.0
+    for what, got, want in (("dflow", dflow, dflow_ref), ("dimg", dimg, dimg_ref)):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        bwd_ok = bwd_ok and err <= tol * scale
+        bwd_err = max(bwd_err, err)
+        shown.append(f"{what}_err={err:.3e} (max|ref|={scale:.3e})")
+    same = dflow_repeats(torch, img, flow, g, 0, "border", True)
+    name = f"{str(img_dtype)[6:]} img, {str(flow4.dtype)[6:]} flow"
+    print(f"refine warp2d {list(shape)} border r= 0 {name:26s} fwd_err={fwd_err:.3e} "
+          f"tol={f'{F32_TOL:g}' if f32 else '1 bf16 ulp'}; bwd with dimg {' '.join(shown)} "
+          f"tol={tol:g}*max|ref| dflow repeats bit-equal={same} "
+          f"{'ok' if fwd_ok and bwd_ok and same else 'FAIL'}")
+    check(fwd_ok, f"warp2d disagrees with plain at {shape} ({name})")
+    check(bwd_ok, f"warp2d backward disagrees with plain at {shape} ({name})")
+    check(same, f"two warp2d backward runs differ at {shape} ({name})")
+    return {"fwd": fwd_err if f32 else 0.0, "bwd": bwd_err if f32 else 0.0}
+
+
+def phase_refine_kernels(torch) -> dict:
+    """Both 2-D kernels at the Contextnet levels of the serving and the
+    training path and at the legacy zoo's context levels, f32, bf16 features
+    under an f32 flow, and all bf16 (the bf16 model's own warps)."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    seed = 1300
+    modes = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16))
+    for shape in REFINE_SERVING_LEVELS + REFINE_TRAIN_LEVELS + ZOO_CONTEXT_LEVELS:
+        for img_dtype, flow_dtype in modes:
+            seed += 1
+            errs = refine_kernel_case(torch, shape, img_dtype, flow_dtype, seed)
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+    print("refine kernels worst float32 errors " + json.dumps(worst))
+    return worst
+
+
+def launches_only(torch, fn, allowed: dict):
+    """``fn()``'s result and the launches it made, checked against ``allowed``
+    (kernel -> count; every other kernel 0)."""
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    res = fn()
+    torch.cuda.synchronize()
+    delta = {k: LAUNCHES[k] - before[k] for k in before if LAUNCHES[k] != before[k]}
+    check(delta == allowed, f"launches {delta}, expected {allowed}")
+    return res
+
+
+def cpu_agrees(what: str, got, want) -> None:
+    for name, x, y in zip(("merged", "flow", "mask"), got, want):
+        err = float(np.abs(x - y).max())
+        tol = CPU_TOL * max(1.0, float(np.abs(y).max()))
+        print(f"cuda vs cpu {what} {name}: max_abs_err={err:.3e} tol={tol:.3e} "
+              f"max|cpu|={np.abs(y).max():.3e}")
+        check(err <= tol, f"cuda {what} {name} disagrees with the CPU plain path")
+
+
+def phase_refine_serving(torch):
+    """``ifnet_2d(refine=True)`` at full width through ``Interpolator`` and
+    ``interpolate_series`` (14 ``warp2d`` launches a forward), f32 and bf16,
+    against the CPU; ``ifnet_3d(refine=True)``, whose context warps stay off
+    the kernels (6 ``warp3d`` launches a forward)."""
+    from opticalflowscivis_tpu_torch.data import rectangle_2d
+    from opticalflowscivis_tpu_torch.inference import Interpolator, interpolate_series
+    from opticalflowscivis_tpu_torch.models import ifnet_2d, ifnet_3d
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    b, h, w, c = WARP_SHAPE
+    interps = {name: Interpolator(ifnet_2d(dtype=dtype, device="cuda", seed=0, refine=True))
+               for name, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+    rng = np.random.default_rng(13)
+    a = rng.random((b, h, w, c), dtype=np.float32)
+    z = rng.random((b, h, w, c), dtype=np.float32)
+    series = rectangle_2d(n_frames=33, grid=(h, w), seed=0)[..., :1]
+
+    reset_launches()  # the refine serving path's run starts here
+    for name, interp in interps.items():
+        merged, flow, mask = launches_only(torch, lambda: interp.pair(a, z), {"warp2d": 14})
+        print(f"refine pair {name} [{b},{h},{w},{c}]: warp2d launches=14")
+        check(merged.shape == (b, h, w, c) and flow.shape == (b, h, w, 4)
+              and mask.shape == (b, h, w, 1), f"refine {name} output shapes")
+        check(all(np.isfinite(x).all() for x in (merged, flow, mask)), f"refine {name} not finite")
+        check(float(merged.min()) >= 0.0 and float(merged.max()) <= 1.0, "refined frame off [0, 1]")
+    PER_CALL["refine_forward"] = {"warp2d": 14}
+    cpu_model = ifnet_2d(device="cpu", seed=0, refine=True)
+    cpu_model.load_state_dict(interps["f32"].model.state_dict())
+    cpu = Interpolator(cpu_model, device="cpu").pair(a[:2], z[:2])
+    gpu = launches_only(torch, lambda: interps["f32"].pair(a[:2], z[:2]), {"warp2d": 14})
+    cpu_agrees("refine", gpu, cpu)
+    for factor in (2, 4):
+        recon, _ = launches_only(torch, lambda: interpolate_series(interps["f32"], series, factor),
+                                 {"warp2d": 14 * int(math.log2(factor))})
+        check(recon.shape == (33, h, w, 1) and np.isfinite(recon).all(), "refine series output")
+        print(f"refine series x{factor}: warp2d launches={14 * int(math.log2(factor))}")
+    torch.cuda.synchronize()
+    launches = {"warp2d": LAUNCHES["warp2d"]}  # read just after the 2-D refine serving run
+    print(f"refine serving path: launches={launches}")
+    check(launches["warp2d"] > 0, "the refine serving path never launched warp2d")
+
+    reset_launches()  # the 3-D refine serving run starts here
+    vb = 2
+    vols = [np.random.default_rng(s).random((vb,) + VOLUME_SHAPE[1:], dtype=np.float32)
+            for s in (1, 2)]
+    model3 = ifnet_3d(device="cuda", seed=0, refine=True)
+    merged, flow, mask = launches_only(torch, lambda: Interpolator(model3).pair(*vols),
+                                       {"warp3d": 6})
+    check(merged.shape == (vb,) + VOLUME_SHAPE[1:] and np.isfinite(merged).all(),
+          "3-D refine output")
+    cpu3 = ifnet_3d(device="cpu", seed=0, refine=True)
+    cpu3.load_state_dict(model3.state_dict())
+    cpu_agrees("refine 3-D", (merged[:1], flow[:1], mask[:1]),
+               Interpolator(cpu3, device="cpu").pair(vols[0][:1], vols[1][:1]))
+    torch.cuda.synchronize()
+    launches["warp3d"] = LAUNCHES["warp3d"]
+    PER_CALL["refine3d_forward"] = {"warp3d": 6}
+    print(f"refine 3-D pair {[vb, *VOLUME_SHAPE[1:]]}: warp3d launches=6, warp2d 0 (the "
+          "context warps are the plain gather)")
+    return launches, interps
+
+
+def refine_train_config(torch, tmp: str, bfloat16: bool):
+    """``train_config`` with ``refine=True``: ``ifnet_2d`` at full width and
+    the Contextnet/Unet, batch 64 at 128^2."""
+    from opticalflowscivis_tpu_torch.training import ModelConfig
+
+    name = "bf16" if bfloat16 else "f32"
+    return dataclasses.replace(
+        train_config(torch, tmp, bfloat16), model=ModelConfig(bfloat16=bfloat16, refine=True),
+        log_dir=os.path.join(tmp, f"log_refine_{name}"),
+        results_dir=os.path.join(tmp, f"res_refine_{name}"))
+
+
+def phase_refine_training(torch, tmp: str):
+    """``Trainer.fit`` with refinement at full width on 128x128 rectangle
+    tuples, f32 and bf16: 18 + 18 launches a train step (10 of the backward
+    calls with ``dimg``), 18 + 0 an eval step, checkpoint round trip with
+    ``contextnet`` and ``unet``; one step against the CPU; a 3-D refine step
+    against the CPU."""
+    from opticalflowscivis_tpu_torch.data import group_tuples, rectangle_2d
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import Trainer
+
+    b, h, w, _ = TRAIN_SHAPE
+    steps_per_epoch, n_val = 4, 16
+    frames = rectangle_2d(n_frames=3 * (steps_per_epoch * b + n_val), grid=(h, w), box=(60, 80),
+                          seed=3)
+    tuples = group_tuples(frames, 1).astype(np.float32)
+    train, val = tuples[: steps_per_epoch * b], tuples[steps_per_epoch * b:]
+    launches = {"warp2d": 0, "warp2d_bwd": 0}
+    trainers = {}
+    for bfloat16 in (False, True):
+        name = "bf16" if bfloat16 else "f32"
+        cfg = refine_train_config(torch, tmp, bfloat16)
+        tr = Trainer(cfg)
+        reset_launches()  # the refine training path's run starts here
+        hist = tr.fit(train, val, epochs=REFINE_EPOCHS, log_every=0)
+        torch.cuda.synchronize()
+        counts = {k: LAUNCHES[k] for k in launches}  # read just after the run
+        steps, evals = REFINE_EPOCHS * steps_per_epoch, REFINE_EPOCHS
+        print(f"refine fit {name}: {steps} train steps + {evals} eval steps at [{b},{h},{w},1]: "
+              f"launches={counts} loss_G first eval {hist[0]['loss_G']:.6f} "
+              f"last {hist[-1]['loss_G']:.6f}")
+        check(all(math.isfinite(v) for parts in hist for v in parts.values()),
+              f"refine {name} losses not finite")
+        check(hist[-1]["loss_G"] < hist[0]["loss_G"], f"refine {name} fit did not lower loss_G")
+        check(counts["warp2d"] == 18 * (steps + evals),
+              f"refine {name}: {counts['warp2d']} forward launches, expected 18 a step")
+        check(counts["warp2d_bwd"] == 18 * steps,
+              f"refine {name}: {counts['warp2d_bwd']} backward launches, expected 18 a step")
+        for key in launches:
+            launches[key] += counts[key]
+        with open(os.path.join(tr.results_dir, "loss.json")) as f:
+            check(len(json.load(f)["val_loss"]) == REFINE_EPOCHS, f"refine {name} loss.json")
+        saved = torch.load(tr.checkpoint_path(), map_location="cpu", weights_only=True)["model"]
+        check(any(k.startswith("contextnet.") for k in saved)
+              and any(k.startswith("unet.") for k in saved), "checkpoint without the refinement")
+        fresh = Trainer(cfg)
+        fresh.init_state(total_steps=steps)
+        check(fresh.load_checkpoint() and fresh.state.step == steps, f"refine {name} load")
+        restored = fresh.model.state_dict()
+        check(all(torch.equal(v, restored[k]) for k, v in tr.model.state_dict().items()),
+              f"refine {name}: restored weights differ")
+        with deterministic_cudnn(torch):
+            ours, theirs = tr.evaluate(val, b), fresh.evaluate(val, b)
+        rel = max(abs(ours[k] - theirs[k]) / max(abs(ours[k]), 1e-12) for k in ours)
+        tol = 1e-6 if not bfloat16 else 1e-3
+        print(f"refine checkpoint {name}: restored step {fresh.state.step}, contextnet and unet "
+              f"weights equal, evaluate rel diff {rel:.3e} tol={tol:g}")
+        check(rel <= tol, f"refine {name}: the restored trainer evaluates differently")
+        launches_only(torch, lambda tr=tr: tr.evaluate(val, b), {"warp2d": 18})
+        record_warp2d_layouts(torch, f"refine_{name}",
+                              lambda tr=tr: tr.train_step(tr.upload(train[:b])), 18, 10)
+        trainers[name] = (tr, train)
+    PER_CALL["refine_eval_step"] = {"warp2d": 18}
+    print(f"refine training path: launches={launches}")
+
+    # one step from the same weights, card against CPU, on textured frames
+    tuples2 = group_tuples(rectangle_2d(n_frames=6, grid=(h, w), box=(60, 80), seed=1), 1)
+    tuples2 = tuples2.astype(np.float32)
+    tuples2[..., 0] += np.random.default_rng(0).uniform(0.05, 0.3, tuples2.shape[:-1]).astype(
+        np.float32)
+    cfg = refine_train_config(torch, tmp, bfloat16=False)
+    parts, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg, device=device)
+        tr.init_state(total_steps=10)
+        expected = {"warp2d": 18, "warp2d_bwd": 18} if device == "cuda" else {}
+        parts[device] = launches_only(
+            torch, lambda tr=tr: {k: float(v) for k, v in tr.train_step(tr.upload(tuples2)).items()},
+            expected)
+        grads[device] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+    PER_CALL["refine_train_step"] = {"warp2d": 18, "warp2d_bwd": 18}
+    compare_step("refine", parts, grads)
+
+    # 3-D: the context warps are the plain gather, the model's warps the kernels
+    grid = VOLUME_SHAPE[1:4]
+    tuples3 = textured_volume_tuples(1, grid, seed=2)
+    cfg3 = train3d_config(tmp, False, batch=1, refine=True)
+    parts, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg3, device=device)
+        tr.init_state(total_steps=10)
+        expected = {"warp3d": 8, "warp3d_bwd": 8} if device == "cuda" else {}
+        parts[device] = launches_only(
+            torch, lambda tr=tr: {k: float(v) for k, v in tr.train_step(tr.upload(tuples3)).items()},
+            expected)
+        grads[device] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+    PER_CALL["refine3d_train_step"] = {"warp3d": 8, "warp3d_bwd": 8}
+    compare_step("refine 3-D", parts, grads)
+    return launches, trainers
+
+
+def compare_step(what: str, parts: dict, grads: dict) -> None:
+    """One train step's loss parts and gradients, card against CPU."""
+    for key, ref in parts["cpu"].items():
+        print(f"{what} train step cuda vs cpu {key}: cuda={parts['cuda'][key]:.6e} "
+              f"cpu={ref:.6e} tol={TRAIN_PARTS_TOL:g} rel")
+        check(abs(parts["cuda"][key] - ref) <= TRAIN_PARTS_TOL * max(abs(ref), 1e-6),
+              f"{what} train step {key} disagrees")
+    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst, where = max((float((grads["cuda"][n] - g).abs().max()), n)
+                       for n, g in grads["cpu"].items())
+    print(f"{what} train step cuda vs cpu gradients: max_abs_diff={worst:.3e} at {where}, "
+          f"largest gradient {largest:.3e}, ratio {worst / largest:.3e} tol={TRAIN_GRAD_TOL:g}")
+    check(worst <= TRAIN_GRAD_TOL * largest, f"{what} train step gradients disagree")
+
+
+def phase_refine_times(torch, interps, trainers) -> dict:
+    """Refine forward pairs/s beside the plain ``ifnet_2d``'s from the same
+    seed, in turns in one call; the refine train step's ms, its device time
+    and ``warp2d_bwd``'s share of it."""
+    from opticalflowscivis_tpu_torch.inference import Interpolator
+    from opticalflowscivis_tpu_torch.models import ifnet_2d
+
+    b, h, w, c = WARP_SHAPE
+    times = {}
+    sets = []
+    for i in range(4):
+        g = torch.Generator(device="cuda").manual_seed(1300 + i)
+        sets.append((torch.rand((b, c, h, w), generator=g, device="cuda"),
+                     torch.rand((b, c, h, w), generator=g, device="cuda")))
+    for name, interp in interps.items():
+        dtype = torch.bfloat16 if name == "bf16" else None
+        plain = Interpolator(ifnet_2d(dtype=dtype, device="cuda", seed=0))
+        for turn in ("plain", "refine", "refine", "plain"):
+            which = plain if turn == "plain" else interp
+            ms = cuda_ms(lambda i, which=which: which.forward(*sets[i % 4]), iters=20)
+            times.setdefault(f"{turn}_pairs_per_sec_{name}", []).append(b / (ms / 1e3))
+        prof = profile_forward(torch, f"refine_{name}", lambda i: interp.forward(*sets[i % 4]))
+        times[f"refine_forward_device_ms_{name}"] = prof["device_ms_per_forward"]
+    tb = TRAIN_SHAPE[0]
+    for name, (tr, train) in trainers.items():
+        batches = [tr.upload(train[i * tb:(i + 1) * tb]) for i in range(4)]
+
+        def step(i, tr=tr, batches=batches):
+            return tr.train_step(batches[i % 4])
+
+        ms, host = cuda_and_host_ms(step, iters=10)
+        times[f"refine_train_step_ms_{name}"] = ms
+        times[f"refine_train_step_ms_host_clock_{name}"] = host
+        times[f"refine_train_pairs_per_sec_{name}"] = tb * 1e3 / ms
+        prof = profile_forward(torch, f"refine_train_{name}", step, unit="train_step")
+        times[f"refine_train_step_device_ms_{name}"] = prof["device_ms_per_train_step"]
+        times[f"refine_train_busy_share_{name}"] = prof["busy_share"]
+        times[f"refine_train_warp2d_bwd_share_{name}"] = prof["warp2d_bwd_share"]
+        times[f"refine_train_warp2d_share_{name}"] = prof["warp2d_share"]
+    print("refine times " + json.dumps(times))
+    return times
+
+
+def write_zoo_checkpoints(torch, root: str) -> dict:
+    """Random checkpoints in the upstream layout (the port's modules carry
+    the upstream keys) at the JAX package's default widths: HDv3 at c = 90,
+    HD v1 and v2 at ``cs = (192, 128, 96, 48)``, ``c_fusion = 32``."""
+    from opticalflowscivis_tpu_torch.models.ifnet_hd import IFNetHDv3
+    from opticalflowscivis_tpu_torch.models.ifnet_hd_legacy import RIFEHDLegacy
+
+    dirs = {}
+    for kind in ("hdv3", "hdv1", "hdv2"):
+        d = os.path.join(root, kind)
+        os.makedirs(d, exist_ok=True)
+        if kind == "hdv3":
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(3)
+                net = IFNetHDv3(c=ZOO_HDV3_C)
+            torch.save(net.state_dict(), os.path.join(d, "flownet.pkl"))
+        else:
+            net = RIFEHDLegacy(int(kind[-1]), ZOO_C_FUSION, ZOO_CS).init(seed=int(kind[-1]))
+            for part, file in (("flownet", "flownet"), ("contextnet", "contextnet"),
+                               ("fusionnet", "unet")):
+                torch.save(getattr(net, part).state_dict(), os.path.join(d, f"{file}.pkl"))
+        dirs[kind] = d
+    return dirs
+
+
+def zoo_frames(torch, hw, seed: int):
+    """An RGB pair ``[1, H, W, 3]``: a smooth random texture and the same
+    texture moved by (3, -5) px."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((1, 3, hw[0] // 16 + 2, hw[1] // 16 + 2), generator=gen)
+    tex = F.interpolate(coarse, size=(hw[0] + 16, hw[1] + 16), mode="bilinear",
+                        align_corners=True)[0].permute(1, 2, 0).numpy()
+    return tex[None, 8:8 + hw[0], 8:8 + hw[1]].copy(), tex[None, 5:5 + hw[0], 13:13 + hw[1]].copy()
+
+
+def phase_zoo(torch, tmp: str):
+    """``load_pretrained_zoo`` and ``ZooInterpolator.pair`` on one 1080 x 1920
+    RGB pair for HDv3, HD v1 and HD v2 (6 / 16 / 16 ``warp2d`` launches a
+    pair), each against the CPU at 270 x 480, the ms per 1088 x 1920 pair;
+    then ``inference_img --zoo_dir`` and ``inference_video --zoo_dir``."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import main as cli
+    from opticalflowscivis_tpu_torch.data import rectangle_2d
+    from opticalflowscivis_tpu_torch.inference import load_pretrained_zoo
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    dirs = write_zoo_checkpoints(torch, os.path.join(tmp, "zoo"))
+    a, z = zoo_frames(torch, ZOO_HW, seed=0)
+    ca, cz = zoo_frames(torch, ZOO_CPU_HW, seed=1)
+    times = {}
+    reset_launches()  # the zoo paths' run starts here
+    for kind, d in dirs.items():
+        zoo = load_pretrained_zoo(d)
+        check(zoo.kind == kind, f"{d} detected as {zoo.kind}")
+        n = ZOO_WARPS[kind]
+        pred, flow, mask = launches_only(torch, lambda: zoo.pair(a, z), {"warp2d": n})
+        nflow = 2 if kind == "hdv1" else 4
+        check(pred.shape == (1,) + ZOO_HW + (3,) and flow.shape == (1,) + ZOO_HW + (nflow,)
+              and mask.shape == (1,) + ZOO_HW + (1,), f"{kind} output shapes")
+        check(all(np.isfinite(x).all() for x in (pred, flow, mask)), f"{kind} not finite")
+        check(float(pred.min()) >= 0.0 and float(pred.max()) <= 1.0, f"{kind} frame off [0, 1]")
+        PER_CALL[f"zoo_{kind}_pair"] = {"warp2d": n}
+        print(f"zoo {kind} pair [1,{ZOO_HW[0]},{ZOO_HW[1]},3] (padded to a multiple of "
+              f"{zoo.pad_multiple}): "
+              f"warp2d launches={n}, max|flow|={np.abs(flow).max():.3f}")
+        cpu = load_pretrained_zoo(d, device="cpu").pair(ca, cz)
+        gpu = launches_only(torch, lambda: zoo.pair(ca, cz), {"warp2d": n})
+        cpu_agrees(f"zoo {kind} [1,{ZOO_CPU_HW[0]},{ZOO_CPU_HW[1]},3]", gpu, cpu)
+        pads = [zoo._to_tensor(zoo._pad(x + 1e-3 * i)[0]) for i in range(2) for x in (a, z)]
+        m = zoo.pad_multiple
+        check(tuple(pads[0].shape[2:]) == tuple(-(-s // m) * m for s in ZOO_HW), f"{kind} padding")
+        ms, host = cuda_and_host_ms(lambda i: zoo.forward(pads[2 * (i % 2)], pads[2 * (i % 2) + 1]),
+                                    iters=5, warmup=2)
+        times[f"{kind}_ms_per_pair"] = ms
+        times[f"{kind}_ms_per_pair_host_clock"] = host
+        prof = profile_forward(torch, f"zoo_{kind}", lambda i: zoo.forward(*pads[2 * (i % 2):][:2]),
+                               iters=1)
+        times[f"{kind}_device_ms_per_pair"] = prof["device_ms_per_forward"]
+        with cudnn_benchmark(torch):  # the algorithms cuDNN's heuristics did not pick
+            times[f"{kind}_ms_per_pair_cudnn_benchmark"] = cuda_ms(
+                lambda i: zoo.forward(*pads[2 * (i % 2):][:2]), iters=5, warmup=2)
+        t0 = time.perf_counter()
+        zoo.pair(a, z)
+        times[f"{kind}_pair_call_ms"] = (time.perf_counter() - t0) * 1e3
+    # the verbs, on a generated rectangle2d series and two of its frames
+    data, res = os.path.join(tmp, "zoo_d"), os.path.join(tmp, "zoo_r")
+    cli(["generate", "--dataset", "rectangle2d", "--frames", "33", "--data_dir", data])
+    frames = rectangle_2d(n_frames=2, seed=4)[..., 0]
+    for i in range(2):
+        np.save(os.path.join(tmp, f"zoo_img{i}.npy"), frames[i].astype(np.float32))
+    for kind, d in dirs.items():
+        out = os.path.join(tmp, f"zoo_out_{kind}")
+        cli(["inference_img", "--zoo_dir", d, "--img0", os.path.join(tmp, "zoo_img0.npy"),
+             "--img1", os.path.join(tmp, "zoo_img1.npy"), "--out_dir", out, "--n_exp", "2"])
+        check(sorted(os.listdir(out)) == [f"img{i}.png" for i in range(5)],
+              f"inference_img --zoo_dir {kind}")
+        cli(["inference_video", "--zoo_dir", d, "--dataset", "rectangle2d", "--data_dir", data,
+             "--results_dir", os.path.join(res, kind), "--factors", "2,4", "--max_frames", "9"])
+        with open(os.path.join(res, kind, "rectangle2d", "interp_report.json")) as f:
+            report = json.load(f)
+        check(set(report) == {"2", "4"} and all(math.isfinite(v) for row in report.values()
+                                                for v in row.values()),
+              f"inference_video --zoo_dir {kind} report")
+        print(f"cli zoo {kind}: inference_img wrote 5 frames; inference_video {json.dumps(report)}")
+    torch.cuda.synchronize()
+    launches = {"warp2d": LAUNCHES["warp2d"]}  # read just after the zoo paths' run
+    check(launches["warp2d"] > 0 and sum(LAUNCHES.values()) == launches["warp2d"],
+          f"the zoo paths' launches {dict(LAUNCHES)}")
+    print(f"zoo paths: launches={launches}")
+    print("zoo times " + json.dumps(times))
+    return launches, times
+
+
+def phase_perceptual(torch) -> dict:
+    """``vgg_perceptual_loss`` forward and backward at [8, 224, 224, 3] on
+    random VGG19 weights, card against CPU in float64 and float32 (see
+    ``PERCEPTUAL_F64_GRAD_TOL``), and its time."""
+    from opticalflowscivis_tpu_torch.losses import vgg_perceptual_loss
+    from opticalflowscivis_tpu_torch.losses.perceptual import init_params
+
+    rng = np.random.default_rng(5)
+    x = rng.random(PERCEPTUAL_SHAPE)
+    y = rng.random(PERCEPTUAL_SHAPE)
+    out = {}
+    for device in ("cuda", "cpu"):
+        for dtype in (torch.float64, torch.float32):
+            params = init_params(seed=0, dtype=dtype, device=device)
+            xt = torch.from_numpy(x).to(device, dtype).requires_grad_(True)
+            yt = torch.from_numpy(y).to(device, dtype).requires_grad_(True)
+            loss = launches_only(torch, lambda: vgg_perceptual_loss(params, xt, yt), {})
+            loss.backward()
+            check(yt.grad is None, "the perceptual loss passed a gradient into y")
+            out[device, dtype] = (float(loss.detach()), xt.grad.cpu().double())
+    ref, ref_grad = out["cpu", torch.float64]
+
+    def against_f64(device, dtype):
+        loss, grad = out[device, dtype]
+        return abs(loss - ref) / abs(ref), float((grad - ref_grad).norm() / ref_grad.norm())
+
+    f64 = against_f64("cuda", torch.float64)
+    f32, cpu32 = against_f64("cuda", torch.float32), against_f64("cpu", torch.float32)
+    print(f"perceptual {list(PERCEPTUAL_SHAPE)} against the CPU's float64: card float64 loss "
+          f"rel diff {f64[0]:.3e} tol={PERCEPTUAL_F64_LOSS_TOL:g}, d/dx relative L2 "
+          f"{f64[1]:.3e} tol={PERCEPTUAL_F64_GRAD_TOL:g}; card float32 loss {f32[0]:.3e} "
+          f"tol={PERCEPTUAL_F32_LOSS_TOL:g}, d/dx {f32[1]:.3e} (the CPU's float32: loss "
+          f"{cpu32[0]:.3e}, d/dx {cpu32[1]:.3e}; tol 2x that + 1e-4)")
+    check(f64[0] <= PERCEPTUAL_F64_LOSS_TOL and f64[1] <= PERCEPTUAL_F64_GRAD_TOL,
+          "float64 perceptual loss or d/dx disagrees with the CPU")
+    check(f32[0] <= PERCEPTUAL_F32_LOSS_TOL, "float32 perceptual loss disagrees with the CPU")
+    check(f32[1] <= 2 * cpu32[1] + 1e-4, "float32 perceptual d/dx strays from the float64 one")
+    params = init_params(seed=0)
+    xs = [torch.from_numpy(x + 1e-3 * i).float().cuda().requires_grad_(True) for i in range(2)]
+    yd = torch.from_numpy(y).float().cuda()
+
+    def fwd_bwd(i):
+        vgg_perceptual_loss(params, xs[i % 2], yd).backward()
+
+    times = {"perceptual_fwd_bwd_ms": cuda_ms(fwd_bwd, iters=5, warmup=2)}
+    print("perceptual times " + json.dumps(times))
+    return times
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -3598,7 +4155,13 @@ def main(argv: list) -> int:
         times, warp = phase_times(torch, interps)
         upflow_warp = phase_upflow_warp_times(torch)
         train_times, bwd = phase_train_times(torch, trainers)
-        del interps, trainers  # free the 2-D models before the volumes
+        del interps, trainers  # free the 2-D models before the refinement
+        torch.cuda.empty_cache()
+        refine_worst = phase_refine_kernels(torch)
+        refine_serving, refine_interps = phase_refine_serving(torch)
+        refine_training, refine_trainers = phase_refine_training(torch, tmp)
+        phase_refine_times(torch, refine_interps, refine_trainers)
+        del refine_interps, refine_trainers  # free them before the volumes
         torch.cuda.empty_cache()
         launches3d, interps3d = phase_serving3d(torch)
         train_launches3d, trainers3d = phase_training3d(torch, tmp)
@@ -3616,6 +4179,11 @@ def main(argv: list) -> int:
         del upflow_predictors, upflow_trainers  # free the UPFlow models before KITTI
         torch.cuda.empty_cache()
         kitti_launches, kitti_eval_errs, _ = phase_kitti(torch, tmp)
+        torch.cuda.empty_cache()
+        # last: the HD v2 zoo forward's profile holds about 10^5 kernel events,
+        # after which an H100's profiler windows lost events (17 of 40)
+        zoo_launches, _ = phase_zoo(torch, tmp)
+        phase_perceptual(torch)
 
     source = "opticalflowscivis_tpu_torch/csrc/warp2d.cu"
     kernels = [{
@@ -3754,6 +4322,27 @@ def main(argv: list) -> int:
         by_name[name]["launches_per_kitti_train_step"] = PER_CALL["kitti_train_step"][name]
     for name in ("warp2d", "corr", "corr_bwd"):
         by_name[name]["kitti_eval_max_abs_err"] = kitti_eval_errs[name]
+    # RIFE's refinement (2-D serving and training; the 3-D one's model warps)
+    # and the pretrained zoo; the worst float32 errors at the Contextnet and
+    # the legacy context levels
+    refine_paths = {"warp2d": refine_serving["warp2d"] + refine_training["warp2d"],
+                    "warp2d_bwd": refine_training["warp2d_bwd"],
+                    "warp3d": refine_serving["warp3d"]}
+    for name, n in refine_paths.items():
+        by_name[name]["launches"] += n
+        by_name[name]["launches_refine_paths"] = n
+    by_name["warp2d"]["launches"] += zoo_launches["warp2d"]
+    by_name["warp2d"]["launches_zoo_paths"] = zoo_launches["warp2d"]
+    by_name["warp2d"]["launches_per_refine_forward"] = PER_CALL["refine_forward"]["warp2d"]
+    by_name["warp2d"]["launches_per_refine_eval_step"] = PER_CALL["refine_eval_step"]["warp2d"]
+    for name in ("warp2d", "warp2d_bwd"):
+        by_name[name]["launches_per_refine_train_step"] = PER_CALL["refine_train_step"][name]
+    by_name["warp2d_bwd"]["refine_train_step_calls_with_dimg"] = sum(
+        c["need_dimg"] for c in WARP2D_LAYOUTS["refine_f32"])
+    by_name["warp2d"]["launches_per_zoo_pair"] = {
+        kind: PER_CALL[f"zoo_{kind}_pair"]["warp2d"] for kind in ZOO_WARPS}
+    by_name["warp2d"]["refine_levels_max_abs_err"] = refine_worst["fwd"]
+    by_name["warp2d_bwd"]["refine_levels_max_abs_err"] = refine_worst["bwd"]
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

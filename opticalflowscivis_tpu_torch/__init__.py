@@ -6,17 +6,20 @@ module layout so that each counterpart is found under the same path:
 - ``ops``        — plain PyTorch warp / resize / cost volume / occlusion /
   census / SSIM, and ``ops.kernels``: the hand-written Hopper kernels (CUDA
   C++ in ``csrc/``) with their wrappers.
-- ``models``     — IFNet (RIFE student/teacher), 2-D and 3-D, and UPFlowNet
-  (pyramid flow network), as ``nn.Module``s.
+- ``models``     — IFNet (RIFE student/teacher), 2-D and 3-D, with its
+  Contextnet/Unet refinement, UPFlowNet (pyramid flow network), and the
+  pretrained RIFE zoo networks (HDv3, HD v1 / v2) with their loaders, as
+  ``nn.Module``s.
 - ``bridge``     — flax params → this package's ``state_dict``s.
-- ``losses``     — the RIFE training losses, the UPFlow unsupervised losses
-  and the self-supervised transform losses.
+- ``losses``     — the RIFE training losses, the UPFlow unsupervised losses,
+  the self-supervised transform losses and the VGG perceptual loss.
 - ``training``   — config, schedule, checkpoint, the ``Trainer`` and the
   ``UPFlowTrainer``.
 - ``cli``        — the verbs: generate, train, test, inference_img / _video,
   train_upflow, test_upflow (SciVis datasets and KITTI), select.
 - ``scripts``    — ``train256`` (256³ training) and ``forward3d`` (forward timing).
-- ``inference``  — ``Interpolator`` and the series / recursive interpolators.
+- ``inference``  — ``Interpolator`` and the series / recursive interpolators,
+  ``ZooInterpolator`` and ``load_pretrained_zoo``.
 - ``evalsuite``  — PSNR / SSIM metrics, the linear baseline, flow EPE / F1,
   time-step selection.
 - ``data``       — numpy generators, pipeline, dataset registry, the KITTI

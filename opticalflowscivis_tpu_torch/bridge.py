@@ -23,6 +23,17 @@ them) map to torch keys as follows, per block (``block{i}`` or ``block_tea``):
 | ``ConvTranspose_0``                    | ``flow_head.out``             |
 | ``DeconvPReLU_1/...``, ``ConvTranspose_1`` | ``mask_head.up...``, ``mask_head.out`` |
 
+and for the refinement of ``IFNet(refine=True)`` (``models/refine.py``):
+
+| flax                                                | torch                              |
+| --------------------------------------------------- | ---------------------------------- |
+| ``contextnet/Conv2_{i}/ConvPReLU_{j}/Conv_0``       | ``contextnet.conv{i+1}.conv{j+1}.conv`` |
+| ``contextnet/Conv2_{i}/ConvPReLU_{j}/PReLU_0``      | ``contextnet.conv{i+1}.conv{j+1}.prelu`` |
+| ``unet/Conv2_{i}/ConvPReLU_{j}/...``                | ``unet.down{i}.conv{j+1}...``      |
+| ``unet/DeconvPReLU_{i}/ConvTranspose_0``            | ``unet.up{i}.deconv``              |
+| ``unet/DeconvPReLU_{i}/PReLU_0``                    | ``unet.up{i}.prelu``               |
+| ``unet/Conv_0``                                     | ``unet.conv``                      |
+
 ``upflow_params_from_flax(tree)`` does the same for ``models.upflow.UPFlowNet``
 (conv kernels HWIO → OIHW, biases as they are).  Flax names its
 ``nn.compact`` children ``ConvLeaky_{k}/Conv_0`` in call order:
@@ -65,6 +76,27 @@ _MODULE_RULES = [
 _BLOCK = re.compile(r"^(block\d+|block_tea)$")
 
 
+def _next(m: re.Match, group: int) -> str:
+    return str(int(m.group(group)) + 1)
+
+
+_CONV2 = r"ConvPReLU_(\d+)/(Conv|PReLU)_0$"
+_LAYER = {"Conv": "conv", "PReLU": "prelu"}
+_REFINE_RULES = {
+    "contextnet": [
+        (re.compile(r"^Conv2_(\d+)/" + _CONV2),
+         lambda m: f"conv{_next(m, 1)}.conv{_next(m, 2)}.{_LAYER[m.group(3)]}"),
+    ],
+    "unet": [
+        (re.compile(r"^Conv2_(\d+)/" + _CONV2),
+         lambda m: f"down{m.group(1)}.conv{_next(m, 2)}.{_LAYER[m.group(3)]}"),
+        (re.compile(r"^DeconvPReLU_(\d+)/ConvTranspose_0$"), lambda m: f"up{m.group(1)}.deconv"),
+        (re.compile(r"^DeconvPReLU_(\d+)/PReLU_0$"), lambda m: f"up{m.group(1)}.prelu"),
+        (re.compile(r"^Conv_0$"), lambda m: "conv"),
+    ],
+}
+
+
 def _flatten(tree: Mapping, prefix: tuple = ()) -> list[tuple[tuple, np.ndarray]]:
     leaves = []
     for key, value in tree.items():
@@ -79,7 +111,13 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> list[tuple[tuple, np.ndarray]
 def _torch_key(path: tuple) -> str:
     block, *module, leaf = path
     module = "/".join(module)
-    if not _BLOCK.match(block) or leaf not in _LEAF:
+    if leaf not in _LEAF:
+        raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
+    for pattern, repl in _REFINE_RULES.get(block, []):
+        m = pattern.match(module)
+        if m:
+            return f"{block}.{repl(m)}.{_LEAF[leaf]}"
+    if not _BLOCK.match(block):
         raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
     for pattern, repl in _MODULE_RULES:
         if pattern.match(module):

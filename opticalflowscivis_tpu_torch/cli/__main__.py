@@ -26,6 +26,10 @@ WAITING_VERBS = {
 }
 
 
+ZOO_HELP = ("pretrained RIFE HD/HDv2/HDv3 checkpoint dir (upstream torch pkl files) "
+            "instead of a framework checkpoint")
+
+
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--dataset", default="rectangle2d")
     p.add_argument("--exp", type=int, default=1, help="interpolate 2**exp x")
@@ -205,23 +209,25 @@ def cmd_inference_img(argv):
     p.add_argument("--n_exp", type=int, default=1, help="insert 2**n_exp - 1 frames")
     p.add_argument("--ratio", type=float, default=0.0,
                    help="single frame at this time ratio (0 = use n_exp)")
-    p.add_argument("--zoo_dir", default="",
-                   help="pretrained RIFE checkpoint dir (not ported yet)")
+    p.add_argument("--zoo_dir", default="", help=ZOO_HELP)
     args = p.parse_args(argv)
-    _refuse_zoo(args)
 
     from opticalflowscivis_tpu_torch.cli.io_utils import load_image, save_image
     from opticalflowscivis_tpu_torch.inference import (
         Interpolator,
         interpolate_ratio,
         interpolate_recursive,
+        load_pretrained_zoo,
     )
 
     img0 = load_image(args.img0)
     img1 = load_image(args.img1)
-    cfg = _build_cfg(args, epochs=1)
-    tr = _restored_trainer(cfg, args)
-    interp = Interpolator(tr.model, cfg.pad_multiple, device=tr.device)
+    if args.zoo_dir:
+        interp = load_pretrained_zoo(args.zoo_dir, device=_device(args))
+    else:
+        cfg = _build_cfg(args, epochs=1)
+        tr = _restored_trainer(cfg, args)
+        interp = Interpolator(tr.model, cfg.pad_multiple, device=tr.device)
     if args.ratio > 0:
         mids = [interpolate_ratio(interp, img0[None], img1[None], args.ratio)]
     else:
@@ -241,10 +247,8 @@ def cmd_inference_video(argv):
     p.add_argument("--max_frames", type=int, default=0, help="limit test frames (0 = all)")
     p.add_argument("--write_mp4", action="store_true")
     p.add_argument("--tta", action="store_true", help="flip-averaged test-time augmentation")
-    p.add_argument("--zoo_dir", default="",
-                   help="pretrained RIFE checkpoint dir (not ported yet)")
+    p.add_argument("--zoo_dir", default="", help=ZOO_HELP)
     args = p.parse_args(argv)
-    _refuse_zoo(args)
 
     from opticalflowscivis_tpu_torch.cli.io_utils import write_video
     from opticalflowscivis_tpu_torch.data import load_raw_series
@@ -252,15 +256,22 @@ def cmd_inference_video(argv):
         calculate_metrics,
         linear_interpolation_baseline,
     )
-    from opticalflowscivis_tpu_torch.inference import Interpolator, interpolate_series
+    from opticalflowscivis_tpu_torch.inference import (
+        Interpolator,
+        interpolate_series,
+        load_pretrained_zoo,
+    )
 
     cfg = _build_cfg(args, epochs=1)
     _spec(cfg.dataset)
     frames = load_raw_series(cfg.dataset, cfg.data_dir, "test")[..., :1]
     if args.max_frames:
         frames = frames[: args.max_frames]
-    tr = _restored_trainer(cfg, args)
-    interp = Interpolator(tr.model, cfg.pad_multiple, tta=args.tta, device=tr.device)
+    if args.zoo_dir:
+        interp = load_pretrained_zoo(args.zoo_dir, device=_device(args))
+    else:
+        tr = _restored_trainer(cfg, args)
+        interp = Interpolator(tr.model, cfg.pad_multiple, tta=args.tta, device=tr.device)
 
     results = {}
     for factor in [int(f) for f in args.factors.split(",")]:
@@ -296,14 +307,6 @@ def cmd_inference_video(argv):
         if viz is not None:
             viz.plot_factor_comparison(results, dir_res)
     print(json.dumps(results), flush=True)
-
-
-def _refuse_zoo(args) -> None:
-    if args.zoo_dir:
-        raise SystemExit(
-            "--zoo_dir: the pretrained RIFE zoo models are ported with the "
-            "remaining models (ROADMAP A.10)"
-        )
 
 
 def cmd_generate(argv):

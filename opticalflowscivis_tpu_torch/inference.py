@@ -11,19 +11,24 @@ Counterpart of ``opticalflowscivis_tpu/inference.py``:
   missing frames; power-of-two factors without SSIM gates take the
   device-resident path (``interpolate_series_device``).
 - ``batched_pair_inference``: ``pair`` over grouped test tuples.
+- ``ZooInterpolator`` / ``load_pretrained_zoo``: the pretrained RIFE zoo
+  models (HDv3, HD v1 and v2; ``models/ifnet_hd*.py``) behind the same
+  ``pair``, from a checkpoint directory of upstream ``.pkl`` state dicts.
 
 Arrays in and out are channels-last numpy; the model runs on the
-interpolator's device under ``torch.inference_mode()``.  ``ZooInterpolator``
-is ported with the zoo models (ROADMAP A.10).
+interpolator's device under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from opticalflowscivis_tpu_torch.device import resolve_device
 from opticalflowscivis_tpu_torch.models.ifnet import IFNet
+from opticalflowscivis_tpu_torch.ops.resize import resize_flow_nchw
 from opticalflowscivis_tpu_torch.ops.ssim import ssim
 
 
@@ -32,7 +37,35 @@ def _spatial_dims(x: torch.Tensor) -> tuple[int, ...]:
     return tuple(range(2, x.dim()))
 
 
-class Interpolator:
+class _PaddedFrames:
+    """Edge padding to ``pad_multiple`` and the numpy <-> device conversions
+    of the interpolators (``pad_multiple`` and ``device`` set by each)."""
+
+    pad_multiple: int
+    device: torch.device
+
+    def _pad(self, x: np.ndarray):
+        m = self.pad_multiple
+        pads = [(0, 0)] + [(0, (-s) % m) for s in x.shape[1:-1]] + [(0, 0)]
+        return np.pad(x, pads, mode="edge"), x.shape
+
+    def _to_tensor(self, x: np.ndarray) -> torch.Tensor:
+        """``[N, *S, C]`` numpy → contiguous channels-first float32 on the device."""
+        t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+        return t.movedim(-1, 1).contiguous()
+
+    @staticmethod
+    def _to_numpy(t: torch.Tensor) -> np.ndarray:
+        return t.float().movedim(1, -1).cpu().numpy()
+
+    @staticmethod
+    def _crop(orig_shape) -> tuple[slice, ...]:
+        """Index that cuts a padded ``[N, *S, C]`` array back to ``orig_shape``'s
+        spatial size."""
+        return (slice(None),) + tuple(slice(0, s) for s in orig_shape[1:-1])
+
+
+class Interpolator(_PaddedFrames):
     """Student-only IFNet forward with automatic /``pad_multiple`` padding.
 
     Runs on ``device`` (``cuda`` unless ``device="cpu"``); the model is moved
@@ -64,26 +97,6 @@ class Interpolator:
                 m2, _, _ = self._forward_plain(img0.flip(spatial), img1.flip(spatial), timestep)
                 merged = (merged + m2.flip(spatial)) / 2
         return merged, flow, mask
-
-    def _pad(self, x: np.ndarray):
-        m = self.pad_multiple
-        pads = [(0, 0)] + [(0, (-s) % m) for s in x.shape[1:-1]] + [(0, 0)]
-        return np.pad(x, pads, mode="edge"), x.shape
-
-    def _to_tensor(self, x: np.ndarray) -> torch.Tensor:
-        """``[N, *S, C]`` numpy → contiguous channels-first float32 on the device."""
-        t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
-        return t.movedim(-1, 1).contiguous()
-
-    @staticmethod
-    def _to_numpy(t: torch.Tensor) -> np.ndarray:
-        return t.float().movedim(1, -1).cpu().numpy()
-
-    @staticmethod
-    def _crop(orig_shape) -> tuple[slice, ...]:
-        """Index that cuts a padded ``[N, *S, C]`` array back to ``orig_shape``'s
-        spatial size."""
-        return (slice(None),) + tuple(slice(0, s) for s in orig_shape[1:-1])
 
     def pair(self, img0: np.ndarray, img1: np.ndarray, timestep: float = 0.5):
         """Predict the frame at ``timestep`` between two ``[B, *S, C]`` frames.
@@ -258,3 +271,78 @@ def batched_pair_inference(
         "mask": np.concatenate(masks),
         "gt": np.concatenate(gts),
     }
+
+
+# -- the pretrained RIFE zoo (HDv3, HD v1 / v2) ------------------------------------------
+
+
+class ZooInterpolator(_PaddedFrames):
+    """``Interpolator.pair`` around a pretrained RIFE zoo model.
+
+    Zoo models are RGB midpoint interpolators: single-channel frames are
+    tiled to 3 channels on the way in and the prediction averaged back on the
+    way out.  Frames are edge-padded to ``pad_multiple`` (32 for HDv3, 64 for
+    the legacy networks).  ``kind`` is ``"hdv3"``, ``"hdv1"`` or ``"hdv2"``.
+    Runs on ``device`` (``cuda`` unless ``device="cpu"``).
+    """
+
+    def __init__(self, kind: str, model: torch.nn.Module, pad_multiple: int,
+                 device: str | torch.device | None = None):
+        if kind not in ("hdv1", "hdv2", "hdv3"):
+            raise ValueError(f"unknown zoo model kind {kind!r}")
+        self.kind = kind
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.pad_multiple = pad_multiple
+
+    def forward(self, img0: torch.Tensor, img1: torch.Tensor):
+        """RGB channels-first device tensors → (merged, flow, mask), the flow
+        at full resolution."""
+        with torch.inference_mode():
+            if self.kind == "hdv3":
+                out = self.model(img0, img1)
+                merged, flow, mask = out["merged"][-1], out["flow_list"][-1], out["mask"]
+            else:
+                merged, flow, mask = self.model.inference(img0, img1)
+            if flow.shape[2:] != merged.shape[2:]:  # a half-resolution flow
+                flow = resize_flow_nchw(flow, tuple(merged.shape[2:]))
+        return merged, flow, mask
+
+    def pair(self, img0: np.ndarray, img1: np.ndarray, timestep: float = 0.5):
+        """The midpoint of two ``[B, H, W, C]`` frames (C = 1 or 3): numpy
+        (merged ``[B, H, W, C]``, flow ``[B, H, W, 2 or 4]``, mask)."""
+        if timestep != 0.5:
+            raise ValueError(
+                f"{self.kind} zoo models are midpoint-only interpolators; use "
+                "recursive bisection (interpolate_recursive) for other ratios")
+        p0, orig_shape = self._pad(np.asarray(img0, np.float32))
+        p1, _ = self._pad(np.asarray(img1, np.float32))
+        mono = p0.shape[-1] == 1
+        if mono:
+            p0, p1 = (np.repeat(p, 3, axis=-1) for p in (p0, p1))
+        merged, flow, mask = self.forward(self._to_tensor(p0), self._to_tensor(p1))
+        merged = self._to_numpy(merged)
+        if mono:
+            merged = merged.mean(axis=-1, keepdims=True)
+        crop = self._crop(orig_shape)
+        return merged[crop], self._to_numpy(flow)[crop], self._to_numpy(mask)[crop]
+
+
+def load_pretrained_zoo(model_dir: str, device: str | torch.device | None = None
+                        ) -> ZooInterpolator:
+    """A ``ZooInterpolator`` from a pretrained RIFE checkpoint directory.
+
+    A ``flownet.pkl`` / ``contextnet.pkl`` / ``unet.pkl`` trio is a legacy
+    checkpoint, v2 where the flow network has ``convblock`` stacks, else v1;
+    a lone ``flownet.pkl`` is HDv3.  The widths are read off the checkpoint.
+    """
+    from opticalflowscivis_tpu_torch.models.ifnet_hd import load_torch_rife_hdv3
+    from opticalflowscivis_tpu_torch.models.ifnet_hd_legacy import load_torch_rife_hd_legacy
+
+    trio = all(os.path.exists(os.path.join(model_dir, f))
+               for f in ("flownet.pkl", "contextnet.pkl", "unet.pkl"))
+    if trio:
+        model = load_torch_rife_hd_legacy(model_dir)
+        return ZooInterpolator(f"hdv{model.version}", model, 64, device)
+    return ZooInterpolator("hdv3", load_torch_rife_hdv3(os.path.join(model_dir, "flownet.pkl")),
+                           32, device)

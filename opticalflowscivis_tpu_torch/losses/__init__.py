@@ -1,8 +1,8 @@
 """Loss library of the RIFE and UPFlow training paths, as plain functions.
 
 Counterpart of ``opticalflowscivis_tpu/losses``.  ``lap_loss`` and SSIM live
-in ``ops`` (shared with the metrics).  The perceptual (VGG) loss is ported
-with the remaining models (ROADMAP A.10).
+in ``ops`` (shared with the metrics); ``vgg_perceptual_loss`` in
+``losses.perceptual``.
 """
 
 from opticalflowscivis_tpu_torch.losses.basic import (
@@ -22,10 +22,11 @@ from opticalflowscivis_tpu_torch.losses.selfsup import (
     sp_transform_pair,
 )
 from opticalflowscivis_tpu_torch.losses.upflow import UPFlowLossConfig, upflow_losses
+from opticalflowscivis_tpu_torch.losses.perceptual import vgg_perceptual_loss
 
 __all__ = [
     "charbonnier", "epe", "l1_loss", "photometric_loss", "smoothness_loss",
     "sobel_loss", "flow_supervision", "RIFELossWeights", "rife_losses",
-    "UPFlowLossConfig", "upflow_losses",
+    "UPFlowLossConfig", "upflow_losses", "vgg_perceptual_loss",
     "SPTransformConfig", "sp_transform_pair", "eq_loss", "oi_loss",
 ]

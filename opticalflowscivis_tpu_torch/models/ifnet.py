@@ -13,6 +13,12 @@ for ``ndim`` 2 and 3:
   mask-blended merging, the teacher block that also sees the ground-truth
   middle frame (at ``teacher_scale``; > 1 keeps every conv off full-resolution
   inputs, the single-device 256³ mode), and the masked-RMSE distillation loss.
+- ``refine=True``: after the distillation loop (which sees the unrefined
+  merges), the Contextnet/Unet residual of ``models/refine.py`` refines the
+  last merged frame, ``clamp(merged + (res * 2 - 1), 0, 1)``.  The Unet sees
+  the last student warps, the raw accumulated mask (before the sigmoid) and
+  the flow; one ``Contextnet`` (module ``contextnet``) warps features of both
+  frames, each by its own half of the flow.
 
 Tensors inside are channels-first: images ``[B, C, H, W]`` or
 ``[B, C, Z, Y, X]``, flow ``[B, 2 * ndim, ...]`` with channels
@@ -21,7 +27,8 @@ float32; ``dtype`` selects the compute dtype (``torch.bfloat16`` or float32).
 
 Every warp goes through ``ops.kernels.warp``: ``warp2d`` in 2-D, ``warp3d`` in
 3-D.  On a CUDA tensor they launch the Hopper kernels (and their backward
-kernels under autograd), on a CPU tensor the plain versions.
+kernels under autograd), on a CPU tensor the plain versions.  The
+refinement's own feature warps are unbounded (``models/refine.py``).
 
 - 2-D: the flow is clipped to ``±fast_warp_r`` (0 = unbounded), which is the
   TPU kernel's semantics; the reference's CPU path warps unbounded.
@@ -57,6 +64,7 @@ from opticalflowscivis_tpu_torch.models.layers import (
     deconv,
     deconv_forward,
 )
+from opticalflowscivis_tpu_torch.models.refine import Contextnet, Unet
 from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp3d
 from opticalflowscivis_tpu_torch.ops.resize import resize_flow_nchw, resize_nchw
 
@@ -139,11 +147,6 @@ class IFNet(nn.Module):
         super().__init__()
         if ndim not in (2, 3):
             raise ValueError(f"ndim must be 2 or 3, got {ndim}")
-        if refine:
-            raise NotImplementedError(
-                "Contextnet/Unet refinement (models/refine.py) is ported with "
-                "the remaining models (ROADMAP A.10)"
-            )
         if len(scales) != len(block_channels):
             raise ValueError("one scale per student block")
         device = resolve_device(device)
@@ -168,6 +171,11 @@ class IFNet(nn.Module):
             )
         self.block_tea = IFBlock(5 * c + 1 + ts, teacher_channels, gen, **kw)
         self.n_blocks = len(block_channels)
+        self.refine = refine
+        if refine:
+            # (img0, img1, warped0, warped1, mask, flow) into the Unet
+            self.contextnet = Contextnet(c, gen, ndim)
+            self.unet = Unet(4 * c + 1 + 2 * ndim, gen, ndim, out_channels=c)
         self.to(device)
 
     def _warp(self, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -254,6 +262,12 @@ class IFNet(nn.Module):
                     + 1e-12
                 )
                 loss_distill = loss_distill + (rmse * worse).mean()
+
+        if self.refine:
+            c0 = self.contextnet(img0, flow[:, :nd])
+            c1 = self.contextnet(img1, flow[:, nd:])
+            res = self.unet(img0, img1, warped0, warped1, mask, flow, c0, c1)
+            merged_out[-1] = torch.clamp(merged_out[-1] + (res * 2 - 1), 0, 1)
 
         return {
             "flow_list": flow_list,

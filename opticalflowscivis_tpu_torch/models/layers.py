@@ -56,22 +56,32 @@ def _check_ndim(ndim: int) -> None:
         raise ValueError(f"ndim must be 2 or 3, got {ndim}")
 
 
+def conv(in_ch: int, out_ch: int, generator: torch.Generator, ndim: int = 2,
+         kernel_size: int = 3, stride: int = 1) -> nn.Module:
+    """A conv with bias and padding ``(k - 1) // 2``, flax-initialised."""
+    _check_ndim(ndim)
+    c = _CONV[ndim][0](in_ch, out_ch, kernel_size, stride, (kernel_size - 1) // 2)
+    lecun_normal_(c.weight, in_ch * kernel_size**ndim, generator)
+    nn.init.zeros_(c.bias)
+    return c
+
+
+def conv_forward(c: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    fn = _CONV[x.dim() - 2][1]
+    return fn(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride, c.padding)
+
+
 class ConvPReLU(nn.Module):
     """Conv (+ bias) followed by per-channel PReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator,
                  stride: int = 1, ndim: int = 2, kernel_size: int = 3):
         super().__init__()
-        _check_ndim(ndim)
-        self.conv = _CONV[ndim][0](in_ch, out_ch, kernel_size, stride, (kernel_size - 1) // 2)
-        lecun_normal_(self.conv.weight, in_ch * kernel_size**ndim, generator)
-        nn.init.zeros_(self.conv.bias)
+        self.conv = conv(in_ch, out_ch, generator, ndim, kernel_size, stride)
         self.prelu = PReLU(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.conv
-        x = _CONV[x.dim() - 2][1](x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride, c.padding)
-        return self.prelu(x)
+        return self.prelu(conv_forward(self.conv, x))
 
 
 def deconv(in_ch: int, out_ch: int, generator: torch.Generator, ndim: int = 2) -> nn.Module:

@@ -106,9 +106,6 @@ def test_verbs_that_wait_exit_with_their_roadmap_item(verb):
 @pytest.mark.parametrize("argv, match", [
     (["train", "--cpu", "--dataset", "vimeo2d"], r"ROADMAP A\.11"),
     (["test", "--cpu", "--dataset", "vimeo2d"], r"ROADMAP A\.11"),
-    (["inference_img", "--cpu", "--zoo_dir", "somewhere", "--img0", "a", "--img1", "b"],
-     r"ROADMAP A\.10"),
-    (["inference_video", "--cpu", "--zoo_dir", "somewhere"], r"ROADMAP A\.10"),
 ])
 def test_datasets_and_options_that_wait_exit_with_their_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):

@@ -137,7 +137,6 @@ def test_ifnet_bf16_compute_tracks_f32(pair_of_models):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    ({"refine": True}, NotImplementedError, "ROADMAP"),
     ({"ndim": 4}, ValueError, "ndim"),
     ({"scales": (4, 2)}, ValueError, "scale"),
 ])

@@ -46,7 +46,8 @@ def test_importing_every_module_loads_no_jax():
     for module in ("losses.rife", "training.trainer", "training.checkpoint", "cli.__main__",
                    "ops.pyramid", "scripts.train256", "ops.kernels.correlation",
                    "models.upflow", "losses.upflow", "losses.selfsup",
-                   "training.upflow_trainer", "evalsuite.flow_eval"):
+                   "training.upflow_trainer", "evalsuite.flow_eval", "models.refine",
+                   "models.ifnet_hd", "models.ifnet_hd_legacy", "losses.perceptual"):
         assert f"opticalflowscivis_tpu_torch.{module}" in names
 
 

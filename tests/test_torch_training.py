@@ -401,7 +401,6 @@ def test_train_config_json_round_trip_and_jax_json_loads(tiny_setup):
     ({"spatial_shard": True}, NotImplementedError, "A.12"),
     ({"compiler_options": {"xla_flag": "1"}}, ValueError, "A.12"),
     ({"hbm_dataset_dtype": "float16"}, ValueError, "hbm_dataset_dtype"),
-    ({"model": ModelConfig(refine=True)}, NotImplementedError, "A.10"),
     ({"dataset": "rectangle3d"}, ValueError, "ndim"),
     ({"model": ModelConfig.preset_3d()}, ValueError, "ndim"),
 ])
