@@ -16,7 +16,9 @@ estimation (``UPFlowTrainer.predict``) and training (``UPFlowTrainer.fit``,
 then ``train_upflow`` → ``test_upflow``) at 256 x 832, and UPFlow on KITTI-sized
 frames: training from the device-resident frame store (``fit_kitti_hbm``) and
 streamed (``fit_kitti``), and the Evaluation_bench (``evaluate_kitti``) at
-384 x 1280.  It compares each path with the same weights on the CPU or with
+384 x 1280; then training from the data sources beyond a fixed export: scenes
+generated on the card (``fit_device_gen``, UPFlow and RIFE-3D), the Vimeo90K
+stream (``fit_stream``) and the lattice-Boltzmann generator.  It compares each path with the same weights on the CPU or with
 the plain kernels, and times them.
 
 Phases, printed in order:
@@ -56,7 +58,7 @@ Phases, printed in order:
      and ``unet``, a train step against the CPU in 2-D and 3-D; refine
      forward pairs/s beside the plain model's, the refine train step's time,
      device time and ``warp2d_bwd`` share (``refine times``);
- 4b. (run last, after phase 9) the pretrained zoo: random HDv3 (c = 90),
+ 4b. (run last, after phase 9a) the pretrained zoo: random HDv3 (c = 90),
      HD v1 and v2 (cs = (192, 128, 96, 48), c_fusion = 32) checkpoints in the
      upstream layout through ``load_pretrained_zoo`` and
      ``ZooInterpolator.pair`` on a 1080 x 1920 RGB pair (6 / 16 / 16
@@ -97,6 +99,24 @@ Phases, printed in order:
      kernels' report (bf16 and float32), the share of
      ``boundary_dilated_warp``, and ``corr``, ``corr_bwd`` and the masked
      ``warp2d`` at the five 384 x 1280 evaluation levels;
+ 9a. the data sources beyond a fixed export: ``box_density_device`` at 256^3,
+     ``pan_pairs_device`` and ``multibox_pan_pairs_device`` at 128 x 128 on the
+     card against the numpy generators, bit for bit;
+     ``UPFlowTrainer.fit_device_gen`` at full width on generated 128 x 128
+     pairs, batch 8, pan and multibox, f32 and bf16 (5 / 5 / 8 / 6 launches a
+     step, a fresh scene each epoch, ``val_epe``, a resumed call that goes on
+     with the epoch seeds and the step count, as many host-to-device copies a
+     step as a step on pairs already on the card, a generator that never
+     makes the host wait), its step beside ``fit``'s on the same pairs
+     uploaded (``upflow device_gen times``), ``train_upflow
+     --device_gen 64`` and ``test_upflow``; ``Trainer.fit_device_gen`` with
+     ``box_density_device`` at [4, 64, 64, 64] (8 + 8 a step) and ``train256
+     --device_gen`` at 256^3 as its own process; ``train --dataset vimeo2d``
+     at the CLI's defaults on a written Vimeo-layout tree, ``fit_stream`` (10
+     + 10 a step) and the host's sampling share of a streamed step (``vimeo
+     times``); ``lattice_boltzmann_2d`` on the card against the CPU at
+     400 x 100, ``generate --dataset lbs2d`` (33 000 steps) and 3000 steps of
+     the vortex sets' simulation, timed (``lbs times``);
  10. times (CUDA events, warm-up, inputs that vary from call to call) and
      profiles of all paths; each forward warp kernel against ``F.grid_sample``
      in turns (the median of 5 profiler windows of 40 calls each), also at
@@ -3499,6 +3519,441 @@ def phase_kitti(torch, tmp: str):
     return counts, eval_kernels, times
 
 
+DEVICE_GEN_HW = (128, 128)  # the CLI's device-gen grid (UPFlow) and its pan box
+DEVICE_GEN_BOX = (60, 80)
+DEVICE_GEN_BOXES = ((40, 50), (30, 25), (20, 35))  # rectangles_2d's defaults
+DEVICE_GEN_EPOCHS, DEVICE_GEN_STEPS = 3, 2  # UPFlow fit_device_gen: epochs x steps
+GRID_256 = (256, 256, 256)
+VIMEO_HW = (256, 448)  # Vimeo90K's frames, [H, W]
+VIMEO_STEPS = 4
+LBS_STEPS_CPU = 200  # card against CPU at 400 x 100: steps of the short run
+LBS_TOL = 1e-4  # of every channel (density normalised to [0, 1], |u| <= 0.4): the
+#   sums over the nine populations run in other orders on each device; the CPU
+#   port against the JAX package measured 3.6e-6 after 200 steps
+LBS_TIMED_STEPS = 3000  # steps of vortex2d / vortex2d_fast's simulation timed here
+
+
+def count_htod(torch, fn, iters: int = 2) -> int:
+    """Host-to-device copies in a profiler window of ``iters`` calls of ``fn(i)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if "Memcpy HtoD" in ev.key)
+
+
+def synchronizing_calls(torch, fn) -> int:
+    """Calls in ``fn(0)`` that make the host wait for the card, as torch's
+    sync debug mode reports them (a prototype: it does not see every kind)."""
+    import warnings
+
+    fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn(0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def phase_generators(torch):
+    """The device generators on the card against the numpy generators, bit
+    for bit: ``box_density_device`` at 256^3, ``pan_pairs_device`` and
+    ``multibox_pan_pairs_device`` at 128 x 128 with 3 channels."""
+    from opticalflowscivis_tpu_torch.data import device_synthetic as ds
+    from opticalflowscivis_tpu_torch.data import (
+        group_tuples,
+        rectangle_2d,
+        rectangle_3d,
+        rectangles_2d,
+    )
+
+    box3 = tuple(g // 4 for g in GRID_256)
+    pos = ds.tuple_positions(np.random.default_rng(21), 2, GRID_256, box3)
+    got = ds.box_density_device(torch.from_numpy(pos).cuda(), GRID_256, box3)
+    want = group_tuples(rectangle_3d(n_frames=6, grid=GRID_256, box=box3, seed=21,
+                                     with_flow=False), 1)
+    check(torch.equal(got, torch.from_numpy(want).cuda()),
+          "box_density_device differs from rectangle_3d at 256^3")
+    n = 9
+    hw, box, boxes = DEVICE_GEN_HW, DEVICE_GEN_BOX, DEVICE_GEN_BOXES
+    tex, big, bt, ct = ds.pan_scene_host(np.random.default_rng(22), n, hw, box)
+    bp, cp = ds.pan_pair_positions(bt, ct, np.arange(n - 1))
+    pan = ds.pan_pairs_device(*(torch.from_numpy(a).cuda() for a in (tex, big, bp, cp)), hw, 3)
+    ref = rectangle_2d(n_frames=n, grid=hw, box=box, seed=22, background="pan")
+    texs, big, bts, ct = ds.multibox_pan_scene_host(np.random.default_rng(23), n, hw, boxes)
+    bp, cp = ds.multibox_pan_pair_positions(bts, ct, np.arange(n - 1))
+    multi = ds.multibox_pan_pairs_device([torch.from_numpy(t).cuda() for t in texs],
+                                         *(torch.from_numpy(a).cuda() for a in (big, bp, cp)),
+                                         hw, 3)
+    ref_multi = rectangles_2d(n_frames=n, grid=hw, boxes=boxes, seed=23, background="pan",
+                              pan_vel_max=8)
+    for name, (im1, im2, flow), arr in (("pan", pan, ref), ("multibox", multi, ref_multi)):
+        frames = np.repeat(arr[..., :1], 3, axis=-1)
+        check(all(np.array_equal(a.cpu().numpy(), b) for a, b in
+                  ((im1, frames[:-1]), (im2, frames[1:]), (flow, arr[:-1, ..., 1:]))),
+              f"{name}_pairs_device differs from the numpy generator")
+    print(f"generators on the card: box_density_device [2,3,256,256,256,1], pan_pairs_device "
+          f"and multibox_pan_pairs_device [{n - 1},{hw[0]},{hw[1]},3] equal the numpy "
+          "generators bit for bit")
+
+
+def pan_device_gen(multibox: bool, n: int, record: list):
+    """``(gen_fn, pos_sampler)`` of ``train_upflow --device_gen n`` at batch
+    ``n`` on ``rectangle2d_tex_pan`` (or, with ``multibox``,
+    ``rectangles2d_tex_pan8``): a fresh 128 x 128 scene every epoch;
+    ``record`` collects the epochs sampled and their box positions."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import _pan_device_gen
+    from opticalflowscivis_tpu_torch.data import get_spec
+
+    spec = get_spec("rectangles2d_tex_pan8" if multibox else "rectangle2d_tex_pan")
+    gen_fn, sampler, _ = _pan_device_gen(spec, n, n)
+
+    def pos_sampler(epoch):
+        const, pos = sampler(epoch)
+        record.append((epoch, pos["box"]))
+        return const, pos
+
+    return gen_fn, pos_sampler
+
+
+def phase_upflow_device_gen(torch, tmp: str):
+    """``UPFlowTrainer.fit_device_gen`` at ``UPFlowTrainConfig()``'s full
+    width on generated 128 x 128 pairs, batch 8, pan and multibox, f32 and
+    bf16: launches, no frame crossing from the host, a fresh scene each epoch,
+    ``val_epe``, a resumed call; its step beside ``fit``'s on the same pairs
+    uploaded; then ``train_upflow --device_gen 64`` and ``test_upflow``."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import main as cli
+    from opticalflowscivis_tpu_torch.data import rectangle_2d
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainer, frames_to_pairs
+
+    b, spe, epochs = UPFLOW_BATCH, DEVICE_GEN_STEPS, DEVICE_GEN_EPOCHS
+    val = rectangle_2d(n_frames=b + 1, grid=DEVICE_GEN_HW, box=DEVICE_GEN_BOX, seed=24,
+                       background="pan")
+    val_pairs, val_flow = frames_to_pairs(val[..., :1], in_channels=3), val[:-1, ..., 1:]
+    keys = ("corr", "corr_bwd", "warp2d", "warp2d_bwd")
+    launches = dict.fromkeys(keys, 0)
+    per_step = PER_CALL["upflow_train_step"]
+    times = {}
+    for multibox in (False, True):
+        for bf16 in (False, True):
+            name = f"{'multibox' if multibox else 'pan'}_{'bf16' if bf16 else 'f32'}"
+            cfg = upflow_config(tmp, f"gen_{name}", bf16)
+            record = []
+            gen_fn, pos_sampler = pan_device_gen(multibox, spe * b, record)
+            tr = UPFlowTrainer(cfg)
+            reset_launches()  # this device-gen path's run starts here
+            hist = tr.fit_device_gen(gen_fn, pos_sampler, spe, epochs=epochs, log_every=0,
+                                     val_pairs=val_pairs, val_flow=val_flow)
+            torch.cuda.synchronize()
+            counts = {k: LAUNCHES[k] for k in keys}  # read just after the run
+            steps = epochs * spe
+            # a validation: the model alone on 8 pairs, 5 cost volumes and 4 warps
+            expect = {k: per_step.get(k, 0) * steps for k in keys}
+            expect["corr"] += 5 * epochs
+            expect["warp2d"] += 4 * epochs
+            print(f"upflow device_gen {name}: {steps} steps at [{b},{DEVICE_GEN_HW[0]},"
+                  f"{DEVICE_GEN_HW[1]},3] launches={counts} loss_total {hist[0]['loss_total']:.5f}"
+                  f" -> {hist[-1]['loss_total']:.5f} val_epe {hist[0]['val_epe']:.4f} -> "
+                  f"{hist[-1]['val_epe']:.4f} (zero flow {hist[-1]['val_epe_zero_flow']:.4f})")
+            check(counts == expect, f"{name}: launches {counts}, expected {expect}")
+            check(len(hist) == epochs and tr.state.step == steps
+                  and all(math.isfinite(v) for h in hist for v in h.values()),
+                  f"{name}: device-gen history")
+            check([e for e, _ in record] == list(range(epochs))
+                  and not any(np.array_equal(record[i][1], record[i + 1][1])
+                              for i in range(epochs - 1)), f"{name}: a fresh scene each epoch")
+            for k in keys:
+                launches[k] += counts[k]
+
+            again = []
+            _, resumed_sampler = pan_device_gen(multibox, spe * b, again)
+            resumed = UPFlowTrainer(cfg)
+            hist2 = resumed.fit_device_gen(gen_fn, resumed_sampler, spe, epochs=1, log_every=0,
+                                           resume=True, val_pairs=val_pairs, val_flow=val_flow)
+            check([e for e, _ in again] == [epochs] and resumed.state.step == steps + spe
+                  and math.isfinite(hist2[0]["val_epe"]),
+                  f"{name}: resume did not continue the epoch seeds and the step count")
+
+            # one step from the device positions against one on the same
+            # generated pairs already on the card: the generator adds no copy
+            const, pos = pos_sampler(epochs + 1)
+            const = {k: ([torch.from_numpy(t).cuda() for t in v] if isinstance(v, list)
+                         else torch.from_numpy(v).cuda()) for k, v in const.items()}
+            pos = {k: torch.from_numpy(v).cuda() for k, v in pos.items()}
+
+            def gen_step(i, tr=tr, gen_fn=gen_fn, const=const, pos=pos):
+                sl = {k: v[(i % spe) * b : (i % spe + 1) * b] for k, v in pos.items()}
+                im1, im2, _ = gen_fn(const, sl)
+                return tr.train_step({"im1": im1.float(), "im2": im2.float()})
+
+            im1, im2, _ = gen_fn(const, {k: v[:b] for k, v in pos.items()})
+            resident = {"im1": im1.float(), "im2": im2.float()}
+            host = np.stack([im1.cpu().numpy(), im2.cpu().numpy()], axis=1)
+            htod_gen = count_htod(torch, gen_step)
+            htod_resident = count_htod(torch, lambda i: tr.train_step(resident))
+            check(htod_gen == htod_resident,
+                  f"{name}: a device-gen step copied {htod_gen} times from the host, a step "
+                  f"on pairs on the card {htod_resident}")
+            before = dict(LAUNCHES)
+            gen_step(0)
+            torch.cuda.synchronize()
+            check(launch_delta(before) == per_step, f"{name}: step launches")
+
+            def fit_step(i, tr=tr, host=host):
+                return tr.train_step(tr._batch(tr.upload(host)))
+
+            # in turns (gen, fit, fit, gen), each the mean of its two loops
+            runs = {"gen": [], "fit": []}
+            for which in ("gen", "fit", "fit", "gen"):
+                runs[which].append(cuda_and_host_ms(gen_step if which == "gen" else fit_step,
+                                                    iters=10))
+            (ms, host_ms), (fit_ms, fit_host_ms) = (
+                tuple(statistics.mean(v) for v in zip(*runs[k])) for k in ("gen", "fit"))
+            dev_ms = device_ms(gen_step, 4)
+
+            def gen_only(i, gen_fn=gen_fn, const=const, pos=pos):
+                return gen_fn(const, {k: v[(i % spe) * b : (i % spe + 1) * b]
+                                      for k, v in pos.items()})
+
+            gen_dev_ms = device_ms(gen_only, 20)
+            gen_syncs = synchronizing_calls(torch, gen_only)
+            check(gen_syncs == 0, f"{name}: the generator made the host wait {gen_syncs} times")
+            times[name] = {
+                "step_ms": ms, "step_host_ms": host_ms, "step_device_ms": dev_ms,
+                "busy_share": dev_ms / ms, "fit_uploaded_step_ms": fit_ms,
+                "fit_uploaded_step_host_ms": fit_host_ms,
+                "generator_device_ms": gen_dev_ms, "generator_device_share": gen_dev_ms / dev_ms,
+                "generator_host_us": host_us_per_call(torch, gen_only),
+                "htod_copies_per_2_steps": htod_gen,
+                "step_synchronizing_calls": synchronizing_calls(torch, gen_step),
+                "resident_step_synchronizing_calls": synchronizing_calls(
+                    torch, lambda i: tr.train_step(resident)),
+            }
+            del tr, resumed
+    print("upflow device_gen times " + json.dumps(times))
+
+    # the CLI: train_upflow --device_gen 64 (8 steps of 8), then test_upflow
+    data = os.path.join(tmp, "cligen_d")
+    common = ["--dataset", "rectangle2d_tex_pan", "--data_dir", data, "--results_dir",
+              os.path.join(tmp, "cligen_r")]
+    before = dict(LAUNCHES)
+    cli(["generate", "--dataset", "rectangle2d_tex_pan", "--frames", "60", "--data_dir", data])
+    cli(["train_upflow", "--epochs", "1", "--device_gen", "64", "--census_weight", "1.0",
+         "--smooth1_weight", "0.1", *common])
+    cli(["test_upflow", "--max_frames", "9", *common])
+    torch.cuda.synchronize()
+    run = os.path.join(tmp, "cligen_r", "rectangle2d_tex_pan", "upflow")
+    with open(os.path.join(run, "loss.json")) as f:
+        rows = json.load(f)["loss"]
+    with open(os.path.join(run, "test_report.json")) as f:
+        report = json.load(f)["scivis"]
+    delta = launch_delta(before)
+    print(f"cli upflow device_gen: train_upflow --device_gen 64, test_upflow ok; "
+          f"report={json.dumps(report)} launches={delta}")
+    check(len(rows) == 1 and math.isfinite(rows[0]["val_epe"]), "cli device_gen loss.json")
+    check(all(math.isfinite(v) for v in report.values()), "cli device_gen test_upflow report")
+    check(delta.get("corr_bwd") == 5 * 8 and delta.get("warp2d_bwd") == 6 * 8,
+          f"cli device_gen: 8 train steps expected, launches {delta}")
+    return launches, times
+
+
+def phase_rife3d_device_gen(torch, tmp: str):
+    """``Trainer.fit_device_gen`` with ``box_density_device`` at [4,64,64,64]
+    in process (8 + 8 launches a step), then ``train256 --device_gen`` at
+    256^3, full resolution, as its own process."""
+    from opticalflowscivis_tpu_torch.data import box_density_device, tuple_positions
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import Trainer
+
+    b, z, y, x, _ = VOLUME_SHAPE
+    grid = (z, y, x)
+    box = tuple(g // 4 for g in grid)  # train256's box
+    spe, epochs, n_val = 2, 2, 4
+    tr = Trainer(train3d_config(os.path.join(tmp, "gen3d"), False, batch=b))
+    seen = []
+
+    def pos_sampler(epoch):
+        seen.append(epoch)
+        return tuple_positions(np.random.default_rng(60 + epoch), spe * b, grid, box)
+
+    keys = ("warp3d", "warp3d_bwd")
+    reset_launches()  # the 3-D device-gen path's run starts here
+    hist = tr.fit_device_gen(lambda p: box_density_device(p, grid, box), pos_sampler,
+                             tuple_positions(np.random.default_rng(7), n_val, grid, box),
+                             spe, epochs=epochs, log_every=0)
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] for k in keys}  # read just after the run
+    steps = spe * epochs
+    expect = {"warp3d": 8 * steps + 8 * epochs, "warp3d_bwd": 8 * steps}
+    print(f"rife3d device_gen: {steps} steps at [{b},{z},{y},{x},1] launches={counts} "
+          f"loss_G {hist[0]['loss_G']:.5f} -> {hist[-1]['loss_G']:.5f}")
+    check(counts == expect and seen == list(range(epochs)), f"rife3d device_gen {counts}")
+    check(all(math.isfinite(v) for h in hist for v in h.values()), "rife3d device_gen losses")
+    del tr
+    torch.cuda.empty_cache()
+
+    out = os.path.join(tmp, "t256gen")
+    cmd = [sys.executable, "-m", "opticalflowscivis_tpu_torch.scripts.train256", "--grid", "256",
+           "--device_gen", "4", "--epochs", "2", "--val_tuples", "2", "--out", out]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"train256 --device_gen exited {res.returncode}:\n"
+          f"{res.stderr[-2000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    report["process_seconds"] = time.perf_counter() - t0
+    print("train256 device_gen " + json.dumps(report))
+    check(report["grid"] == 256 and report["steps"] == 8 and report["device_gen"]
+          and not report["coarse_final"] and report["val_set"] == "seed7_positions",
+          "train256 --device_gen report")
+    check(all(math.isfinite(report[k]) for k in ("seconds_per_step", "train_step_seconds",
+                                                 "val_psnr_model", "val_psnr_linear"))
+          and report["cuda_peak_bytes"] > 0, "train256 --device_gen numbers")
+    return counts
+
+
+def write_vimeo_tree(root: str, n_train: int, n_test: int, seed: int) -> None:
+    """A Vimeo90K-layout tree: ``sequences/<id>/im{1,2,3}.png`` at 448 x 256
+    grayscale, a smooth random texture moved by a few pixels a frame, and the
+    two list files."""
+    import cv2
+    import torch
+    import torch.nn.functional as F
+
+    h, w = VIMEO_HW
+    rng = np.random.default_rng(seed)
+    names = []
+    for i in range(n_train + n_test):
+        dy, dx = (int(v) for v in rng.integers(-4, 5, 2))
+        coarse = torch.from_numpy(rng.uniform(0, 1, (1, 1, h // 8 + 2, w // 8 + 2)))
+        tex = F.interpolate(coarse, size=(h + 16, w + 16), mode="bicubic", align_corners=True)
+        tex = (tex[0, 0].clamp(0, 1).numpy() * 255).astype(np.uint8)
+        name = f"{i // 4:05d}/{i % 4 + 1:04d}"
+        d = os.path.join(root, "sequences", name)
+        os.makedirs(d)
+        for f in range(3):
+            oy, ox = 8 + dy * (f - 1), 8 + dx * (f - 1)
+            cv2.imwrite(os.path.join(d, f"im{f + 1}.png"), tex[oy : oy + h, ox : ox + w])
+        names.append(name)
+    with open(os.path.join(root, "tri_trainlist.txt"), "w") as f:
+        f.write("\n".join(names[:n_train]) + "\n")
+    with open(os.path.join(root, "tri_testlist.txt"), "w") as f:
+        f.write("\n".join(names[n_train:]) + "\n")
+
+
+def phase_vimeo(torch, tmp: str):
+    """``train --dataset vimeo2d`` at the CLI's defaults (224 x 224 crops,
+    batch 16, ``ifnet_2d`` at full width) on a written Vimeo-layout tree; then
+    in process ``Trainer.fit_stream`` on the same crops, 10 + 10 launches a
+    step, and the step time with the host's sampling share of it."""
+    import argparse
+
+    from opticalflowscivis_tpu_torch.cli.__main__ import _build_cfg
+    from opticalflowscivis_tpu_torch.cli.__main__ import main as cli
+    from opticalflowscivis_tpu_torch.data import VimeoDataset
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.training import ModelConfig, Trainer
+
+    root = os.path.join(tmp, "vimeo")
+    write_vimeo_tree(root, n_train=16, n_test=2, seed=25)
+    dirs = ["--data_dir", os.path.join(tmp, "vim_d"), "--results_dir",
+            os.path.join(tmp, "vim_r"), "--log_dir", os.path.join(tmp, "vim_l")]
+    before = dict(LAUNCHES)
+    cli(["train", "--dataset", "vimeo2d", "--vimeo_root", root, "--steps_per_epoch",
+         str(VIMEO_STEPS), "--epochs", "1", *dirs])
+    torch.cuda.synchronize()
+    delta = launch_delta(before)
+    with open(os.path.join(tmp, "vim_r", "vimeo2d", "2x", "flownet", "loss.json")) as f:
+        final = json.load(f)["val_loss"][-1]
+    print(f"cli train vimeo2d: {VIMEO_STEPS} steps launches={delta}")
+    check(all(math.isfinite(v) for v in final) and delta.get("warp2d_bwd") == 10 * VIMEO_STEPS,
+          f"cli vimeo2d: loss.json {final}, launches {delta}")
+
+    args = argparse.Namespace(dataset="vimeo2d", exp=1, data_dir=dirs[1], results_dir=dirs[3],
+                              log_dir=os.path.join(tmp, "vim_l2"), model_name="flownet",
+                              config_json=None, epochs=1, batch_size=None)
+    cfg = _build_cfg(args)
+    check(cfg.batch_size is None and cfg.model == ModelConfig.preset_2d(),
+          "vimeo2d: the CLI's config is not ifnet_2d at full width")
+    tr = Trainer(cfg)
+    ds = VimeoDataset(root, split="train", seed=3)
+    val = VimeoDataset(root, split="test").sample(2)
+    reset_launches()  # the Vimeo path's run starts here
+    hist = tr.fit_stream(lambda: ds.sample(16), val, VIMEO_STEPS, epochs=1, log_every=0)
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] for k in ("warp2d", "warp2d_bwd")}  # read just after the run
+    print(f"vimeo fit_stream: {VIMEO_STEPS} steps at [16,224,224,1] launches={counts} "
+          f"loss_G {hist[0]['loss_G']:.5f}")
+    check(counts["warp2d_bwd"] == 10 * VIMEO_STEPS and counts["warp2d"] >= 10 * VIMEO_STEPS
+          and math.isfinite(hist[0]["loss_G"]), f"vimeo fit_stream launches {counts}")
+    before = dict(LAUNCHES)
+    tr.train_step(tr.upload(ds.sample(16)))
+    torch.cuda.synchronize()
+    step = launch_delta(before)
+    PER_CALL["vimeo_train_step"] = step
+    check(step == {"warp2d": 10, "warp2d_bwd": 10}, f"vimeo step launches {step}")
+
+    sample_s = []
+
+    def stream_step(i):
+        t0 = time.perf_counter()
+        batch = ds.sample(16)
+        sample_s.append(time.perf_counter() - t0)
+        return tr.train_step(tr.upload(batch))
+
+    ms, host_ms = cuda_and_host_ms(stream_step, iters=8)
+    sample_ms = 1e3 * statistics.mean(sample_s[-8:])
+    times = {"step_ms": ms, "step_host_ms": host_ms, "host_sample_ms": sample_ms,
+             "host_sample_share": sample_ms / host_ms}
+    print("vimeo times " + json.dumps(times))
+    return counts, times
+
+
+def phase_lbs(torch, tmp: str):
+    """``lattice_boltzmann_2d`` on the card against the CPU at 400 x 100, a
+    short run; ``generate --dataset lbs2d`` (the registry's 33 000 steps),
+    timed; ``LBS_TIMED_STEPS`` steps of vortex2d's and vortex2d_fast's
+    simulation (inlet 0.1), timed."""
+    from opticalflowscivis_tpu_torch.cli.__main__ import main as cli
+    from opticalflowscivis_tpu_torch.data.lbs import lattice_boltzmann_2d
+
+    short = dict(n_steps=LBS_STEPS_CPU, skip=LBS_STEPS_CPU // 2, sample_every=10)
+    for inflow_u in (0.0, 0.1):
+        card = lattice_boltzmann_2d(inflow_u=inflow_u, **short)
+        cpu = lattice_boltzmann_2d(inflow_u=inflow_u, device="cpu", **short)
+        err = float(np.abs(card - cpu).max())
+        print(f"lbs card vs cpu at 400x100, {LBS_STEPS_CPU} steps, inflow_u={inflow_u}: "
+              f"max_abs_err={err:.3e} tol={LBS_TOL}")
+        check(card.shape == cpu.shape == (LBS_STEPS_CPU // 20, 100, 400, 3) and err <= LBS_TOL,
+              "lattice_boltzmann_2d on the card disagrees with the CPU")
+    t0 = time.perf_counter()
+    cli(["generate", "--dataset", "lbs2d", "--data_dir", os.path.join(tmp, "lbs")])
+    full_s = time.perf_counter() - t0
+    import pickle
+
+    with open(os.path.join(tmp, "lbs", "lbs2d.pkl"), "rb") as f:
+        arr = pickle.load(f)
+    check(arr.shape == (3000, 100, 400, 3) and np.isfinite(arr).all(), "generate lbs2d")
+    times = {"lbs2d_generate_s": full_s, "lbs2d_ms_per_step": full_s * 1e3 / 33000}
+    for name, every in (("vortex2d", 20), ("vortex2d_fast", 60)):
+        t0 = time.perf_counter()
+        part = lattice_boltzmann_2d(n_steps=LBS_TIMED_STEPS, skip=LBS_TIMED_STEPS - 10 * every,
+                                    sample_every=every, inflow_u=0.1)
+        times[f"{name}_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / LBS_TIMED_STEPS
+        check(part.shape == (10, 100, 400, 3) and np.isfinite(part).all(), f"{name} steps")
+    print("lbs times " + json.dumps(times) + f"  ({LBS_TIMED_STEPS} steps each for the vortex "
+          "sets, not their full 34 000 / 94 000)")
+    return times
+
+
 def corr_kernel_times(torch) -> dict:
     """Device ms per call of ``corr`` and ``corr_bwd`` (both gradients) at the
     finest UPFlow level, [16, 32, 64, 208] md 4, in f32 and bf16, the two
@@ -4180,6 +4635,14 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         kitti_launches, kitti_eval_errs, _ = phase_kitti(torch, tmp)
         torch.cuda.empty_cache()
+        phase_generators(torch)
+        gen_launches, _ = phase_upflow_device_gen(torch, tmp)
+        gen_launches.update(phase_rife3d_device_gen(torch, tmp))
+        torch.cuda.empty_cache()
+        vimeo_launches, _ = phase_vimeo(torch, tmp)
+        torch.cuda.empty_cache()
+        phase_lbs(torch, tmp)
+        torch.cuda.empty_cache()
         # last: the HD v2 zoo forward's profile holds about 10^5 kernel events,
         # after which an H100's profiler windows lost events (17 of 40)
         zoo_launches, _ = phase_zoo(torch, tmp)
@@ -4343,6 +4806,15 @@ def main(argv: list) -> int:
         kind: PER_CALL[f"zoo_{kind}_pair"]["warp2d"] for kind in ZOO_WARPS}
     by_name["warp2d"]["refine_levels_max_abs_err"] = refine_worst["fwd"]
     by_name["warp2d_bwd"]["refine_levels_max_abs_err"] = refine_worst["bwd"]
+    # the device-generated training paths (UPFlow on pan pairs, RIFE-3D on
+    # boxes) and the Vimeo stream through fit_stream
+    for name in by_name:
+        n_gen, n_vimeo = gen_launches.get(name, 0), vimeo_launches.get(name, 0)
+        by_name[name]["launches"] += n_gen + n_vimeo
+        by_name[name]["launches_device_gen_paths"] = n_gen
+        by_name[name]["launches_vimeo_path"] = n_vimeo
+    for name in ("warp2d", "warp2d_bwd"):
+        by_name[name]["launches_per_vimeo_train_step"] = PER_CALL["vimeo_train_step"][name]
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -59,26 +59,15 @@ def _viz():
     return viz
 
 
-def _spec(dataset: str):
-    """The dataset's spec, or exit for what the ported verbs cannot serve yet."""
-    from opticalflowscivis_tpu_torch.data import get_spec
-
-    if dataset == "vimeo2d":
-        raise SystemExit(
-            "dataset 'vimeo2d' streams Vimeo90K crops through data/vimeo.py, "
-            "which is ported with the remaining data tooling (ROADMAP A.11)"
-        )
-    return get_spec(dataset)
-
-
 def _build_cfg(args, epochs=None, batch_size=None):
+    from opticalflowscivis_tpu_torch.data import get_spec
     from opticalflowscivis_tpu_torch.losses.rife import RIFELossWeights
     from opticalflowscivis_tpu_torch.training import ModelConfig, TrainConfig
 
     if args.config_json:
         with open(args.config_json) as f:
             return TrainConfig.from_json(f.read())
-    spec = _spec(args.dataset)
+    spec = get_spec(args.dataset)
     volumes = spec.ndim == 3
     if volumes:
         # remat: the reference's 3-D recipe recomputes the IFBlocks in the
@@ -131,16 +120,34 @@ def cmd_train(argv):
     p.add_argument("--distill", type=float, default=None,
                    help="override the distill lambda (default 0.01 in 2-D, 0 in 3-D)")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--vimeo_root", default=None,
+                   help="Vimeo90K triplet root (required for --dataset vimeo2d)")
+    p.add_argument("--steps_per_epoch", type=int, default=0,
+                   help="streamed datasets (vimeo2d): steps per epoch "
+                        "(0 = len(dataset) // batch)")
     args = p.parse_args(argv)
 
     from opticalflowscivis_tpu_torch.training import Trainer
 
     cfg = _build_cfg(args)
-    _spec(cfg.dataset)
     tr = Trainer(cfg, device=_device(args))
-    train, val = tr.load_datasets()
-    print(f"train tuples {train.shape}, val tuples {val.shape}", flush=True)
-    hist = tr.fit(train, val, resume=args.resume)
+    if cfg.dataset == "vimeo2d":
+        # triplets streamed from the host, a fresh random crop each step
+        if not args.vimeo_root:
+            raise SystemExit("--dataset vimeo2d requires --vimeo_root")
+        from opticalflowscivis_tpu_torch.data.vimeo import VimeoDataset
+
+        batch = cfg.batch_size or 16
+        ds = VimeoDataset(args.vimeo_root, split="train")
+        ds_val = VimeoDataset(args.vimeo_root, split="test")
+        spe = args.steps_per_epoch or max(len(ds) // batch, 1)
+        val = ds_val.sample(min(len(ds_val), 4 * batch))
+        print(f"vimeo: {len(ds)} train triplets, val {val.shape}", flush=True)
+        hist = tr.fit_stream(lambda: ds.sample(batch), val, spe, resume=args.resume)
+    else:
+        train, val = tr.load_datasets()
+        print(f"train tuples {train.shape}, val tuples {val.shape}", flush=True)
+        hist = tr.fit(train, val, resume=args.resume)
     print(json.dumps({"final_val": hist[-1] if hist else None}), flush=True)
 
 
@@ -152,13 +159,17 @@ def cmd_test(argv):
 
     import torch
 
-    from opticalflowscivis_tpu_torch.data import load_data
+    from opticalflowscivis_tpu_torch.data import get_spec, load_data
     from opticalflowscivis_tpu_torch.evalsuite import calculate_diff, calculate_metrics
     from opticalflowscivis_tpu_torch.inference import Interpolator, batched_pair_inference
     from opticalflowscivis_tpu_torch.losses import epe
 
     cfg = _build_cfg(args)
-    spec = _spec(cfg.dataset)
+    spec = get_spec(cfg.dataset)
+    if cfg.dataset == "vimeo2d":
+        # the reference's verb reads a test pkl, which vimeo2d does not have
+        raise SystemExit("test: dataset 'vimeo2d' has no test series; it streams "
+                         "training crops (train --vimeo_root)")
     tr = _restored_trainer(cfg, args)
     test = load_data(cfg.dataset, cfg.exp, "test", cfg.data_dir)
 
@@ -263,15 +274,16 @@ def cmd_inference_video(argv):
     )
 
     cfg = _build_cfg(args, epochs=1)
-    _spec(cfg.dataset)
-    frames = load_raw_series(cfg.dataset, cfg.data_dir, "test")[..., :1]
-    if args.max_frames:
-        frames = frames[: args.max_frames]
+    # the model first: without a card this raises before the series is read
+    # (or generated)
     if args.zoo_dir:
         interp = load_pretrained_zoo(args.zoo_dir, device=_device(args))
     else:
         tr = _restored_trainer(cfg, args)
         interp = Interpolator(tr.model, cfg.pad_multiple, tta=args.tta, device=tr.device)
+    frames = load_raw_series(cfg.dataset, cfg.data_dir, "test")[..., :1]
+    if args.max_frames:
+        frames = frames[: args.max_frames]
 
     results = {}
     for factor in [int(f) for f in args.factors.split(",")]:
@@ -392,8 +404,9 @@ def cmd_train_upflow(argv):
                    help="ex_runner adds the eq / oi spatial-transform distillation")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device_gen", type=int, default=0, metavar="PAIRS",
-                   help="train on PAIRS device-generated pan pairs per epoch "
-                        "(not ported yet)")
+                   help="pan datasets: train on PAIRS pairs a epoch composed on the "
+                        "device from integer positions, a fresh pan scene every epoch "
+                        "(data/device_synthetic.py), instead of the fixed export")
     p.add_argument("--kitti_image_dir", default=None,
                    help="KITTI multiview image dir (<seq>_<frame>.png), with --dataset "
                         "kitti: random crops and boundary-dilated warping")
@@ -406,13 +419,8 @@ def cmd_train_upflow(argv):
     p.add_argument("--prefetch_workers", type=int, default=2,
                    help="KITTI streamed path: host prefetch threads")
     args = p.parse_args(argv)
-    if args.device_gen:
-        raise SystemExit(
-            "--device_gen: the on-device generators (data/device_synthetic.py) are "
-            "ported with the remaining data tooling (ROADMAP A.11)"
-        )
 
-    from opticalflowscivis_tpu_torch.data import load_raw_series
+    from opticalflowscivis_tpu_torch.data import get_spec, load_raw_series
     from opticalflowscivis_tpu_torch.losses.upflow import UPFlowLossConfig
     from opticalflowscivis_tpu_torch.training.upflow_trainer import (
         UPFlowTrainConfig,
@@ -443,10 +451,9 @@ def cmd_train_upflow(argv):
         hist = _train_upflow_kitti(args, cfg)
         print(json.dumps({"final": hist[-1] if hist else None}), flush=True)
         return
-    spec = _spec(args.dataset)
+    spec = get_spec(args.dataset)
+    device_gen = _pan_device_gen(spec, args.device_gen, args.batch_size) if args.device_gen else None
     tr = UPFlowTrainer(cfg, device=_device(args))
-    frames = load_raw_series(args.dataset, args.data_dir, "train")[..., :1]
-    pairs = frames_to_pairs(frames, in_channels=3)
     # per-epoch validation EPE against the true flow where the dataset has it
     # (loss.json gains val_epe beside val_epe_zero_flow)
     val_pairs = val_flow = None
@@ -456,9 +463,58 @@ def cmd_train_upflow(argv):
         k = min(65, series_val.shape[0])
         val_pairs = frames_to_pairs(series_val[:k, ..., :1], in_channels=3)
         val_flow = series_val[: k - 1, ..., 1 : 1 + spec.ndim] * spec.gt_flow_stride
-    hist = tr.fit(pairs, epochs=args.epochs, resume=args.resume,
-                  val_pairs=val_pairs, val_flow=val_flow)
+    if device_gen is not None:
+        gen_fn, pos_sampler, spe = device_gen
+        hist = tr.fit_device_gen(gen_fn, pos_sampler, spe, epochs=args.epochs,
+                                 resume=args.resume, val_pairs=val_pairs, val_flow=val_flow)
+    else:
+        frames = load_raw_series(args.dataset, args.data_dir, "train")[..., :1]
+        hist = tr.fit(frames_to_pairs(frames, in_channels=3), epochs=args.epochs,
+                      resume=args.resume, val_pairs=val_pairs, val_flow=val_flow)
     print(json.dumps({"final": hist[-1] if hist else None}), flush=True)
+
+
+def _pan_device_gen(spec, n_pairs: int, batch: int):
+    """``(gen_fn, pos_sampler, steps_per_epoch)`` for ``UPFlowTrainer.
+    fit_device_gen`` on a pan dataset: a fresh 128 x 128 scene every epoch
+    from ``default_rng(50_000 + epoch)``, its pairs in a permuted order,
+    frames tiled to 3 channels; several boxes for the ``rectangles`` sets."""
+    from opticalflowscivis_tpu_torch.data import device_synthetic as ds
+
+    gen_kw = dict(getattr(spec.generator, "keywords", None) or {})
+    if gen_kw.get("background") != "pan":
+        raise SystemExit("--device_gen requires a pan dataset "
+                         "(rectangle2d_tex_pan / _pan8 / rectangles2d_tex_pan8)")
+    pan_v = int(gen_kw.get("pan_vel_max", 3))
+    grid, box = (128, 128), (60, 80)
+    boxes = ((40, 50), (30, 25), (20, 35))  # rectangles_2d's defaults
+    multibox = spec.name.startswith("rectangles")
+    spe = max(n_pairs // batch, 1)
+    n = spe * batch
+
+    def pos_sampler(epoch: int):
+        # permuted pair order: a velocity holds for up to max_seq frames, so
+        # pairs in trajectory order would share one pan velocity a batch
+        rng = np.random.default_rng(50_000 + epoch)
+        if multibox:
+            texs, big, bts, ct = ds.multibox_pan_scene_host(rng, n + 1, grid, boxes,
+                                                            pan_vel_max=pan_v)
+            bp, cp = ds.multibox_pan_pair_positions(bts, ct, rng.permutation(n))
+            return {"texs": texs, "big": big}, {"box": bp, "cam": cp}
+        tex, big, bt, ct = ds.pan_scene_host(rng, n + 1, grid, box, pan_vel_max=pan_v)
+        bp, cp = ds.pan_pair_positions(bt, ct, rng.permutation(n))
+        return {"tex": tex, "big": big}, {"box": bp, "cam": cp}
+
+    def gen_fn(const, pos):
+        if multibox:
+            return ds.multibox_pan_pairs_device(const["texs"], const["big"], pos["box"],
+                                                pos["cam"], grid, in_channels=3)
+        return ds.pan_pairs_device(const["tex"], const["big"], pos["box"], pos["cam"], grid,
+                                   in_channels=3)
+
+    print(f"device-gen: {n} fresh pan pairs/epoch (pan_vel_max={pan_v}); "
+          "val = registry split", flush=True)
+    return gen_fn, pos_sampler, spe
 
 
 def _train_upflow_kitti(args, cfg) -> list:
@@ -542,9 +598,9 @@ def cmd_test_upflow(argv):
         _write_upflow_report(cfg.exp_dir, report)
         return
 
-    from opticalflowscivis_tpu_torch.data import load_raw_series
+    from opticalflowscivis_tpu_torch.data import get_spec, load_raw_series
 
-    spec = _spec(args.dataset)
+    spec = get_spec(args.dataset)
     series = load_raw_series(args.dataset, args.data_dir, "test")[: args.max_frames]
     frames = series[..., :1]
     pairs = frames_to_pairs(frames, in_channels=3)

@@ -1,6 +1,13 @@
-"""Datasets: numpy generators, host pipeline, dataset registry and the KITTI
-readers, samplers and frame store."""
+"""Datasets: numpy generators and their on-device counterparts, host
+pipeline, dataset registry, the KITTI readers, samplers and frame store, and
+the Vimeo90K triplet stream."""
 
+from opticalflowscivis_tpu_torch.data.device_synthetic import (
+    box_density_device,
+    pan_pairs_device,
+    pan_scene_host,
+    tuple_positions,
+)
 from opticalflowscivis_tpu_torch.data.kitti import (
     KittiHBMCache,
     KittiPairDataset,
@@ -35,6 +42,7 @@ from opticalflowscivis_tpu_torch.data.synthetic import (
     rectangle_3d,
     rectangles_2d,
 )
+from opticalflowscivis_tpu_torch.data.vimeo import VimeoDataset
 
 __all__ = [
     "KittiHBMCache", "KittiPairDataset", "device_batch", "kitti_photometric_normalize",
@@ -45,4 +53,6 @@ __all__ = [
     "REGISTRY", "DatasetSpec", "get_spec", "load_data", "load_raw_series",
     "select_split",
     "rectangle_2d", "rectangle_3d", "rectangles_2d",
+    "box_density_device", "pan_pairs_device", "pan_scene_host", "tuple_positions",
+    "VimeoDataset",
 ]

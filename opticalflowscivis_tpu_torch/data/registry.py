@@ -10,12 +10,11 @@ Synthetic datasets are generated on first use and cached as ``.pkl`` in
 ``data_dir``; external SciVis pkls are read from ``data_dir`` with automatic
 channels-first → channels-last conversion.
 
-Differences from the reference: tuples are always prepared by the numpy
-pipeline (the native ``csrc/fastprep.cpp`` path is bit-equal to it and is
-ported later, ROADMAP A.11), and the lattice-Boltzmann generators (``lbs2d``,
-``vortex2d``, ``vortex2d_fast``) are not ported yet: those datasets load from
-an existing pkl in ``data_dir`` and raise when they would have to be
-generated.
+The lattice-Boltzmann datasets (``lbs2d``, ``vortex2d``, ``vortex2d_fast``)
+are generated by ``data/lbs.py`` on the GPU.  Difference from the reference:
+tuples are always prepared by the numpy pipeline (the native
+``csrc/fastprep.cpp`` path is bit-equal to it and is ported later, ROADMAP
+A.11c).
 """
 
 from __future__ import annotations
@@ -137,7 +136,7 @@ REGISTRY: dict[str, DatasetSpec] = {
         name="lbs2d", ndim=2, has_flow=True,
         train=[(0, 2205)], val=[(2370, 2685)], test=[(2685, 3000)],
         batch_size=100, pkl_file="lbs2d_skip_.pkl",
-        generator=None,  # set below: not ported yet
+        generator=None,  # set below
         gt_flow_stride=10.0,  # velocity stored per sim step, frames kept every 10
     ),
     "vortex2d": _spec(
@@ -156,7 +155,7 @@ REGISTRY: dict[str, DatasetSpec] = {
         # 62.5 dB linear vs 50.0 dB model at 2x on the density observable).
         name="vortex2d", ndim=2, has_flow=True,
         train=[(0, 1050)], val=[(1050, 1200)], test=[(1200, 1500)],
-        batch_size=64, generator=None,  # set below: not ported yet
+        batch_size=64, generator=None,  # set below
         gt_flow_stride=20.0,
         # no every-3rd resample: consecutive-frame triplets keep the flow
         # supervision target exact (F_t→±1 spans one stored frame = v*40) and
@@ -177,7 +176,7 @@ REGISTRY: dict[str, DatasetSpec] = {
         # its model wins from 2x up (error.py:442).
         name="vortex2d_fast", ndim=2, has_flow=True,
         train=[(0, 1050)], val=[(1050, 1200)], test=[(1200, 1500)],
-        batch_size=64, generator=None,  # set below: not ported yet
+        batch_size=64, generator=None,  # set below
         gt_flow_stride=60.0,
         resample_stride=0,
     ),
@@ -243,15 +242,38 @@ REGISTRY: dict[str, DatasetSpec] = {
 }
 
 
-def _lbs_not_ported() -> np.ndarray:
-    raise NotImplementedError(
-        "the lattice-Boltzmann generator (data/lbs.py) is not ported yet "
-        "(ROADMAP A.11); place the dataset's pkl in data_dir instead"
-    )
+def _lbs_generator() -> np.ndarray:
+    from opticalflowscivis_tpu_torch.data.lbs import lattice_boltzmann_2d
+
+    return lattice_boltzmann_2d()
 
 
-for _name in ("lbs2d", "vortex2d", "vortex2d_fast"):
-    REGISTRY[_name] = dataclasses.replace(REGISTRY[_name], generator=_lbs_not_ported)
+def _vortex_generator() -> np.ndarray:
+    from opticalflowscivis_tpu_torch.data.lbs import lattice_boltzmann_2d
+
+    # sustained inlet (the decaying kick of lbs2d is too static for the
+    # interpolation protocol, see the registry entry), a 4000-step burn-in to
+    # developed shedding, then 1500 frames at stride 20
+    arr = lattice_boltzmann_2d(n_steps=34000, skip=4000, sample_every=20, inflow_u=0.1)
+    # observable channel = velocity magnitude (see the registry entry)
+    arr[..., 0] = np.sqrt(arr[..., 1] ** 2 + arr[..., 2] ** 2)
+    return arr
+
+
+def _vortex_fast_generator() -> np.ndarray:
+    from opticalflowscivis_tpu_torch.data.lbs import lattice_boltzmann_2d
+
+    # vortex2d's simulation sampled every 60th step: 1500 kept frames need
+    # 4000 + 1500 * 60 = 94000 steps
+    arr = lattice_boltzmann_2d(n_steps=94000, skip=4000, sample_every=60, inflow_u=0.1)
+    arr[..., 0] = np.sqrt(arr[..., 1] ** 2 + arr[..., 2] ** 2)
+    return arr
+
+
+# the simulations run on the GPU (data/lbs.py), so they are imported on use
+for _name, _gen in (("lbs2d", _lbs_generator), ("vortex2d", _vortex_generator),
+                    ("vortex2d_fast", _vortex_fast_generator)):
+    REGISTRY[_name] = dataclasses.replace(REGISTRY[_name], generator=_gen)
 
 
 def get_spec(dataset: str) -> DatasetSpec:

@@ -8,20 +8,25 @@ recipe that keeps full-size volumes in one device's memory:
 - the dataset resident on the device in bfloat16, flipped per sample there,
 - ``--coarse_final``: the last student block and the teacher run at scale 2
   (scales (4, 2, 2), ``teacher_scale=2``), so no conv consumes a
-  full-resolution input; warps, merge and losses stay at full resolution.
+  full-resolution input; warps, merge and losses stay at full resolution;
+- ``--device_gen N``: instead of a fixed host export, N fresh tuples an epoch
+  composed on the device from box positions (``Trainer.fit_device_gen`` with
+  ``data.box_density_device``, a new trajectory from ``default_rng(10_000 +
+  epoch)`` each epoch, permuted).
 
 It trains a short schedule, then reports seconds per step (the whole ``fit``:
 steps, the per-epoch evaluation and the checkpoint), the time of a train step
 alone once warm, the interpolation PSNR on held-out tuples beside the
 copy-frame and linear-average baselines, and the peak ``torch.cuda`` memory,
-and writes ``<out>/train256_report.json``.
+and writes ``<out>/train256_report.json``.  With ``--device_gen`` or
+``--eval_only`` the held-out tuples are ``--val_tuples`` boxes stamped at
+``tuple_positions(default_rng(7))`` (``val_set`` "seed7_positions"), as the
+reference stamps them; otherwise the tail of the training export
+("tuples_tail").
 
     python -m opticalflowscivis_tpu_torch.scripts.train256 [--grid 256] [--frames 33] [--epochs 3]
 
-Differences from the reference's script: no ``--device_gen`` (its on-device
-generators are not ported yet, ROADMAP A.11) and no XLA compiler options;
-``--eval_only`` draws its held-out tuples from ``rectangle_3d(seed=7)`` on
-the host.
+Difference from the reference's script: no XLA compiler options.
 """
 
 from __future__ import annotations
@@ -39,14 +44,29 @@ def _psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float(10 * np.log10(1.0 / max(mse, 1e-12)))
 
 
+def held_out_tuples(val_pos: np.ndarray, grid: tuple[int, ...],
+                    box: tuple[int, ...]) -> np.ndarray:
+    """``[N, 3, *grid, 1]`` float32: a constant-1 box at each of
+    ``val_pos [N, 3, ndim]``, stamped on the host."""
+    import torch
+
+    from opticalflowscivis_tpu_torch.data.device_synthetic import box_density_device
+
+    return box_density_device(torch.from_numpy(val_pos), grid, box).numpy()
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(prog="train256")
     ap.add_argument("--frames", type=int, default=33)
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--grid", type=int, default=256)
     ap.add_argument("--out", default="Results_256")
+    ap.add_argument("--device_gen", type=int, default=0, metavar="N",
+                    help="train on N fresh tuples an epoch composed on the device from "
+                         "box positions, instead of a fixed host export")
     ap.add_argument("--val_tuples", type=int, default=8,
-                    help="held-out seed-7 tuples for the PSNR row of --eval_only")
+                    help="held-out seed-7 tuples for the PSNR row of --device_gen and "
+                         "--eval_only")
     ap.add_argument("--coarse_final", action="store_true",
                     help="run the final IFBlock and the teacher at scale 2, so no "
                          "conv consumes a full-resolution input")
@@ -61,25 +81,31 @@ def main(argv: list[str] | None = None) -> dict:
     import torch
 
     from opticalflowscivis_tpu_torch.data import group_tuples, rectangle_3d
+    from opticalflowscivis_tpu_torch.data.device_synthetic import (
+        box_density_device,
+        tuple_positions,
+    )
     from opticalflowscivis_tpu_torch.losses.rife import RIFELossWeights
     from opticalflowscivis_tpu_torch.training import ModelConfig, TrainConfig, Trainer
 
     g = args.grid
     grid, box = (g, g, g), (g // 4, g // 4, g // 4)
-
-    def density_tuples(n_frames: int, seed: int) -> np.ndarray:
-        # density only: the unsupervised 3-D recipe never reads the flow
-        # channels, which would quadruple the host array
-        arr = rectangle_3d(n_frames=n_frames, grid=grid, box=box, seed=seed, with_flow=False)
-        return group_tuples(arr, 1).astype(np.float32, copy=False)
-
+    tuples = None
     if args.eval_only:
         print("eval_only: skipping the training data", flush=True)
-        tuples, n = None, 0
+        n = 0
+    elif args.device_gen:
+        n = args.device_gen
+        print(f"device-gen: {n} fresh tuples an epoch composed on the device at {g}^3",
+              flush=True)
     else:
         print(f"generating {args.frames} frames of {g}^3 ...", flush=True)
         t0 = time.time()
-        tuples = density_tuples(args.frames, seed=11)
+        # density only: the unsupervised 3-D recipe never reads the flow
+        # channels, which would quadruple the host array
+        arr = rectangle_3d(n_frames=args.frames, grid=grid, box=box, seed=11, with_flow=False)
+        tuples = group_tuples(arr, 1).astype(np.float32, copy=False)
+        del arr
         n = tuples.shape[0]
         n_train = max(n - 2, 1)
         print(f"{n} tuples ({tuples.nbytes / 1e9:.1f} GB host f32) in {time.time() - t0:.0f}s",
@@ -106,6 +132,9 @@ def main(argv: list[str] | None = None) -> dict:
 
     report: dict = {"grid": g, "n_tuples": int(n), "device": str(tr.device),
                     "coarse_final": bool(args.coarse_final)}
+    val_pos = tuple_positions(np.random.default_rng(7), args.val_tuples, grid, box)
+    hist = None
+    t0 = time.time()
     if args.eval_only:
         tr.init_state(total_steps=1)
         if not tr.load_checkpoint():
@@ -116,11 +145,19 @@ def main(argv: list[str] | None = None) -> dict:
                 rows = json.load(f)["val_loss"]
             report.update(epochs_completed=len(rows), val_loss_first=rows[0][0],
                           val_loss_final=rows[-1][0])
-        report["val_set"] = "seed7"
-        val = density_tuples(3 * args.val_tuples, seed=7)
+    elif args.device_gen:
+        def pos_sampler(epoch: int) -> np.ndarray:
+            # permuted: a velocity holds for up to max_seq frames, so tuples in
+            # trajectory order would share one velocity
+            rng = np.random.default_rng(10_000 + epoch)
+            return tuple_positions(rng, n, grid, box)[rng.permutation(n)]
+
+        report["device_gen"] = True
+        hist = tr.fit_device_gen(lambda pos: box_density_device(pos, grid, box), pos_sampler,
+                                 val_pos, steps_per_epoch=n, log_every=10, resume=args.resume)
     else:
-        t0 = time.time()
         hist = tr.fit(tuples[:n_train], tuples[n_train:], log_every=1, resume=args.resume)
+    if hist:
         if on_cuda:
             torch.cuda.synchronize(tr.device)
         wall = time.time() - t0
@@ -133,6 +170,13 @@ def main(argv: list[str] | None = None) -> dict:
             val_loss_first=hist[0]["loss_G"],
             val_loss_final=hist[-1]["loss_G"],
         )
+    if tuples is None:
+        # boxes stamped at the seed-7 positions, equal to the device's frames;
+        # for --eval_only of a run trained on an export this is not the set
+        # its loss.json used, hence the name in the report
+        report["val_set"] = "seed7_positions"
+        val = held_out_tuples(val_pos, grid, box)
+    else:
         report["val_set"] = "tuples_tail"
         val = tuples[n_train:] if n > n_train else tuples[:1]
 
@@ -161,7 +205,7 @@ def main(argv: list[str] | None = None) -> dict:
     if not args.eval_only:
         # a train step alone, warm: the fit's wall time above also holds the
         # kernels' build, cuDNN's algorithm search, the evaluation and the checkpoint
-        batch = tr.upload(tuples[:1])
+        batch = tr.upload(val[:1])
         times = []
         for _ in range(3):
             if on_cuda:

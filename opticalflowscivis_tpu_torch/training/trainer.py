@@ -20,8 +20,11 @@ as the data pipeline makes them; the model runs channels-first and its
 outputs are handed to the losses as channels-last views.  Parameters and optimizer state are float32; with
 ``ModelConfig.bfloat16`` the model computes in bfloat16.
 
-One device only: ``n_data`` other than None / 1 raises (ROADMAP A.12), and
-``fit_device_gen`` raises until the on-device generators are ported (A.11).
+``fit_device_gen`` trains from batches composed on the device from integer
+positions (``data.device_synthetic``): the positions go up once an epoch, the
+frames never cross from the host.
+
+One device only: ``n_data`` other than None / 1 raises (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -294,11 +297,61 @@ class Trainer:
 
         return self._run_epochs(epochs, epoch_batches, val_tuples, first.shape[0], log_every)
 
-    def fit_device_gen(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training from device-generated batches needs data/device_synthetic.py, "
-            "which is not ported yet (ROADMAP A.11); use fit or fit_stream"
-        )
+    def fit_device_gen(self, gen_fn: Callable[[torch.Tensor], torch.Tensor],
+                       pos_sampler: Callable[[int], np.ndarray], val_positions: np.ndarray,
+                       steps_per_epoch: int, epochs: int | None = None, log_every: int = 50,
+                       resume: bool = False):
+        """Train from batches generated on the device from integer positions.
+
+        - ``gen_fn(pos [B, slots, nd] int) -> [B, slots, *S, C]`` runs on the
+          device inside each step (e.g. ``data.box_density_device``);
+        - ``pos_sampler(epoch) -> [steps_per_epoch * B, slots, nd]``: host
+          ints, a fresh trajectory every epoch, uploaded once an epoch and
+          sliced on the device;
+        - ``val_positions [Nv, slots, nd]``: the held-out set, generated once
+          and kept on the device for the per-epoch evaluation.
+
+        Evaluation, ``loss.json``, checkpoints and early stopping as in
+        ``fit``.  The generated spatial dims must be multiples of
+        ``cfg.pad_multiple``.  ``resume`` continues the epoch numbering (so
+        the sampler's seeds) from ``loss.json``, but only when a checkpoint
+        was restored: a run that restored nothing starts at epoch 0.
+        """
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg.epochs
+        self.steps_per_epoch = steps_per_epoch
+        guess = self._completed_epochs() if resume else 0
+        first_pos = pos_sampler(guess)
+        n_pos = first_pos.shape[0]
+        if n_pos % steps_per_epoch:
+            raise ValueError(f"{n_pos} positions do not divide into {steps_per_epoch} steps")
+        batch = n_pos // steps_per_epoch
+        val_dev = gen_fn(self._positions(val_positions)).float()
+        for d in val_dev.shape[2:-1]:
+            if d % cfg.pad_multiple:
+                raise ValueError(f"generated spatial dim {d} violates "
+                                 f"pad_multiple={cfg.pad_multiple}")
+        restored = resume  # a live state continues its run
+        if self.state is None:
+            self.init_state(max(steps_per_epoch * epochs, 1))
+            if resume:
+                restored = self.load_checkpoint()
+        start_epoch = guess if (resume and restored) else 0
+        if resume and not restored:
+            print("resume requested but no checkpoint restored; starting from epoch 0",
+                  flush=True)
+
+        def epoch_batches(epoch: int) -> Iterable[torch.Tensor]:
+            pos = self._positions(first_pos if epoch == guess else pos_sampler(epoch))
+            for s in range(steps_per_epoch):
+                yield gen_fn(pos[s * batch : (s + 1) * batch]).float()
+
+        return self._run_epochs(epochs, epoch_batches, val_dev, batch, log_every,
+                                start_epoch=start_epoch)
+
+    def _positions(self, pos: np.ndarray) -> torch.Tensor:
+        """Host positions as an integer tensor on the trainer's device."""
+        return torch.from_numpy(np.ascontiguousarray(pos)).to(self.device)
 
     def _ensure_state(self, total_steps: int, resume: bool) -> None:
         if self.state is None:
@@ -307,22 +360,23 @@ class Trainer:
                 self.load_checkpoint()
 
     def _run_epochs(self, epochs: int, epoch_batches, val, batch: int, log_every: int,
-                    on_epoch_end=None) -> list[dict[str, float]]:
-        """The epoch loop shared by ``fit`` and ``fit_stream``: train steps,
-        then evaluate, append to ``loss.json``, checkpoint, maybe stop early."""
+                    on_epoch_end=None, start_epoch: int = 0) -> list[dict[str, float]]:
+        """The epoch loop of ``fit``, ``fit_stream`` and ``fit_device_gen``:
+        train steps, then evaluate, append to ``loss.json``, checkpoint, maybe
+        stop early.  Epochs and steps count on from ``start_epoch``."""
         cfg = self.cfg
         history = []
         best_val = np.inf
         patience = 0
         t0 = time.time()
-        step = 0
-        for epoch in range(epochs):
+        step0 = step = start_epoch * self.steps_per_epoch
+        for epoch in range(start_epoch, start_epoch + epochs):
             for dev_batch in epoch_batches(epoch):
                 parts = self.train_step(dev_batch)
                 step += 1
                 if log_every and step % log_every == 0:
                     g = float(parts["loss_G"])
-                    rate = step / (time.time() - t0)
+                    rate = (step - step0) / (time.time() - t0)
                     print(f"epoch {epoch} step {step} loss_G {g:.5f} ({rate:.2f} it/s)",
                           flush=True)
             val_parts = self.evaluate(val, batch)

@@ -28,8 +28,12 @@ the device and sends only indices each step.  Both pass the rho-dilated raw
 windows and the crop offset to the photometric term (boundary-dilated
 warping).
 
+Device-generated training: ``fit_device_gen`` composes each step's pairs on
+the device from integer positions (``data.device_synthetic``); the scene's
+constants and the positions go up once an epoch, no frame crosses from the
+host.
+
 One device only: ``n_data`` other than None / 1 raises (ROADMAP A.12).
-``fit_device_gen`` waits for the on-device generators (A.11).
 """
 
 from __future__ import annotations
@@ -112,6 +116,21 @@ def frames_to_pairs(frames: np.ndarray, in_channels: int = 3) -> np.ndarray:
         frames = frames[..., None]
     f = np.repeat(frames[..., :1], in_channels, axis=-1) if in_channels > 1 else frames[..., :1]
     return np.stack([f[:-1], f[1:]], axis=1)
+
+
+def _tree_map(fn, tree):
+    """``fn`` on each leaf of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
 
 
 def _channels_last(out: dict) -> dict:
@@ -293,25 +312,31 @@ class UPFlowTrainer:
                     print(f"epoch {epoch} step {step} loss "
                           f"{float(meter['loss_total']) / n:.5f} "
                           f"({done / (time.time() - t0):.2f} it/s)", flush=True)
-            epoch_means = {k: float(v) / max(n, 1) for k, v in meter.items()}
-            if val is not None:
-                epoch_means["val_epe"] = self._val_epe_device(*val[:2])
-                epoch_means["val_epe_zero_flow"] = val[2]
-                print(f"epoch {epoch} val_epe {epoch_means['val_epe']:.4f} "
-                      f"(zero-flow {epoch_means['val_epe_zero_flow']:.4f})", flush=True)
-            history.append(epoch_means)
-            self._append_loss_json(epoch_means)
-            saved = False
-            if ((epoch - start_epoch + 1) % cfg.ckpt_every == 0
-                    or epoch == start_epoch + epochs - 1):
-                self.save_checkpoint(epochs_completed=epoch + 1)
-                saved = True
+            history.append(self._close_epoch(meter, n, val, epoch, start_epoch, epochs))
             if self._stop_requested():
-                if not saved:
-                    self.save_checkpoint(epochs_completed=epoch + 1)
                 print(f"STOP sentinel: ending after epoch {epoch}", flush=True)
                 break
         return history
+
+    def _close_epoch(self, meter: dict[str, torch.Tensor], n: int, val, epoch: int,
+                     start_epoch: int, epochs: int) -> dict[str, float]:
+        """The end of an epoch of ``fit`` and ``fit_device_gen``: the meter's
+        means (one read of the device), ``val_epe`` beside the zero-flow
+        baseline, the ``loss.json`` row, and the checkpoint every
+        ``ckpt_every`` epochs, at the last epoch and when ``STOP`` asks."""
+        cfg = self.cfg
+        sums = torch.stack([v.float() for v in meter.values()]).tolist() if meter else []
+        epoch_means = {k: v / max(n, 1) for k, v in zip(meter, sums)}
+        if val is not None:
+            epoch_means["val_epe"] = self._val_epe_device(*val[:2])
+            epoch_means["val_epe_zero_flow"] = val[2]
+            print(f"epoch {epoch} val_epe {epoch_means['val_epe']:.4f} "
+                  f"(zero-flow {epoch_means['val_epe_zero_flow']:.4f})", flush=True)
+        self._append_loss_json(epoch_means)
+        if ((epoch - start_epoch + 1) % cfg.ckpt_every == 0
+                or epoch == start_epoch + epochs - 1 or self._stop_requested()):
+            self.save_checkpoint(epochs_completed=epoch + 1)
+        return epoch_means
 
     def _device_val(self, val_pairs: np.ndarray, val_flow: np.ndarray):
         """Validation pairs and ground truth uploaded once:
@@ -338,11 +363,95 @@ class UPFlowTrainer:
         pairs_dev, gt_dev, _ = self._device_val(val_pairs, val_flow)
         return self._val_epe_device(pairs_dev, gt_dev)
 
-    def fit_device_gen(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training from device-generated pairs needs data/device_synthetic.py, "
-            "which is not ported yet (ROADMAP A.11); use fit"
-        )
+    def fit_device_gen(self, gen_fn, pos_sampler, steps_per_epoch: int,
+                       epochs: int | None = None, log_every: int = 20, resume: bool = False,
+                       val_pairs: np.ndarray | None = None,
+                       val_flow: np.ndarray | None = None) -> list[dict[str, float]]:
+        """Train on pairs composed on the device from integer positions, a
+        fresh scene every epoch.
+
+        - ``gen_fn(const, pos) -> (im1, im2, gt_flow)`` runs on the device
+          inside each step (e.g. ``data.pan_pairs_device``); ``gt_flow`` is
+          not used for training;
+        - ``pos_sampler(epoch) -> (const, pos)``: ``const`` holds the epoch's
+          scene constants (textures, background), ``pos`` the positions,
+          whose leaves lead with ``steps_per_epoch * batch``; both are
+          numpy arrays (or tensors) in dicts, lists or tuples, uploaded once
+          an epoch; each step takes its slice of ``pos`` on the device;
+        - ``val_pairs`` / ``val_flow``: the held-out set of ``fit``.
+
+        ``resume`` continues the epoch numbering (the sampler's seeds and the
+        step count that seeds the spatial transform) from ``ckpt_meta.json``
+        and cuts ``loss.json`` to it, but only when a checkpoint was
+        restored.  ``loss.json``, ``val_epe``, ``ckpt_every`` and ``STOP``
+        as in ``fit``; the loss parts are read from the device once an epoch.
+        """
+        cfg = self.cfg
+        try:  # a stale sentinel from an earlier stop must not end a new run
+            os.remove(os.path.join(cfg.exp_dir, "STOP"))
+        except OSError:
+            pass
+        epochs = epochs if epochs is not None else cfg.n_epoch
+        guess = self._completed_epochs() if resume else 0
+        probe = pos_sampler(guess)
+        n_pos = _leaves(probe[1])[0].shape[0]
+        if n_pos % steps_per_epoch:
+            raise ValueError(f"{n_pos} positions do not divide into {steps_per_epoch} steps")
+        batch = n_pos // steps_per_epoch
+
+        def take(pos, s: int):
+            return _tree_map(lambda a: a[s * batch : (s + 1) * batch], pos)
+
+        probe_dev = _tree_map(self._to_device, probe)
+        restored = self.state is not None  # a live in-memory state continues
+        if self.state is None:
+            const, pos = probe_dev
+            im1 = gen_fn(const, take(pos, 0))[0]
+            for d in im1.shape[1:-1]:
+                if d % cfg.pad_multiple:
+                    raise ValueError(f"generated spatial dim {d} violates "
+                                     f"pad_multiple={cfg.pad_multiple}")
+            self.init_state(steps_per_epoch=steps_per_epoch)
+            if resume:
+                restored = self.load_checkpoint()
+        start_epoch = 0
+        if resume:
+            if restored:
+                start_epoch = guess
+                self._truncate_loss_json(start_epoch)
+            else:
+                print("resume requested but no checkpoint restored; starting from epoch 0 "
+                      "with untruncated loss.json left in place", flush=True)
+        self.state.step = start_epoch * steps_per_epoch
+        val = None
+        if val_pairs is not None and val_flow is not None:
+            val = self._device_val(val_pairs, val_flow)
+
+        history = []
+        t0 = time.time()
+        for epoch in range(start_epoch, start_epoch + epochs):
+            const, pos = (probe_dev if epoch == guess
+                          else _tree_map(self._to_device, pos_sampler(epoch)))
+            meter: dict[str, torch.Tensor] = {}
+            for s in range(steps_per_epoch):
+                im1, im2, _ = gen_fn(const, take(pos, s))
+                parts = self.train_step({"im1": im1.float(), "im2": im2.float()})
+                for k, v in parts.items():
+                    meter[k] = meter[k] + v if k in meter else v
+            means = self._close_epoch(meter, steps_per_epoch, val, epoch, start_epoch, epochs)
+            history.append(means)
+            if log_every:
+                done = (epoch - start_epoch + 1) * steps_per_epoch
+                print(f"epoch {epoch} step {self.state.step} loss {means['loss_total']:.5f} "
+                      f"({done / (time.time() - t0):.2f} it/s)", flush=True)
+            if self._stop_requested():
+                print(f"STOP sentinel: ending after epoch {epoch}", flush=True)
+                break
+        return history
+
+    def _to_device(self, a) -> torch.Tensor:
+        """A numpy array or tensor on the trainer's device, its dtype kept."""
+        return torch.as_tensor(a, device=self.device)
 
     def _init_kitti(self, steps_per_epoch: int, resume: bool) -> None:
         """A fresh state on the first call (restored with ``resume``); later

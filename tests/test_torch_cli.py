@@ -103,15 +103,6 @@ def test_verbs_that_wait_exit_with_their_roadmap_item(verb):
         main([verb])
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["train", "--cpu", "--dataset", "vimeo2d"], r"ROADMAP A\.11"),
-    (["test", "--cpu", "--dataset", "vimeo2d"], r"ROADMAP A\.11"),
-])
-def test_datasets_and_options_that_wait_exit_with_their_roadmap_item(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        main(argv)
-
-
 def test_unknown_verb_prints_usage(capsys):
     with pytest.raises(SystemExit) as exc:
         main(["frobnicate"])

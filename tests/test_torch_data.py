@@ -76,6 +76,7 @@ def test_load_raw_series_and_load_data_equal_reference(tmp_path):
     assert sorted(treg.REGISTRY) == sorted(jreg.REGISTRY)
 
 
-def test_unported_generator_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.load_raw_series("lbs2d", str(tmp_path))
+@pytest.mark.parametrize("seed", [0, 3])
+def test_jets_3d_equals_reference(seed):
+    kw = {"n_frames": 6, "grid": (16, 20, 24), "seed": seed}
+    np.testing.assert_array_equal(tsyn.jets_3d(**kw), jsyn.jets_3d(**kw))

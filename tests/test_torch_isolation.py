@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax():
                    "ops.pyramid", "scripts.train256", "ops.kernels.correlation",
                    "models.upflow", "losses.upflow", "losses.selfsup",
                    "training.upflow_trainer", "evalsuite.flow_eval", "models.refine",
-                   "models.ifnet_hd", "models.ifnet_hd_legacy", "losses.perceptual"):
+                   "models.ifnet_hd", "models.ifnet_hd_legacy", "losses.perceptual",
+                   "data.device_synthetic", "data.vimeo", "data.lbs"):
         assert f"opticalflowscivis_tpu_torch.{module}" in names
 
 

@@ -10,6 +10,7 @@ warps), float32 on the CPU.  Tolerances are stated at each comparison.
 
 import dataclasses
 import os
+import pickle
 
 import flax.linen as fnn
 import jax
@@ -138,16 +139,19 @@ def test_contextnet_and_unet_match_jax(shape):
     jmod = _JaxRefine(nd)
     inputs = _refine_inputs(shape, seed=nd)
     params = numpy_params(jmod.init, inputs, seed=10 + nd)
-    ref_c0, ref_c1, ref_res = jax.jit(jmod.apply)(params, *inputs)
+    c0_s, c1_s, res_s = jax.eval_shape(jmod.apply, params, *inputs)
     rng = np.random.default_rng(20 + nd)
-    weights = [rng.standard_normal(np.shape(t)).astype(np.float32)
-               for t in list(ref_c0) + list(ref_c1) + [ref_res]]
+    weights = [rng.standard_normal(t.shape).astype(np.float32)
+               for t in list(c0_s) + list(c1_s) + [res_s]]
 
     def objective(p, *xs):
         c0, c1, res = jmod.apply(p, *xs)
-        return sum(jnp.sum(t * w) for t, w in zip(list(c0) + list(c1) + [res], weights))
+        return sum(jnp.sum(t * w) for t, w in zip(list(c0) + list(c1) + [res], weights)), (
+            c0, c1, res)
 
-    jgrads = jax.jit(jax.grad(objective, argnums=tuple(range(7))))(params, *inputs)
+    # the outputs and every gradient in one compiled function
+    jgrads, (ref_c0, ref_c1, ref_res) = jax.jit(
+        jax.grad(objective, argnums=tuple(range(7)), has_aux=True))(params, *inputs)
 
     ctx, unet = _port_refine(params, nd, shape[-1])
     xs = [_cf(x).clone().requires_grad_(True) for x in inputs]
@@ -427,7 +431,10 @@ def test_cli_train_and_serve_with_refine_from_config_json(tmp_path, capsys):
     """``train --config_json`` with ``"model": {"refine": true}``, then
     ``inference_video`` on the checkpoint it wrote."""
     cfg = _train_config(str(tmp_path))
-    cli(["generate", "--dataset", "rectangle2d", "--frames", "30", "--data_dir", cfg.data_dir])
+    # a written 32 x 32 series in place of generate's 128 x 128 one
+    os.makedirs(cfg.data_dir)
+    with open(os.path.join(cfg.data_dir, "rectangle2d.pkl"), "wb") as f:
+        pickle.dump(rectangle_2d(n_frames=30, grid=(32, 32), box=(10, 14), seed=0), f, protocol=4)
     cfg_path = tmp_path / "cfg.json"
     cfg_path.write_text(dataclasses.replace(cfg, batch_size=8).to_json())
     common = ["--cpu", "--config_json", str(cfg_path)]

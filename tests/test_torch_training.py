@@ -433,12 +433,6 @@ def test_model_options_of_the_3d_recipe_also_build_in_2d(tiny_setup, kw):
     assert any(not torch.equal(p, q) for p, q in zip(tr.model.parameters(), before))
 
 
-def test_fit_device_gen_waits_for_the_device_generators(tiny_setup):
-    cfg, _ = tiny_setup
-    with pytest.raises(NotImplementedError, match="A.11"):
-        Trainer(cfg, device="cpu").fit_device_gen(None, None, None, 1)
-
-
 def test_bfloat16_compute_keeps_float32_parameters(tiny_setup, tmp_path):
     cfg, tuples = tiny_setup
     cfg = dataclasses.replace(_in_dir(cfg, tmp_path),

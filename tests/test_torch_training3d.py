@@ -369,7 +369,7 @@ def test_train256_module_runs_at_a_small_grid(tmp_path, capsys, coarse):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report
 
     again = train256.main(argv + ["--eval_only", "--val_tuples", "2"])
-    assert again["epochs_completed"] == 1 and again["val_set"] == "seed7"
+    assert again["epochs_completed"] == 1 and again["val_set"] == "seed7_positions"
     assert again["val_loss_final"] == report["val_loss_final"]
     assert np.isfinite(again["val_psnr_model"])
 

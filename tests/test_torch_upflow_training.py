@@ -397,9 +397,6 @@ def test_what_waits_raises_with_its_roadmap_item(tmp_path):
     cfg = UPFlowTrainConfig(exp_dir=str(tmp_path), model=TINY)
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.12"):
         UPFlowTrainer(dataclasses.replace(cfg, n_data=2), device="cpu")
-    tr = UPFlowTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
-        tr.fit_device_gen()
 
 
 def test_trainer_and_verbs_raise_without_cuda(monkeypatch, tmp_path):
@@ -412,14 +409,6 @@ def test_trainer_and_verbs_raise_without_cuda(monkeypatch, tmp_path):
 
 
 # -- the CLI verbs -------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("argv, match", [
-    (["train_upflow", "--device_gen", "64"], r"ROADMAP A\.11"),
-])
-def test_flags_that_wait_exit_with_their_roadmap_item(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        cli(argv + ["--cpu"])
 
 
 def test_cli_train_upflow_then_test_upflow(tmp_path, capsys):
