@@ -24,8 +24,9 @@ the plain kernels, and times them.
 Phases, printed in order:
   1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions, build time,
      each kernel's registers and spills (none allowed in ``corr_fwd_kernel``,
-     ``corr_bwd_kernel``, ``warp3d_bwd_kernel`` or ``warp2d_bwd_kernel``, each
-     with its count of instances), and the warps' blocks per SM;
+     ``corr_bwd_kernel``, ``warp3d_bwd_kernel`` (24 instances, 8 of them on
+     a slab with its z offset) or ``warp2d_bwd_kernel``, each with its count
+     of instances), and the warps' blocks per SM;
   2. kernels vs plain on the card, forward and backward, 2-D and 3-D, every
      case against a stated tolerance; the 2-D warp also at UPFlow's feature
      shapes, in float32 and with a bf16 image under a float32 flow, its fused
@@ -117,6 +118,28 @@ Phases, printed in order:
      times``); ``lattice_boltzmann_2d`` on the card against the CPU at
      400 x 100, ``generate --dataset lbs2d`` (33 000 steps) and 3000 steps of
      the vortex sets' simulation, timed (``lbs times``);
+ 9b. data parallelism, the sharded warp, the evaluation protocols, fastprep:
+     ``scripts/dryrun_dp.py`` at full width (RIFE-2D ``fit`` at batch 64 on
+     128 x 128, UPFlow ``fit`` at 256 x 832 batch 8, float32, cuDNN
+     deterministic) as the plain trainers in this process, one NCCL rank
+     under torchrun and two gloo ranks sharing the card: each step against
+     the plain one (bit for bit, or within ``TRAIN_PARTS_TOL`` /
+     ``TRAIN_GRAD_TOL``), ``loss.json``, the checkpoint's format, the launches
+     a step, the step's time (``data parallel``);
+     ``backward_warp3d_sharded`` at [1, 1, 256, 256, 256] r_z 8 over two gloo
+     ranks (``scripts/sharded_warp.py``), border and zeros, forward and
+     backward against ``warp3d`` on the whole volume, a rank's event times
+     of the halo exchange and the sharded call (through the host) beside the
+     unsharded call's (``sharded warp``), then the ``*_offset`` instances'
+     device times on the haloed shard beside the instances without the
+     offset, ``F.grid_sample``, the plain version and the bound
+     (``sharded warp kernels on the haloed shard``);
+     the evaluation protocols with RGB ``ifnet_2d`` (``bench_latency`` at
+     480 x 640, ``bench_hd_yuv`` on a written 1080p sequence, ``multi`` 1 and
+     2, ``bench_triplet_dirs``, ``bench_vimeo90k`` and ``bench_middlebury`` on
+     written trees) against the same protocols with the plain kernels
+     (``eval protocols``); ``fastprep`` on ``rectangle2d``'s train split bit
+     for bit against numpy, both timed on the host (``fastprep (host)``);
  10. times (CUDA events, warm-up, inputs that vary from call to call) and
      profiles of all paths; each forward warp kernel against ``F.grid_sample``
      in turns (the median of 5 profiler windows of 40 calls each), also at
@@ -497,10 +520,11 @@ def phase_card(torch):
     check(len(fwd) == 20 and all(v.get("spill_stores") == 0 for v in fwd.values()),
           f"corr_fwd_kernel's 20 instances should build without spills: {fwd}")
     # f32 and bf16, with and without dimg, one channel or a channel loop,
-    # border or zeros padding
+    # border or zeros padding; those with dimg also on a slab with its z
+    # offset (the sharded warp's)
     bwd3 = {k: v for k, v in ptxas.items() if k.startswith("warp3d_bwd_kernel")}
-    check(len(bwd3) == 16 and all(v.get("spill_stores") == 0 for v in bwd3.values()),
-          f"warp3d_bwd_kernel's 16 instances should build without spills: {bwd3}")
+    check(len(bwd3) == 24 and all(v.get("spill_stores") == 0 for v in bwd3.values()),
+          f"warp3d_bwd_kernel's 24 instances should build without spills: {bwd3}")
     # three type modes, with and without dimg, one channel, a channel loop or
     # channel groups
     bwd2 = {k: v for k, v in ptxas.items() if k.startswith("warp2d_bwd_kernel")}
@@ -2121,13 +2145,13 @@ def warp3d_layouts(torch, trainers) -> dict:
         even = all(st % 2 == 0 for st in t.stride()[:-1]) and t.shape[-1] % 2 == 0
         return "vector" if t.stride(-1) == 1 and aligned and even else "element"
 
-    def record(img, flow, grad_out, r_z, r_yx, padding, need_dimg):
+    def record(img, flow, grad_out, r_z, r_yx, padding, need_dimg, z_offset=0):
         seen[name].append({
             "shape": list(img.shape), "dtype": str(img.dtype).replace("torch.", ""),
             "flow_strides": list(flow.stride()), "grad_strides": list(grad_out.stride()),
             "rows": [rows(flow), rows(grad_out)], "need_dimg": bool(need_dimg),
             "radii": [r_z, r_yx], "padding": padding})
-        return original(img, flow, grad_out, r_z, r_yx, padding, need_dimg)
+        return original(img, flow, grad_out, r_z, r_yx, padding, need_dimg, z_offset)
 
     b = VOLUME_SHAPE[0]
     try:
@@ -3954,6 +3978,423 @@ def phase_lbs(torch, tmp: str):
     return times
 
 
+# -- phase 9b: data parallelism, the sharded 3-D warp, the evaluation protocols, fastprep --
+
+DP_TIME_STEPS = 3  # timed train steps on the first batch, after the recorded one
+DP_TIMEOUT_S = 300
+# a train step's launches, each rank's as the one device's
+DP_STEP_LAUNCHES = {"rife": {"warp2d": 10, "warp2d_bwd": 10},
+                    "upflow": {"corr": 5, "corr_bwd": 5, "warp2d": 8, "warp2d_bwd": 6}}
+SHARDED_SIZE = 256  # [1, 1, 256, 256, 256] f32 over 2 ranks: Z_local 128
+SHARDED_R_Z = 8
+HD_HW = (1080, 1920)
+HD_FRAMES = 5
+PROTOCOL_HW = (256, 448)  # the triplet and Vimeo trees' frames
+MIDDLEBURY_HW = (388, 584)  # the Other set's frame size
+# scores of the kernels' protocol against the plain kernels': both forwards
+# agree within F32_TOL, then the prediction is rounded to uint8, where a value
+# on a level's edge may round the other way
+PROTOCOL_PSNR_TOL = 1e-2  # dB, also Y-PSNR
+PROTOCOL_SSIM_TOL = 1e-4
+PROTOCOL_IE_TOL = 2e-3  # the report keeps 3 decimals
+
+
+def torchrun(nproc: int, module: str, args: list, what: str) -> str:
+    """``torchrun --standalone --nproc_per_node nproc -m module args`` from the
+    checkout; its output, or a failure with the end of it."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", module, *args]
+    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=DP_TIMEOUT_S)
+    check(res.returncode == 0, f"{what}: exit {res.returncode}\n{res.stdout[-3000:]}\n"
+                               f"{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def dp_against(want: dict, got: dict, what: str) -> dict:
+    """A data-parallel step's parts and gradients against the one-device
+    step's: bit for bit, or within TRAIN_PARTS_TOL (relative) and
+    TRAIN_GRAD_TOL (of the largest gradient)."""
+    parts = max(abs(got["parts"][k] - v) / max(abs(v), 1e-12)
+                for k, v in want["parts"].items() if v)
+    scale = max(float(g.abs().max()) for g in want["grads"].values())
+    grads = max(float((got["grads"][k] - g).abs().max()) for k, g in want["grads"].items())
+    bitwise = all(got["parts"][k] == v for k, v in want["parts"].items()) and all(
+        bool((got["grads"][k] == g).all()) for k, g in want["grads"].items())
+    check(set(got["grads"]) == set(want["grads"]), f"{what}: other parameters have gradients")
+    check(bitwise or (parts <= TRAIN_PARTS_TOL and grads <= TRAIN_GRAD_TOL * scale),
+          f"{what}: parts {parts:.3e} (tol {TRAIN_PARTS_TOL}), gradients {grads:.3e} of "
+          f"{scale:.3e} (tol {TRAIN_GRAD_TOL})")
+    return {"bitwise": bitwise, "parts_rel_err": parts, "grad_err_of_largest": grads / scale}
+
+
+def phase_data_parallel(torch, tmp: str) -> dict:
+    """9b, data parallelism at full width through ``scripts/dryrun_dp.py``:
+    RIFE-2D ``fit`` at batch 64 on 128x128 and UPFlow ``fit`` at 256 x 832
+    batch 8, float32, cuDNN deterministic.  The plain trainers in this process
+    (no process group), one NCCL rank under torchrun, and two gloo ranks
+    sharing the card: each data-parallel step against the plain one, the
+    fit's ``loss.json`` and checkpoint, the launches a step, the step's
+    time."""
+    from opticalflowscivis_tpu_torch.scripts import dryrun_dp
+
+    torch.cuda.empty_cache()
+    module = "opticalflowscivis_tpu_torch.scripts.dryrun_dp"
+    common = ["--size", "full", "--deterministic", "--time_steps", str(DP_TIME_STEPS)]
+    runs = {"plain": os.path.join(tmp, "dp_plain"), "nccl_1": os.path.join(tmp, "dp_nccl1"),
+            "gloo_2": os.path.join(tmp, "dp_gloo2")}
+    with deterministic_cudnn(torch):
+        dryrun_dp.run(runs["plain"], "full", None, None, DP_TIME_STEPS)
+    torch.cuda.empty_cache()
+    torchrun(1, module, ["--out", runs["nccl_1"], *common], "dp one NCCL rank")
+    torchrun(2, module, ["--out", runs["gloo_2"], "--backend", "gloo", *common],
+             "dp two gloo ranks on one card")
+    rec = {name: {m: torch.load(os.path.join(d, m, "step.pt"), weights_only=False)
+                  for m in ("rife", "upflow")} for name, d in runs.items()}
+    report, launches = {}, {}
+    for model, loss_rel, key in (("rife", "res/rectangle2d/2x/flownet/loss.json", "val_loss"),
+                                 ("upflow", "loss.json", "loss")):
+        want = rec["plain"][model]
+        with open(os.path.join(runs["plain"], model, loss_rel)) as f:
+            want_loss = json.load(f)[key][-1]
+        for name in ("nccl_1", "gloo_2"):
+            got = rec[name][model]
+            row = dp_against(want, got, f"dp {name} {model}")
+            with open(os.path.join(runs[name], model, loss_rel)) as f:
+                got_loss = json.load(f)[key][-1]
+            pairs = (list(zip(want_loss, got_loss)) if key == "val_loss" else
+                     [(v, got_loss[k]) for k, v in want_loss.items()])
+            # after the fit's Adam steps, of the record's largest value (the total):
+            # Adam divides each gradient by its own running size, so the last
+            # digits a gradient may differ in (the `dimg` atomics) move a weight
+            # whose gradient nearly cancels by a part of a step
+            loss_err = max(abs(b - a) for a, b in pairs) / max(abs(a) for a, _ in pairs)
+            print(f"dp {name} {model}: loss.json {pairs}")
+            check(loss_err <= TRAIN_PARTS_TOL, f"dp {name} {model}: loss.json {loss_err:.3e}")
+            ckpt = ("log/rectangle2d/flownet.ckpt" if model == "rife" else "upflow.ckpt")
+            a = torch.load(os.path.join(runs["plain"], model, ckpt), weights_only=True)
+            b = torch.load(os.path.join(runs[name], model, ckpt), weights_only=True)
+            check(a["model"].keys() == b["model"].keys() and a["step"] == b["step"],
+                  f"dp {name} {model}: the checkpoint is not the one-device format")
+            step = {k: v for k, v in got["launches"].items() if v}
+            check(step == DP_STEP_LAUNCHES[model] and got["launches"] == want["launches"],
+                  f"dp {name} {model}: launches a step {step}, plain {want['launches']}")
+            row.update(loss_json_rel_err=loss_err, step_ms=got["step_ms"],
+                       plain_step_ms=want["step_ms"],
+                       launches_per_step={k: v for k, v in got["launches"].items() if v})
+            report[f"{model}_{name}"] = row
+            for k, v in got["launches_run"].items():
+                launches[k] = launches.get(k, 0) + v
+        PER_CALL[f"dp_{model}_train_step"] = {k: v for k, v in want["launches"].items() if v}
+    print("data parallel " + json.dumps(report) + f"  (float32; gloo_2's launches are rank "
+          "0's, its half of each step)")
+    return launches
+
+
+def phase_sharded_warp(torch, tmp: str) -> tuple[dict, dict]:
+    """9b, ``backward_warp3d_sharded`` at [1, 1, 256, 256, 256] f32, r_z 8,
+    over 2 gloo ranks sharing the card (``scripts/sharded_warp.py``): border
+    and zeros, forward and backward, against ``warp3d`` on the whole volume;
+    one ``warp3d`` and one ``warp3d_bwd`` launch a rank a call; the halo
+    exchange's, the sharded and the unsharded calls' event times; then
+    ``sharded_kernel_times`` in this process."""
+    out = os.path.join(tmp, "sharded")
+    torchrun(2, "opticalflowscivis_tpu_torch.scripts.sharded_warp",
+             ["--out", out, "--size", str(SHARDED_SIZE), "--r_z", str(SHARDED_R_Z),
+              "--backend", "gloo"], "sharded warp over two gloo ranks")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = {}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for res in ranks:
+        for padding in ("border", "zeros"):
+            e = res[f"err_{padding}"]
+            bwd = max(e["dimg"] / e["dimg_scale"], e["dflow"] / e["dflow_scale"])
+            worst["fwd"], worst["bwd"] = max(worst["fwd"], e["fwd"]), max(worst["bwd"], bwd)
+            check(e["fwd"] <= F32_TOL and bwd <= BWD_F32_TOL,
+                  f"sharded warp rank {res['rank']} {padding}: {e}")
+            n = res[f"launches_{padding}"]
+            check(n == {"warp3d": 1, "warp3d_bwd": 1},
+                  f"sharded warp rank {res['rank']} {padding}: launches {n}")
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+    # CUDA events around calls whose halo goes through the host (gloo), while
+    # the other rank works on the same card: wall times of a rank, not device
+    # times of the exchange or the kernels
+    times = {f"rank{res['rank']}": res["ms"] for res in ranks}
+    print(f"sharded warp [1,1,{SHARDED_SIZE}^3] r_z {SHARDED_R_Z}, 2 gloo ranks on one card: "
+          f"worst fwd {worst['fwd']:.3e} (tol {F32_TOL}), worst bwd {worst['bwd']:.3e} of the "
+          f"largest gradient (tol {BWD_F32_TOL}); a rank's event times through the host (ms) "
+          + json.dumps(times))
+    shard = sharded_kernel_times(torch)
+    return launches, {"worst": worst, "rank_event_ms": times, "haloed_shard_kernels": shard}
+
+
+def sharded_kernel_times(torch) -> dict:
+    """The ``*_offset`` instances alone at the haloed shard the sharded warp
+    hands them, [1, 1, Z_local + 2·mz, 256, 256] f32 border (the two ranks'
+    shards of ``scripts/sharded_warp.py``'s volume in turns, z offsets -mz
+    and Z_local - mz), device ms by the profiler (median of 5 windows of 40
+    calls): the forward and the backward with ``dimg`` beside the instances
+    without the offset on the same slab, ``F.grid_sample`` on the haloed
+    shard (autograd through it for the backward), the plain version and the
+    bound of each call's own bytes and operations."""
+    import torch.nn.functional as F
+
+    from opticalflowscivis_tpu_torch.ops.kernels.warp import _launch3d, _launch3d_backward
+    from opticalflowscivis_tpu_torch.ops.warp import warp3d_plain
+    from opticalflowscivis_tpu_torch.scripts.sharded_warp import _inputs
+
+    r_z, mz, size = SHARDED_R_Z, SHARDED_R_Z + 1, SHARDED_SIZE
+    z_local = size // 2
+    img, flow, g = _inputs(size, 0, torch.device("cuda"))
+    shards = []
+    for rank in range(2):
+        z0 = rank * z_local
+        lo, hi = max(z0 - mz, 0), min(z0 + z_local + mz, size)
+        # the halo_exchange's "edge" fill at the volume's ends
+        img_h = torch.cat([img[:, :, :1].expand(-1, -1, mz - (z0 - lo), -1, -1),
+                           img[:, :, lo:hi],
+                           img[:, :, -1:].expand(-1, -1, mz - (hi - z0 - z_local), -1, -1)],
+                          dim=2).contiguous()
+        flow_h = F.pad(flow[:, :, z0:z0 + z_local], (0, 0, 0, 0, mz, mz))
+        g_h = F.pad(g[:, :, z0:z0 + z_local], (0, 0, 0, 0, mz, mz))
+        shards.append((img_h, flow_h, g_h, z0 - mz))
+    del img, flow, g
+    zh = z_local + 2 * mz
+    check(all(s[0].shape[2] == zh for s in shards), "haloed shards of the wrong depth")
+
+    def grid(flow_h):
+        """``F.grid_sample``'s grid on the haloed shard (r_z clip, r_yx 0)."""
+        fz = torch.where(flow_h[:, 0].abs() < r_z, flow_h[:, 0],
+                         torch.sign(flow_h[:, 0].detach()) * r_z)
+        zs, ys, xs = (torch.arange(n, device="cuda", dtype=torch.float32) for n in (zh, size, size))
+        return torch.stack([2.0 * (xs.view(1, 1, 1, -1) + flow_h[:, 2]) / (size - 1) - 1.0,
+                            2.0 * (ys.view(1, 1, -1, 1) + flow_h[:, 1]) / (size - 1) - 1.0,
+                            2.0 * (zs.view(1, -1, 1, 1) + fz) / (zh - 1) - 1.0], dim=-1)
+
+    def library_fwd(im, fl):
+        return F.grid_sample(im, grid(fl), mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    grids = [(s[0], grid(s[1])) for s in shards]
+    lib_err = float((library_fwd(*shards[0][:2])
+                     - _launch3d(*shards[0][:2], r_z, 0, "border", shards[0][3])).abs().max())
+    check(lib_err <= 1e-4, f"F.grid_sample on the haloed shard differs ({lib_err:.3e})")
+    fwd = interleaved_device_ms({
+        "offset": lambda i: _launch3d(*shards[i % 2][:2], r_z, 0, "border", shards[i % 2][3]),
+        "no_offset": lambda i: _launch3d(*shards[i % 2][:2], r_z, 0, "border"),
+        "library": lambda i: F.grid_sample(*grids[i % 2], mode="bilinear",
+                                           padding_mode="border", align_corners=True),
+    }, only={"offset": "warp3d_kernel", "no_offset": "warp3d_kernel", "library": "sampler"},
+        launches=1)
+    vox = zh * size * size
+    fwd_bytes, fwd_flops = vox * (4 + 12 + 4), vox * (45 + 24 + 16)
+    bwd_bytes, bwd_flops = warp3d_backward_work((1, zh, size, size, 1), 4, True)
+    graphs = []
+    for img_h, flow_h, g_h, _ in shards:
+        im, fl = img_h.clone().requires_grad_(True), flow_h.clone().requires_grad_(True)
+        graphs.append((library_fwd(im, fl), (im, fl), g_h))
+    bwd = interleaved_device_ms({
+        "offset": lambda i: _launch3d_backward(
+            *shards[i % 2][:3], r_z, 0, "border", True, shards[i % 2][3]),
+        "no_offset": lambda i: _launch3d_backward(*shards[i % 2][:3], r_z, 0, "border", True),
+    }, only="warp3d_bwd_kernel", launches=1)
+    bwd["library"] = {"median_ms": device_ms(lambda i: torch.autograd.grad(
+        graphs[i % 2][0], graphs[i % 2][1], graphs[i % 2][2], retain_graph=True), 20)}
+    del graphs
+
+    def plain_bwd(i):
+        im, fl = (t.clone().requires_grad_(True) for t in shards[i % 2][:2])
+        out = warp3d_plain(im, fl, r_z, 0, "border", shards[i % 2][3])
+        return torch.autograd.grad(out, (im, fl), shards[i % 2][2])
+
+    res = {}
+    for name, t, nbytes, flops, plain in (
+            ("forward", fwd, fwd_bytes, fwd_flops, lambda i: warp3d_plain(
+                *shards[i % 2][:2], r_z, 0, "border", shards[i % 2][3])),
+            ("backward_with_dimg", bwd, bwd_bytes, bwd_flops, plain_bwd)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        res[name] = {
+            "offset_kernel_ms": t["offset"]["median_ms"],
+            "no_offset_kernel_ms": t["no_offset"]["median_ms"],
+            "library_ms": t["library"]["median_ms"],
+            "plain_ms": device_ms(plain, 5),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "windows_ms": {k: v.get("windows_ms") for k, v in t.items()},
+        }
+        res[name]["bound_share"] = res[name]["bound_ms"] / res[name]["offset_kernel_ms"]
+    res["shape"] = [1, 1, zh, size, size]
+    print("sharded warp kernels on the haloed shard " + json.dumps(res)
+          + "  (device ms, profiler; bound: H100 SXM 3.35 TB/s, 67 TFLOP/s f32)")
+    return res
+
+
+@contextlib.contextmanager
+def plain_ifnet_warps():
+    """The IFNet's ``warp2d`` kernel wrapper replaced by ``warp2d_plain``."""
+    from opticalflowscivis_tpu_torch.models import ifnet as ifnet_module
+    from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain
+
+    saved = ifnet_module.warp2d
+    ifnet_module.warp2d = warp2d_plain
+    try:
+        yield
+    finally:
+        ifnet_module.warp2d = saved
+
+
+def textured_frames(n: int, hw, seed: int, shift=(2, 3)) -> list:
+    """``n`` uint8 RGB frames: a smooth random texture moved by ``shift`` px a
+    frame (frame k at k·shift)."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    pad = max(abs(shift[0]), abs(shift[1])) * n
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, (h + 2 * pad) // 16 + 2,
+                                                     (w + 2 * pad) // 16 + 2)).astype(np.float32))
+    tex = F.interpolate(coarse, size=(h + 2 * pad, w + 2 * pad), mode="bicubic",
+                        align_corners=True).clamp(0, 255)[0].permute(1, 2, 0).numpy()
+    return [tex[pad + k * shift[0]: pad + k * shift[0] + h,
+                pad + k * shift[1]: pad + k * shift[1] + w].astype(np.uint8) for k in range(n)]
+
+
+def write_protocol_trees(root: str) -> None:
+    """A triplet-dir tree (2 triplets), a Vimeo90K test tree (2) and a
+    Middlebury Other tree (12 sequences, frames 10 and 11 and the truth),
+    from textures moved a few pixels a frame; PNGs through cv2."""
+    import cv2
+
+    from opticalflowscivis_tpu_torch.evalsuite.benchmarks import _MIDDLEBURY
+
+    def triplet(seed, hw):
+        f = textured_frames(3, hw, seed)
+        return [np.ascontiguousarray(x[..., ::-1]) for x in (f[0], f[2], f[1])]  # BGR
+
+    for i in range(2):
+        d = os.path.join(root, "triplets", f"seq{i}")
+        os.makedirs(d)
+        for name, img in zip(("frame_00.png", "frame_02.png", "frame_01_gt.png"),
+                             triplet(40 + i, PROTOCOL_HW)):
+            cv2.imwrite(os.path.join(d, name), img)
+    names = ["00001/0001", "00002/0007"]
+    for i, tri in enumerate(names):
+        d = os.path.join(root, "vimeo", "sequences", tri)
+        os.makedirs(d)
+        for name, img in zip(("im1.png", "im3.png", "im2.png"), triplet(50 + i, PROTOCOL_HW)):
+            cv2.imwrite(os.path.join(d, name), img)
+    with open(os.path.join(root, "vimeo", "tri_testlist.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    for i, name in enumerate(_MIDDLEBURY):
+        f0, f1, mid = triplet(60 + i, MIDDLEBURY_HW)
+        for sub, fname, img in (("other-data", "frame10.png", f0),
+                                ("other-data", "frame11.png", f1),
+                                ("other-gt-interp", "frame10i11.png", mid)):
+            os.makedirs(os.path.join(root, sub, name), exist_ok=True)
+            cv2.imwrite(os.path.join(root, sub, name, fname), img)
+
+
+def phase_eval_protocols(torch, tmp: str) -> dict:
+    """9b, the evaluation protocols on the card with ``ifnet_2d`` at full width
+    on RGB frames (seed 0, float32): ``bench_latency`` at 480 x 640 x 3,
+    ``bench_hd_yuv`` on a written 1080p sequence (``multi`` 1 and 2),
+    ``bench_triplet_dirs``, ``bench_vimeo90k`` and ``bench_middlebury`` on
+    written trees; each report against the same protocol with the plain
+    kernels, and the kernels' launches."""
+    from opticalflowscivis_tpu_torch.data.yuv_io import YUVWriter
+    from opticalflowscivis_tpu_torch.evalsuite import benchmarks as bench
+    from opticalflowscivis_tpu_torch.inference import Interpolator
+    from opticalflowscivis_tpu_torch.models import ifnet_2d
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    root = os.path.join(tmp, "protocols")
+    write_protocol_trees(root)
+    hd_name = "HD_dataset/HD1080p_GT/toy.yuv"
+    os.makedirs(os.path.join(root, os.path.dirname(hd_name)))
+    with YUVWriter(os.path.join(root, hd_name)) as w:
+        for frame in textured_frames(HD_FRAMES, HD_HW, seed=70):
+            w.write(frame)
+    interp = Interpolator(ifnet_2d(in_channels=3), pad_multiple=32)
+
+    def protocols():
+        hd = dict(max_index=HD_FRAMES - 1, name_list=[(hd_name, *HD_HW)])
+        return {
+            "triplet_dirs": bench.bench_triplet_dirs(interp, os.path.join(root, "triplets")),
+            "vimeo90k": bench.bench_vimeo90k(interp, os.path.join(root, "vimeo")),
+            "middlebury": bench.bench_middlebury(interp, os.path.join(root, "other-data"),
+                                                 os.path.join(root, "other-gt-interp")),
+            "hd_yuv_2x": bench.bench_hd_yuv(interp, root, multi=1, **hd),
+            "hd_yuv_4x": bench.bench_hd_yuv(interp, root, multi=2, **hd),
+        }
+
+    with deterministic_cudnn(torch):
+        reset_launches()  # the protocols' run starts here
+        got = protocols()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}  # read just after the run
+        with plain_ifnet_warps():
+            want = protocols()
+    # forwards: 2 + 2 + 12 pairs, 2 + 3 at 1088 x 1920; 6 warps each
+    check(launches == {"warp2d": 6 * 21}, f"protocol launches {launches}")
+    for name in ("triplet_dirs", "vimeo90k"):
+        g, w = got[name], want[name]
+        check(g["n"] == w["n"] == 2 and abs(g["psnr"] - w["psnr"]) <= PROTOCOL_PSNR_TOL
+              and abs(g["ssim"] - w["ssim"]) <= PROTOCOL_SSIM_TOL, f"{name}: {g} vs plain {w}")
+    check(set(got["middlebury"]) == set(want["middlebury"]) and all(
+        abs(got["middlebury"][k] - v) <= PROTOCOL_IE_TOL for k, v in want["middlebury"].items()),
+        f"middlebury: {got['middlebury']} vs plain {want['middlebury']}")
+    for name in ("hd_yuv_2x", "hd_yuv_4x"):
+        check(abs(got[name]["mean"] - want[name]["mean"]) <= PROTOCOL_PSNR_TOL,
+              f"{name}: {got[name]} vs plain {want[name]}")
+    latency = bench.bench_latency(interp, (480, 640, 3))
+    with plain_ifnet_warps():
+        plain_latency = bench.bench_latency(interp, (480, 640, 3))
+    report = {"kernels": got, "plain": want, "latency": latency, "plain_latency": plain_latency,
+              "launches": launches}
+    print("eval protocols " + json.dumps(report))
+    return launches
+
+
+def phase_fastprep() -> dict:
+    """9b, ``data.fastprep`` on the train split of the registry's largest 2-D
+    series (``rectangle2d``: 2205 of 3000 frames of 128 x 128 x 3 float32),
+    stride-3 resample, both flips, 3-tuples: bit for bit against the numpy
+    pipeline, both timed by the host's clock (a host figure, not the card's)."""
+    from opticalflowscivis_tpu_torch.data import (
+        flip_augment,
+        group_tuples,
+        rectangle_2d,
+        temporal_resample,
+    )
+    from opticalflowscivis_tpu_torch.data.fastprep import load_library, prepare_tuples_native
+    from opticalflowscivis_tpu_torch.data.registry import get_spec
+
+    spec = get_spec("rectangle2d")
+    series = rectangle_2d()[spec.train[0][0] : spec.train[0][1]]
+    load_library()  # the g++ build is not timed
+    t0 = time.perf_counter()
+    native = prepare_tuples_native(series, exp=1, resample_stride=spec.resample_stride)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = group_tuples(flip_augment(temporal_resample(series, spec.resample_stride)), 1)
+    numpy_s = time.perf_counter() - t0
+    check(native.shape == ref.shape and np.array_equal(native, ref),
+          "fastprep differs from the numpy pipeline")
+    times = {"series_mb": series.nbytes / 1e6, "tuples_mb": native.nbytes / 1e6,
+             "native_s": native_s, "numpy_s": numpy_s, "speedup": numpy_s / native_s}
+    print(f"fastprep (host) {list(series.shape)} -> {list(native.shape)}, bit for bit: "
+          + json.dumps(times))
+    return times
+
+
 def corr_kernel_times(torch) -> dict:
     """Device ms per call of ``corr`` and ``corr_bwd`` (both gradients) at the
     finest UPFlow level, [16, 32, 64, 208] md 4, in f32 and bf16, the two
@@ -4643,6 +5084,11 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         phase_lbs(torch, tmp)
         torch.cuda.empty_cache()
+        dp_launches = phase_data_parallel(torch, tmp)
+        sharded_launches, sharded = phase_sharded_warp(torch, tmp)
+        protocol_launches = phase_eval_protocols(torch, tmp)
+        phase_fastprep()
+        torch.cuda.empty_cache()
         # last: the HD v2 zoo forward's profile holds about 10^5 kernel events,
         # after which an H100's profiler windows lost events (17 of 40)
         zoo_launches, _ = phase_zoo(torch, tmp)
@@ -4815,6 +5261,22 @@ def main(argv: list) -> int:
         by_name[name]["launches_vimeo_path"] = n_vimeo
     for name in ("warp2d", "warp2d_bwd"):
         by_name[name]["launches_per_vimeo_train_step"] = PER_CALL["vimeo_train_step"][name]
+    # phase 9b: the data-parallel dry runs (the NCCL rank's and gloo rank 0's
+    # runs), the sharded 3-D warp (both ranks) and the evaluation protocols
+    for name in by_name:
+        n_dp, n_sharded = dp_launches.get(name, 0), sharded_launches.get(name, 0)
+        n_eval = protocol_launches.get(name, 0)
+        by_name[name]["launches"] += n_dp + n_sharded + n_eval
+        by_name[name]["launches_dp_paths"] = n_dp
+        by_name[name]["launches_sharded_warp"] = n_sharded
+        by_name[name]["launches_eval_protocols"] = n_eval
+        for model in ("rife", "upflow"):
+            by_name[name][f"launches_per_dp_{model}_train_step"] = (
+                PER_CALL[f"dp_{model}_train_step"].get(name, 0))
+    for name in ("warp3d", "warp3d_bwd"):
+        by_name[name]["sharded_warp"] = {
+            "shape": [1, 1, SHARDED_SIZE, SHARDED_SIZE, SHARDED_SIZE], "r_z": SHARDED_R_Z,
+            "ranks": 2, "backend": "gloo, one card", **sharded}
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

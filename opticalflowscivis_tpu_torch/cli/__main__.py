@@ -5,7 +5,10 @@ The RIFE verbs of ``opticalflowscivis_tpu.cli`` with the same flags, on 2-D and
 SciVis datasets and on KITTI (multiview training, the Evaluation_bench
 protocol); and ``select``, time-step selection.  ``--cpu`` selects
 ``device="cpu"``; without it every verb runs on the GPU and raises when there
-is none.  The verbs that draw panels import the plotting module inside their
+is none.  ``train`` and ``train_upflow`` train data-parallel when launched by
+``torchrun`` (one process a device; NCCL, or gloo with ``--cpu``):
+``torchrun --nproc_per_node k -m opticalflowscivis_tpu_torch.cli train
+--config_json cfg.json`` with ``"n_data": k`` in the json.  The verbs that draw panels import the plotting module inside their
 drawing step: without matplotlib they say so in one line and write their
 reports all the same.
 """
@@ -13,6 +16,7 @@ reports all the same.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -44,6 +48,22 @@ def _add_common(p: argparse.ArgumentParser):
 
 def _device(args) -> str | None:
     return "cpu" if args.cpu else None
+
+
+@contextlib.contextmanager
+def _process_group(args):
+    """The default process group of a ``torchrun`` launch (none without one),
+    destroyed when the verb ends."""
+    import torch.distributed as dist
+
+    from opticalflowscivis_tpu_torch.parallel.multihost import initialize_multihost
+
+    info = initialize_multihost(device=_device(args))
+    try:
+        yield info
+    finally:
+        if info["initialized"] and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _viz():
@@ -126,7 +146,11 @@ def cmd_train(argv):
                    help="streamed datasets (vimeo2d): steps per epoch "
                         "(0 = len(dataset) // batch)")
     args = p.parse_args(argv)
+    with _process_group(args):
+        _train(args)
 
+
+def _train(args):
     from opticalflowscivis_tpu_torch.training import Trainer
 
     cfg = _build_cfg(args)
@@ -169,7 +193,8 @@ def cmd_test(argv):
     if cfg.dataset == "vimeo2d":
         # the reference's verb reads a test pkl, which vimeo2d does not have
         raise SystemExit("test: dataset 'vimeo2d' has no test series; it streams "
-                         "training crops (train --vimeo_root)")
+                         "training crops (train --vimeo_root); Vimeo90K's test list is "
+                         "scored by evalsuite.benchmarks.bench_vimeo90k")
     tr = _restored_trainer(cfg, args)
     test = load_data(cfg.dataset, cfg.exp, "test", cfg.data_dir)
 
@@ -419,7 +444,11 @@ def cmd_train_upflow(argv):
     p.add_argument("--prefetch_workers", type=int, default=2,
                    help="KITTI streamed path: host prefetch threads")
     args = p.parse_args(argv)
+    with _process_group(args):
+        _train_upflow(args)
 
+
+def _train_upflow(args):
     from opticalflowscivis_tpu_torch.data import get_spec, load_raw_series
     from opticalflowscivis_tpu_torch.losses.upflow import UPFlowLossConfig
     from opticalflowscivis_tpu_torch.training.upflow_trainer import (

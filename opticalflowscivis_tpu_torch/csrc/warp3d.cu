@@ -67,7 +67,10 @@
 // input frames, which carry no gradient, so every call of a training step
 // compiles the scatter away); one channel (every volume of the 3-D models: no
 // channel loop, at most 64 registers, 4 blocks of 256 threads an SM) or a
-// channel loop (128); border padding (the model's: no corner masks) or zeros.
+// channel loop (128); border padding (the model's: no corner masks) or zeros;
+// and those with dimg again for a slab of a larger volume (Z_OFFSET: the depth
+// shard of parallel/spatial.py, whose z coordinates are formed in the whole
+// volume's frame; the entries *_offset, whose backward always writes dimg).
 // dimg is accumulated with f32 atomicAdd into an f32 buffer that the wrapper
 // zero-fills and casts afterwards; there a thread's two voxels lie blockDim.x
 // apart, so that the lanes of each atomic add hit consecutive voxels.  The
@@ -122,18 +125,48 @@ __device__ __forceinline__ void axis_taps(float d, int i, int n, float hi, float
   *c1 = min(max(i1, 0), n - 1);
 }
 
+// The z axis of a slab cut from a larger volume whose slice 0 is the volume's
+// slice `off` (the depth shard of parallel/spatial.py with its halo): the
+// coordinate is formed in the volume's frame, (float)(i + off) + d, the float
+// the whole volume's call forms, and its corners indexed in the slab's.  So a
+// slab's fractions and corners are the whole volume's bit for bit, also where
+// a coordinate lies a rounding away from an integer (there the two frames'
+// sums could round to either side of it, and the z gradient, the difference
+// across the slab's two slices, jumps).  The clamps keep their slab meaning.
+__device__ __forceinline__ void axis_taps_offset(float d, int i, int off, int n, float hi,
+                                                 float r, int zeros, float* frac, int* c0,
+                                                 int* c1, float* v0, float* v1, bool* live) {
+  *live = !(r > 0.f) || fabsf(d) < r;
+  if (r > 0.f) d = fminf(fmaxf(d, -r), r);
+  const float s = fminf(fmaxf((float)(i + off) + d, (float)off - 2.f), (float)off + hi);
+  const float f = floorf(s);
+  *frac = s - f;
+  const int i0 = (int)f - off, i1 = i0 + 1;
+  *v0 = (!zeros || (i0 >= 0 && i0 < n)) ? 1.f : 0.f;
+  *v1 = (!zeros || (i1 >= 0 && i1 < n)) ? 1.f : 0.f;
+  *c0 = min(max(i0, 0), n - 1);
+  *c1 = min(max(i1, 0), n - 1);
+}
+
 // The clamp limits (Z + 1, Y + 1, X + 1) as floats.
 struct Limits {
   float z, y, x;
 };
 
+// Z_OFFSET: the z axis by axis_taps_offset with the slab's offset z_off; the
+// instances without it never read z_off.
+template <bool Z_OFFSET = false>
 __device__ __forceinline__ Taps make_taps(float dz, float dy, float dx, int z, int y,
                                           int x, int Z, int Y, int X, float r_z, float r_yx,
-                                          int zeros, Limits hi) {
+                                          int zeros, Limits hi, int z_off = 0) {
   Taps t;
   int cz[2], cy[2], cx[2];
   float vz[2], vy[2], vx[2];
-  axis_taps(dz, z, Z, hi.z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1], &t.live_z);
+  if constexpr (Z_OFFSET)
+    axis_taps_offset(dz, z, z_off, Z, hi.z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1],
+                     &t.live_z);
+  else
+    axis_taps(dz, z, Z, hi.z, r_z, zeros, &t.az, &cz[0], &cz[1], &vz[0], &vz[1], &t.live_z);
   axis_taps(dy, y, Y, hi.y, r_yx, zeros, &t.ay, &cy[0], &cy[1], &vy[0], &vy[1], &t.live_y);
   axis_taps(dx, x, X, hi.x, r_yx, zeros, &t.ax, &cx[0], &cx[1], &vx[0], &vx[1], &t.live_x);
 #pragma unroll
@@ -145,11 +178,12 @@ __device__ __forceinline__ Taps make_taps(float dz, float dy, float dx, int z, i
   return t;
 }
 
+template <bool Z_OFFSET = false>
 __device__ __forceinline__ Taps make_taps(float dz, float dy, float dx, int z, int y,
                                           int x, int Z, int Y, int X, float r_z, float r_yx,
-                                          int zeros) {
-  return make_taps(dz, dy, dx, z, y, x, Z, Y, X, r_z, r_yx, zeros,
-                   {(float)Z + 1.f, (float)Y + 1.f, (float)X + 1.f});
+                                          int zeros, int z_off = 0) {
+  return make_taps<Z_OFFSET>(dz, dy, dx, z, y, x, Z, Y, X, r_z, r_yx, zeros,
+                             {(float)Z + 1.f, (float)Y + 1.f, (float)X + 1.f}, z_off);
 }
 
 // w[k] = ((wz * wy) * wx) * m[k], the weight product of the plain version.
@@ -163,10 +197,11 @@ __device__ __forceinline__ void corner_weights(const Taps& t, float* w) {
   }
 }
 
-template <typename T>
+template <typename T, bool Z_OFFSET>
 __global__ void __launch_bounds__(256, 3)
 warp3d_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restrict__ out, int B,
-              int C, int Z, int Y, int X, Strides fs, float r_z, float r_yx, int zeros) {
+              int C, int Z, int Y, int X, Strides fs, float r_z, float r_yx, int zeros,
+              int z_off) {
   const unsigned xt = blockIdx.x * blockDim.x + threadIdx.x;
   if (xt >= ((unsigned)X + kV - 1) / kV) return;
   const int x0 = (int)xt * kV;
@@ -186,8 +221,8 @@ warp3d_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restri
       int o[kV][8];
 #pragma unroll
       for (int j = 0; j < kV; ++j) {
-        const Taps k = make_taps(dz[j], dy[j], dx[j], (int)z, (int)y, x0 + j, Z, Y, X, r_z,
-                                 r_yx, zeros);
+        const Taps k = make_taps<Z_OFFSET>(dz[j], dy[j], dx[j], (int)z, (int)y, x0 + j, Z, Y,
+                                           X, r_z, r_yx, zeros, z_off);
         corner_weights(k, w[j]);
 #pragma unroll
         for (int i = 0; i < 8; ++i) o[j][i] = k.o[i];
@@ -231,13 +266,14 @@ __device__ __forceinline__ void store_voxels(T* p, int step, const float* v, int
 // voxel a thread).  ONE_CHANNEL: C = 1, no channel loop.  ZEROS: the padding;
 // border computes no corner masks.  A one-channel kernel without dimg keeps
 // to 64 registers, 4 blocks of 256 threads an SM: on iid flows the gathers in
-// flight per SM set the time, on smooth flows the issue rate.
-template <typename T, bool NEED_DIMG, bool ONE_CHANNEL, bool ZEROS>
+// flight per SM set the time, on smooth flows the issue rate.  Z_OFFSET comes
+// only with NEED_DIMG.
+template <typename T, bool NEED_DIMG, bool ONE_CHANNEL, bool ZEROS, bool Z_OFFSET>
 __global__ void __launch_bounds__(256, ONE_CHANNEL && !NEED_DIMG ? 4 : 2)
 warp3d_bwd_kernel(const T* __restrict__ img, const T* __restrict__ flow,
                   const T* __restrict__ g, T* __restrict__ dflow, float* __restrict__ dimg,
                   int B, int C, int Z, int Y, int X, Strides fs, Strides gs, float r_z,
-                  float r_yx, Limits hi) {
+                  float r_yx, Limits hi, int z_off) {
   static_assert(kV == 2, "n below counts the voxels of a pair");
   // x of a thread's first voxel, and the step to its second
   const int step = NEED_DIMG ? (int)blockDim.x : 1;
@@ -280,8 +316,8 @@ warp3d_bwd_kernel(const T* __restrict__ img, const T* __restrict__ flow,
         const T* src = img + base + (int64_t)c * vol;
 #pragma unroll
         for (int j = 0; j < kV; ++j) {
-          const Taps k = make_taps(dz[j], dy[j], dx[j], (int)z, (int)y, x0 + j * step, Z, Y, X,
-                                   r_z, r_yx, ZEROS, hi);
+          const Taps k = make_taps<Z_OFFSET>(dz[j], dy[j], dx[j], (int)z, (int)y, x0 + j * step,
+                                             Z, Y, X, r_z, r_yx, ZEROS, hi, z_off);
           const float az = k.az, ay = k.ay, ax = k.ax;
           float v[8];  // v[4*hz + 2*hy + hx], dropped corners as 0
 #pragma unroll
@@ -317,50 +353,99 @@ warp3d_bwd_kernel(const T* __restrict__ img, const T* __restrict__ flow,
   }
 }
 
-template <typename T>
+template <typename T, bool Z_OFFSET>
 void launch(const void* img, const void* flow, void* out, const int64_t* d, const Strides& fs,
-            float r_z, float r_yx, int zeros, dim3 grid, dim3 block, cudaStream_t stream) {
-  warp3d_kernel<T><<<grid, block, 0, stream>>>(
+            float r_z, float r_yx, int zeros, int z_off, dim3 grid, dim3 block,
+            cudaStream_t stream) {
+  warp3d_kernel<T, Z_OFFSET><<<grid, block, 0, stream>>>(
       static_cast<const T*>(img), static_cast<const T*>(flow), static_cast<T*>(out), (int)d[0],
-      (int)d[1], (int)d[2], (int)d[3], (int)d[4], fs, r_z, r_yx, zeros);
+      (int)d[1], (int)d[2], (int)d[3], (int)d[4], fs, r_z, r_yx, zeros, z_off);
 }
 
-template <typename T, bool NEED_DIMG, bool ONE_CHANNEL>
+template <typename T, bool NEED_DIMG, bool ONE_CHANNEL, bool Z_OFFSET>
 void launch_bwd_padding(const T* img, const T* flow, const T* g, T* dflow, float* dimg,
                         const int64_t* d, const Strides& fs, const Strides& gs, float r_z,
-                        float r_yx, int zeros, dim3 grid, dim3 block, cudaStream_t stream) {
+                        float r_yx, int zeros, int z_off, dim3 grid, dim3 block,
+                        cudaStream_t stream) {
   const int B = (int)d[0], C = (int)d[1], Z = (int)d[2], Y = (int)d[3], X = (int)d[4];
   const Limits hi = {(float)Z + 1.f, (float)Y + 1.f, (float)X + 1.f};
   if (zeros)
-    warp3d_bwd_kernel<T, NEED_DIMG, ONE_CHANNEL, true><<<grid, block, 0, stream>>>(
-        img, flow, g, dflow, dimg, B, C, Z, Y, X, fs, gs, r_z, r_yx, hi);
+    warp3d_bwd_kernel<T, NEED_DIMG, ONE_CHANNEL, true, Z_OFFSET><<<grid, block, 0, stream>>>(
+        img, flow, g, dflow, dimg, B, C, Z, Y, X, fs, gs, r_z, r_yx, hi, z_off);
   else
-    warp3d_bwd_kernel<T, NEED_DIMG, ONE_CHANNEL, false><<<grid, block, 0, stream>>>(
-        img, flow, g, dflow, dimg, B, C, Z, Y, X, fs, gs, r_z, r_yx, hi);
+    warp3d_bwd_kernel<T, NEED_DIMG, ONE_CHANNEL, false, Z_OFFSET><<<grid, block, 0, stream>>>(
+        img, flow, g, dflow, dimg, B, C, Z, Y, X, fs, gs, r_z, r_yx, hi, z_off);
 }
 
-template <typename T>
+template <typename T, bool Z_OFFSET>
 void launch_bwd(const void* img, const void* flow, const void* g, void* dflow, void* dimg,
                 const int64_t* d, const Strides& fs, const Strides& gs, float r_z, float r_yx,
-                int zeros, dim3 grid, dim3 block, cudaStream_t s) {
+                int zeros, int z_off, dim3 grid, dim3 block, cudaStream_t s) {
   const T* i = static_cast<const T*>(img);
   const T* f = static_cast<const T*>(flow);
   const T* gg = static_cast<const T*>(g);
   T* df = static_cast<T*>(dflow);
   float* di = static_cast<float*>(dimg);
   const bool one = d[1] == 1;
-  if (dimg && one)
-    launch_bwd_padding<T, true, true>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid, block,
-                                      s);
-  else if (dimg)
-    launch_bwd_padding<T, true, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid, block,
-                                       s);
-  else if (one)
-    launch_bwd_padding<T, false, true>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid, block,
-                                       s);
+  if constexpr (Z_OFFSET) {  // always with dimg (warp3d_backward_offset)
+    if (one)
+      launch_bwd_padding<T, true, true, true>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros,
+                                              z_off, grid, block, s);
+    else
+      launch_bwd_padding<T, true, false, true>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros,
+                                               z_off, grid, block, s);
+  } else if (dimg && one) {
+    launch_bwd_padding<T, true, true, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, 0,
+                                             grid, block, s);
+  } else if (dimg) {
+    launch_bwd_padding<T, true, false, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, 0,
+                                              grid, block, s);
+  } else if (one) {
+    launch_bwd_padding<T, false, true, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, 0,
+                                              grid, block, s);
+  } else {
+    launch_bwd_padding<T, false, false, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, 0,
+                                               grid, block, s);
+  }
+}
+
+template <bool Z_OFFSET>
+int forward(const void* img, const void* flow, void* out, const int64_t* dims,
+            const int64_t* fs, int64_t r_z, int64_t r_yx, int64_t zeros, int64_t z_off,
+            int64_t bf16, int64_t gx, int64_t gy, int64_t gz, int64_t tx, int64_t ty,
+            void* stream) {
+  if (gx * tx * kV < dims[4]) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
+  const int z = zeros ? 1 : 0;
+  if (bf16)
+    launch<__nv_bfloat16, Z_OFFSET>(img, flow, out, dims, f, (float)r_z, (float)r_yx, z,
+                                    (int)z_off, grid, block, s);
   else
-    launch_bwd_padding<T, false, false>(i, f, gg, df, di, d, fs, gs, r_z, r_yx, zeros, grid,
-                                        block, s);
+    launch<float, Z_OFFSET>(img, flow, out, dims, f, (float)r_z, (float)r_yx, z, (int)z_off,
+                            grid, block, s);
+  return (int)cudaGetLastError();
+}
+
+template <bool Z_OFFSET>
+int backward(const void* img, const void* flow, const void* g, void* dflow, void* dimg,
+             const int64_t* dims, const int64_t* fs, const int64_t* gs, int64_t r_z,
+             int64_t r_yx, int64_t zeros, int64_t z_off, int64_t bf16, int64_t gx, int64_t gy,
+             int64_t gz, int64_t tx, int64_t ty, void* stream) {
+  if (gx * tx * kV < dims[4]) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
+  const Strides gg = {gs[0], gs[1], gs[2], gs[3], gs[4]};
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
+  const int z = zeros ? 1 : 0;
+  if (bf16)
+    launch_bwd<__nv_bfloat16, Z_OFFSET>(img, flow, g, dflow, dimg, dims, f, gg, (float)r_z,
+                                        (float)r_yx, z, (int)z_off, grid, block, s);
+  else
+    launch_bwd<float, Z_OFFSET>(img, flow, g, dflow, dimg, dims, f, gg, (float)r_z,
+                                (float)r_yx, z, (int)z_off, grid, block, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -378,16 +463,19 @@ extern "C" int warp3d_forward(const void* img, const void* flow, void* out,
                               int64_t r_z, int64_t r_yx, int64_t zeros,
                               int64_t bf16, int64_t gx, int64_t gy, int64_t gz,
                               int64_t tx, int64_t ty, void* stream) {
-  if (gx * tx * kV < dims[4]) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
-  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
-  const int z = zeros ? 1 : 0;
-  if (bf16)
-    launch<__nv_bfloat16>(img, flow, out, dims, f, (float)r_z, (float)r_yx, z, grid, block, s);
-  else
-    launch<float>(img, flow, out, dims, f, (float)r_z, (float)r_yx, z, grid, block, s);
-  return (int)cudaGetLastError();
+  return forward<false>(img, flow, out, dims, fs, r_z, r_yx, zeros, 0, bf16, gx, gy, gz, tx,
+                        ty, stream);
+}
+
+// warp3d_forward on a slab whose slice 0 is slice z_off of a larger volume:
+// the coordinates in the volume's frame (axis_taps_offset).
+extern "C" int warp3d_forward_offset(const void* img, const void* flow, void* out,
+                                     const int64_t* dims, const int64_t* fs, int64_t r_z,
+                                     int64_t r_yx, int64_t zeros, int64_t z_off, int64_t bf16,
+                                     int64_t gx, int64_t gy, int64_t gz, int64_t tx,
+                                     int64_t ty, void* stream) {
+  return forward<true>(img, flow, out, dims, fs, r_z, r_yx, zeros, z_off, bf16, gx, gy, gz, tx,
+                       ty, stream);
 }
 
 // img [B, C, Z, Y, X] contiguous; flow [B, 3, Z, Y, X] and g [B, C, Z, Y, X]
@@ -403,17 +491,18 @@ extern "C" int warp3d_backward(const void* img, const void* flow, const void* g,
                                int64_t r_yx, int64_t zeros, int64_t bf16, int64_t gx,
                                int64_t gy, int64_t gz, int64_t tx, int64_t ty,
                                void* stream) {
-  if (gx * tx * kV < dims[4]) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides f = {fs[0], fs[1], fs[2], fs[3], fs[4]};
-  const Strides gg = {gs[0], gs[1], gs[2], gs[3], gs[4]};
-  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz), block((unsigned)tx, (unsigned)ty);
-  const int z = zeros ? 1 : 0;
-  if (bf16)
-    launch_bwd<__nv_bfloat16>(img, flow, g, dflow, dimg, dims, f, gg, (float)r_z, (float)r_yx, z,
-                              grid, block, s);
-  else
-    launch_bwd<float>(img, flow, g, dflow, dimg, dims, f, gg, (float)r_z, (float)r_yx, z, grid,
-                      block, s);
-  return (int)cudaGetLastError();
+  return backward<false>(img, flow, g, dflow, dimg, dims, fs, gs, r_z, r_yx, zeros, 0, bf16, gx,
+                         gy, gz, tx, ty, stream);
+}
+
+// warp3d_backward of warp3d_forward_offset; dimg is required.
+extern "C" int warp3d_backward_offset(const void* img, const void* flow, const void* g,
+                                      void* dflow, void* dimg, const int64_t* dims,
+                                      const int64_t* fs, const int64_t* gs, int64_t r_z,
+                                      int64_t r_yx, int64_t zeros, int64_t z_off,
+                                      int64_t bf16, int64_t gx, int64_t gy, int64_t gz,
+                                      int64_t tx, int64_t ty, void* stream) {
+  if (!dimg) return (int)cudaErrorInvalidValue;
+  return backward<true>(img, flow, g, dflow, dimg, dims, fs, gs, r_z, r_yx, zeros, z_off, bf16,
+                        gx, gy, gz, tx, ty, stream);
 }

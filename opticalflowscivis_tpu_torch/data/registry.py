@@ -11,10 +11,10 @@ Synthetic datasets are generated on first use and cached as ``.pkl`` in
 channels-first → channels-last conversion.
 
 The lattice-Boltzmann datasets (``lbs2d``, ``vortex2d``, ``vortex2d_fast``)
-are generated by ``data/lbs.py`` on the GPU.  Difference from the reference:
-tuples are always prepared by the numpy pipeline (the native
-``csrc/fastprep.cpp`` path is bit-equal to it and is ported later, ROADMAP
-A.11c).
+are generated by ``data/lbs.py`` on the GPU.  Tuples of 2-D and 3-D series
+are prepared by the native ``csrc/fastprep.cpp`` (``data/fastprep.py``), as the
+reference does; it is bit-equal to the numpy pipeline, and a failure to build
+it raises.
 """
 
 from __future__ import annotations
@@ -353,6 +353,16 @@ def _split_or_fraction(data: np.ndarray, slices: Slices, which: str) -> np.ndarr
 def _prepare(spec: DatasetSpec, data: np.ndarray, slices: Slices, exp: int,
              augment: bool, which: str = "train") -> np.ndarray:
     sub = _split_or_fraction(data, slices, which)
+    if sub.ndim in (4, 5):
+        # native fused path (csrc/fastprep.cpp): bit-equal to the lines below
+        from opticalflowscivis_tpu_torch.data.fastprep import prepare_tuples_native
+
+        return prepare_tuples_native(
+            sub,
+            exp=exp,
+            resample_stride=spec.resample_stride or 1,
+            flip_axes=2 if (augment and spec.flip_aug) else 0,
+        )
     if spec.resample_stride:
         sub = temporal_resample(sub, spec.resample_stride)
     if augment and spec.flip_aug:

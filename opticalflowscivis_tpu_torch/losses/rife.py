@@ -4,7 +4,9 @@ Counterpart of ``opticalflowscivis_tpu/losses/rife.py``: seven weighted terms
 (reconstruction, teacher reconstruction, distillation, block L1 regularizer,
 photometric, smoothness, flow supervision) plus the optional flow leash, and
 the ``parts`` dict under the same keys.  The 3-D recipe is a preset of
-``RIFELossWeights``, not a code fork.
+``RIFELossWeights``, not a code fork.  Every term is a mean over the batch
+but the distillation guard, which under data parallelism tests the global
+mean (``Mesh.batch_mean``).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def rife_losses(
     ndim: int,
     gt_flow: torch.Tensor | None = None,
     fast_warp_r: int = 0,
+    mesh=None,
 ):
     """Compose the total RIFE training loss.
 
@@ -87,6 +90,8 @@ def rife_losses(
       ndim: spatial rank (2 or 3).
       gt_flow: optional ground-truth flow ``[B, *S, ndim]`` (per-step
         velocity, row-major axes) enabling the supervised term.
+      mesh: the data-parallel ``parallel.Mesh`` of a train step on this
+        rank's rows (None on one device).
 
     Returns:
       (loss_G, dict of weighted components); the dict mirrors the 7-tuple
@@ -103,6 +108,8 @@ def rife_losses(
     loss_tea = recon(merged_teacher, gt) if merged_teacher is not None else zero
 
     loss_distill = outputs["loss_distill"].float()
+    if mesh is not None:
+        loss_distill = mesh.batch_mean(loss_distill)  # the guard sees the global value
     # NaN / overflow guard: a bad distill value is dropped, gradient included
     loss_distill = torch.where(
         torch.isnan(loss_distill) | (loss_distill > 10.0), zero, loss_distill

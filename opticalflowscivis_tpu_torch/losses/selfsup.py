@@ -119,8 +119,9 @@ def eq_loss(student_flow: torch.Tensor, teacher_flow: torch.Tensor, params,
 
 
 def oi_loss(im1_t: torch.Tensor, im2_t: torch.Tensor, flow_fw_t: torch.Tensor,
-            flow_bw_t: torch.Tensor) -> torch.Tensor:
-    """Occlusion-masked photometric loss on the transformed pair."""
+            flow_bw_t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Occlusion-masked photometric loss on the transformed pair (over the
+    global batch with a data-parallel ``mesh``)."""
     occ_fw, _ = occ_check(flow_fw_t, flow_bw_t)
     warped = backward_warp(im2_t, flow_fw_t, padding="border")
-    return photo_loss_multi_type(im1_t, warped, occ_fw, "abs_robust", use_occ=True)
+    return photo_loss_multi_type(im1_t, warped, occ_fw, "abs_robust", use_occ=True, mesh=mesh)

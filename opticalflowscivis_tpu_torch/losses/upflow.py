@@ -12,7 +12,10 @@ Counterpart of ``opticalflowscivis_tpu/losses/upflow.py``:
   or 'upup' style).
 
 All tensors are channels-last ``[B, H, W, C]`` with row-major (dy, dx) flows,
-as in the reference; sums run in float32.  The full-resolution warps go through
+as in the reference; sums run in float32.  Under data parallelism (``mesh``,
+a ``parallel.Mesh``) the occlusion-normalised ratios and the census term are
+taken over the global batch (``Mesh.batch_ratio``), so that k ranks on their
+rows compute the one-rank loss of the whole batch.  The full-resolution warps go through
 ``ops.backward_warp`` (on CUDA tensors the ``warp2d`` kernel, unbounded).
 """
 
@@ -54,6 +57,7 @@ def photo_loss_multi_type(
     loss_type: str = "abs_robust",
     delta: float = 0.4,
     use_occ: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     x = x.float()
     y = y.float()
@@ -69,7 +73,8 @@ def photo_loss_multi_type(
     else:
         raise ValueError(f"wrong photo_loss type: {loss_type}")
     if use_occ:
-        return (diff * occ_mask).sum() / (occ_mask.sum() + 1e-6)
+        num, den = (diff * occ_mask).sum(), occ_mask.sum()
+        return num / (den + 1e-6) if mesh is None else mesh.batch_ratio(num, den, 1e-6)
     return diff.mean()
 
 
@@ -149,6 +154,7 @@ def upflow_losses(
     im2: torch.Tensor,
     cfg: UPFlowLossConfig,
     raw: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    mesh=None,
 ):
     """(total, parts) from channels-last ``UPFlowNet`` outputs.
 
@@ -156,7 +162,8 @@ def upflow_losses(
     photometric and census warps sample the *uncropped* images at the crop
     offset ``start [B, 2]``, so flow vectors that point outside the training
     crop hit real pixels instead of border padding.  ``None`` keeps the
-    border-padded warp (the zero-offset case).
+    border-padded warp (the zero-offset case).  ``mesh``: the data-parallel
+    mesh of a train step on this rank's rows (None on one device).
     """
     flow_f, flow_b = outputs["flow_f"], outputs["flow_b"]
     flows = outputs["flows"]
@@ -195,8 +202,10 @@ def upflow_losses(
         im2_warp = backward_warp(im1, flow_b, padding="border")
     photo = photo_loss_multi_type(
         im1, im1_warp, occ_fw, cfg.photo_loss_type, cfg.photo_loss_delta, cfg.photo_loss_use_occ,
+        mesh,
     ) + photo_loss_multi_type(
         im2, im2_warp, occ_bw, cfg.photo_loss_type, cfg.photo_loss_delta, cfg.photo_loss_use_occ,
+        mesh,
     )
     photo = photo * cfg.photo_weight
 
@@ -205,9 +214,9 @@ def upflow_losses(
     if cfg.census_weight > 0:
         census = cfg.census_weight * (
             census_loss(im1, im1_warp, mask=occ_fw if cfg.photo_loss_use_occ else None,
-                        robust=True)
+                        robust=True, mesh=mesh)
             + census_loss(im2, im2_warp, mask=occ_bw if cfg.photo_loss_use_occ else None,
-                          robust=True)
+                          robust=True, mesh=mesh)
         )
 
     # --- multi-scale distillation
@@ -226,8 +235,10 @@ def upflow_losses(
                 sf = upsample_flow_as(scale_f, label_f)
                 sb = upsample_flow_as(scale_b, label_b)
                 of, ob = occ_fw, occ_bw
-            msd = msd + photo_loss_multi_type(sf, lf, of, "abs_robust", use_occ=cfg.msd_use_occ)
-            msd = msd + photo_loss_multi_type(sb, lb, ob, "abs_robust", use_occ=cfg.msd_use_occ)
+            msd = msd + photo_loss_multi_type(sf, lf, of, "abs_robust", use_occ=cfg.msd_use_occ,
+                                              mesh=mesh)
+            msd = msd + photo_loss_multi_type(sb, lb, ob, "abs_robust", use_occ=cfg.msd_use_occ,
+                                              mesh=mesh)
         msd = msd * cfg.msd_weight
 
     parts = {

@@ -56,16 +56,22 @@ def census_loss(
     mask: torch.Tensor | None = None,
     patch_size: int = 7,
     robust: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Census distance between two images.
 
     ``robust=False`` reproduces RIFE's Ternary map semantics (mean over the
     1-pixel-valid region); ``robust=True`` applies UPFlow's ``(|d| + 0.01)^0.4``
-    penalty normalised by the (optionally occlusion-) masked area.
+    penalty normalised by the (optionally occlusion-) masked area.  With a
+    data-parallel ``mesh`` the sums run over the global batch (without a mask
+    the area is one image's, so the term sums over the batch's images).
     """
     dist = _hamming(census_transform(img0, patch_size), census_transform(img1, patch_size))
     valid = _border_mask(tuple(img0.shape[1:-1]), 1, dist.dtype, dist.device)
     if robust:
         dist = (dist.abs() + 0.01) ** 0.4
     m = valid if mask is None else valid * mask
-    return (dist * m).sum() / (m.sum() + 1e-6)
+    num, den = (dist * m).sum(), m.sum()
+    if mesh is None:
+        return num / (den + 1e-6)
+    return mesh.batch_ratio(num, den, 1e-6, den_batched=mask is not None)

@@ -363,20 +363,37 @@ def _library3d() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ints] * 3 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
         )
         lib.warp3d_backward.restype = ctypes.c_int
+        # the same with the slab's z offset after `zeros`
+        lib.warp3d_forward_offset.argtypes = (
+            [ctypes.c_void_p] * 3 + [ints] * 2 + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+        )
+        lib.warp3d_forward_offset.restype = ctypes.c_int
+        lib.warp3d_backward_offset.argtypes = (
+            [ctypes.c_void_p] * 5 + [ints] * 3 + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+        )
+        lib.warp3d_backward_offset.restype = ctypes.c_int
     return lib
 
 
+def _modes(padding: str, z_offset: int, img: torch.Tensor) -> tuple[int, ...]:
+    """The kernels' (zeros[, z_off], bf16) arguments: the offset only for the
+    *_offset entries, which a nonzero offset selects."""
+    zeros, bf16 = int(padding == "zeros"), int(img.dtype == torch.bfloat16)
+    return (zeros, z_offset, bf16) if z_offset else (zeros, bf16)
+
+
 def _launch3d(img: torch.Tensor, flow: torch.Tensor, r_z: int, r_yx: int,
-              padding: str) -> torch.Tensor:
+              padding: str, z_offset: int = 0) -> torch.Tensor:
     geometry = launch_geometry(img.shape)
     out = torch.empty_like(img, memory_format=torch.contiguous_format)
-    fn = _library3d().warp3d_forward
+    lib = _library3d()
+    fn = lib.warp3d_forward_offset if z_offset else lib.warp3d_forward
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = fn(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
             _I64x5(*img.shape), _I64x5(*flow.stride()),
-            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16),
+            r_z, r_yx, *_modes(padding, z_offset, img),
             *geometry.grid, *geometry.block, stream,
         )
     if err:
@@ -387,23 +404,27 @@ def _launch3d(img: torch.Tensor, flow: torch.Tensor, r_z: int, r_yx: int,
 
 def _launch3d_backward(
     img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, r_z: int, r_yx: int,
-    padding: str, need_dimg: bool,
+    padding: str, need_dimg: bool, z_offset: int = 0,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """One launch of the 3-D backward kernel, on the forward's grid:
-    ``(dimg or None, dflow)``."""
+    ``(dimg or None, dflow)``.  With a ``z_offset`` ``dimg`` is always
+    computed: the ``*_offset`` backward has only the instances that write it
+    (the sharded warp's calls)."""
     _check_grad(img, grad_out, "warp3d")
+    need_dimg = need_dimg or bool(z_offset)
     geometry = launch_geometry(img.shape)  # refuses 2^31 voxels before allocating
     dflow = torch.empty((img.shape[0], 3) + tuple(img.shape[2:]), dtype=flow.dtype,
                         device=flow.device)
     acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need_dimg else None
-    fn = _library3d().warp3d_backward
+    lib = _library3d()
+    fn = lib.warp3d_backward_offset if z_offset else lib.warp3d_backward
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = fn(
             img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), dflow.data_ptr(),
             acc.data_ptr() if need_dimg else None,
             _I64x5(*img.shape), _I64x5(*flow.stride()), _I64x5(*grad_out.stride()),
-            r_z, r_yx, int(padding == "zeros"), int(img.dtype == torch.bfloat16),
+            r_z, r_yx, *_modes(padding, z_offset, img),
             *geometry.grid, *geometry.block, stream,
         )
     if err:
@@ -414,10 +435,10 @@ def _launch3d_backward(
 
 class _Warp3dKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, img, flow, r_z, r_yx, padding):
+    def forward(ctx, img, flow, r_z, r_yx, padding, z_offset):
         ctx.save_for_backward(img, flow)
-        ctx.radii, ctx.padding = (r_z, r_yx), padding
-        return _launch3d(img, flow, r_z, r_yx, padding)
+        ctx.radii, ctx.padding, ctx.z_offset = (r_z, r_yx), padding, z_offset
+        return _launch3d(img, flow, r_z, r_yx, padding, z_offset)
 
     @staticmethod
     @once_differentiable
@@ -425,13 +446,14 @@ class _Warp3dKernel(torch.autograd.Function):
         img, flow = ctx.saved_tensors
         need_dimg, need_dflow = ctx.needs_input_grad[:2]
         dimg, dflow = _launch3d_backward(img, flow, grad_out, *ctx.radii, ctx.padding,
-                                         need_dimg)
-        return dimg, (dflow if need_dflow else None), None, None, None
+                                         need_dimg, ctx.z_offset)
+        return ((dimg if need_dimg else None), (dflow if need_dflow else None),
+                None, None, None, None)
 
 
 def warp3d(
     img: torch.Tensor, flow: torch.Tensor, r_z: int = 8, r_yx: int = 8,
-    padding: str = "border",
+    padding: str = "border", z_offset: int = 0,
 ) -> torch.Tensor:
     """Warp ``img [B, C, Z, Y, X]`` by ``flow [B, 3, Z, Y, X]`` (dz, dy, dx).
 
@@ -441,6 +463,12 @@ def warp3d(
     bfloat16, and the image is contiguous while the flow may be any strided
     view.  Differentiable in ``img`` and ``flow``; a flow component at or
     beyond its radius gets no gradient.
+
+    ``z_offset``: ``img`` is a slab of a larger volume whose slice 0 is the
+    volume's slice ``z_offset`` (a depth shard with its halo): each z
+    coordinate is formed in the volume's frame, as the call on the whole
+    volume forms it, and indexed in the slab's, so that the slab's samples
+    are the whole volume's bit for bit.
     """
     if padding not in ("border", "zeros"):
         raise ValueError(f"padding must be 'border' or 'zeros', got {padding!r}")
@@ -454,6 +482,8 @@ def warp3d(
         )
     if (flow.shape[0],) + tuple(flow.shape[2:]) != (img.shape[0],) + tuple(img.shape[2:]):
         raise ValueError(f"flow {tuple(flow.shape)} does not match img {tuple(img.shape)}")
+    if not isinstance(z_offset, int):
+        raise ValueError(f"z_offset must be an int, got {z_offset!r}")
     if _on_cpu(img, flow, "warp3d"):
-        return warp3d_plain(img, flow, r_z, r_yx, padding)
-    return _Warp3dKernel.apply(img, flow, r_z, r_yx, padding)
+        return warp3d_plain(img, flow, r_z, r_yx, padding, z_offset)
+    return _Warp3dKernel.apply(img, flow, r_z, r_yx, padding, z_offset)

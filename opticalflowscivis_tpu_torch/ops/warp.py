@@ -54,13 +54,16 @@ def sample_channels_first(
     coords: tuple[torch.Tensor, ...],
     padding: str = "border",
     return_mask: bool = False,
+    origin: tuple[int, ...] | None = None,
 ):
     """Sample ``img [B, C, *S]`` at absolute coords, one ``[B, *So]`` per axis.
 
     ``2^ndim`` corner gathers with multilinear weights, accumulated in float32
     (or the image's wider type) and returned in the image's dtype.  The
     optional mask ``[B, 1, *So]`` is the fraction of interpolation weight that
-    fell inside the image.
+    fell inside the image.  ``origin``: the coords are in the frame of a larger
+    array whose index ``origin`` is ``img``'s index 0 (per axis); floors and
+    fractions are taken there, indices here.
     """
     _check_padding(padding)
     b, c = img.shape[:2]
@@ -74,11 +77,12 @@ def sample_channels_first(
     # per axis and side (low, high): weight, validity, clamped index * stride
     sides = []
     stride = 1
-    for size, s in zip(reversed(spatial), reversed(coords)):
+    origin = origin or (0,) * len(spatial)
+    for size, s, at in zip(reversed(spatial), reversed(coords), reversed(origin)):
         s = s.to(compute)
         lo = torch.floor(s)
         frac = s - lo
-        lo = lo.long()
+        lo = lo.long() - at
         axis_sides = []
         for hi, w in ((0, 1.0 - frac), (1, frac)):
             idx = lo + hi
@@ -160,7 +164,7 @@ def warp2d_plain(
 
 def warp3d_plain(
     img: torch.Tensor, flow: torch.Tensor, r_z: int = 0, r_yx: int = 0,
-    padding: str = "border",
+    padding: str = "border", z_offset: int = 0,
 ) -> torch.Tensor:
     """Channels-first bounded trilinear warp: ``img [B, C, Z, Y, X]`` by
     ``flow [B, 3, Z, Y, X]`` (dz, dy, dx).
@@ -168,7 +172,9 @@ def warp3d_plain(
     The plain version of the Hopper kernel: ``flow_z`` is clipped to ``±r_z``
     and ``flow_y``, ``flow_x`` to ``±r_yx`` first (each radius 0: no bound).
     ``flow`` may be any strided view (the model passes channel slices of its
-    6-channel flow).
+    6-channel flow).  ``z_offset``: ``img`` is a slab whose slice 0 is slice
+    ``z_offset`` of a larger volume; z coordinates are formed in the volume's
+    frame (``kernels.warp.warp3d``).
     """
     if img.dim() != 5 or flow.dim() != 5 or flow.shape[1] != 3:
         raise ValueError(
@@ -181,7 +187,8 @@ def warp3d_plain(
     fz = _clip(flow[:, 0], r_z).to(compute)
     fyx = _clip(flow[:, 1:3], r_yx).to(compute)
     zs, ys, xs = _base_grid(tuple(img.shape[2:]), compute, img.device)
-    return sample_channels_first(img, (zs + fz, ys + fyx[:, 0], xs + fyx[:, 1]), padding)
+    return sample_channels_first(img, ((zs + z_offset) + fz, ys + fyx[:, 0], xs + fyx[:, 1]),
+                                 padding, origin=(z_offset, 0, 0))
 
 
 def _channels_first(x: torch.Tensor) -> torch.Tensor:

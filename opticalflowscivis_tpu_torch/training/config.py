@@ -3,7 +3,8 @@
 Counterpart of ``opticalflowscivis_tpu/training/config.py``.  The field names
 are the reference's, so a config json written by either package loads in the
 other.  Fields that select what this port does not have yet are accepted at
-their neutral value only and raise otherwise (``validate``).
+their neutral value only and raise otherwise (``validate``): spatial sharding
+(``n_space``, ``spatial_shard``, ROADMAP A.12b) and ``compiler_options``.
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ class TrainConfig:
     keep_best_only: bool = False  # checkpoint only on a new best validation loss
     early_stop_patience: int = 0  # 0 = off
     pad_multiple: int = 32
-    n_data: int | None = None  # data-parallel degree; this port runs one device
+    n_data: int | None = None  # data-parallel degree: the processes of the default
+    #   group (torchrun); None = all of them, or one device without a group
     hbm_dataset_gb: float = 6.0  # keep the train/val sets in GPU memory when
     #   they fit (0 = always stream): one upload, then only batch *indices*
     #   go to the device per step
@@ -83,7 +85,7 @@ class TrainConfig:
     device_flip_aug: bool = False  # flip-augment per batch on the device
     #   instead of 4x-ing the host arrays: only the unaugmented base tuples
     #   are kept resident
-    n_space: int = 1  # spatial-shard degree; this port runs one device
+    n_space: int = 1  # spatial-shard degree; 1 only (ROADMAP A.12b)
     spatial_shard: bool = False
     debug_nans: bool = False  # torch.autograd.set_detect_anomaly
     compiler_options: dict | None = None  # XLA overrides of the JAX package; must be unset
@@ -93,22 +95,22 @@ class TrainConfig:
 
     def validate(self) -> None:
         """Raise on a field that asks for what this port does not have yet."""
-        multi = []
-        if self.n_data not in (None, 1):
-            multi.append(f"n_data={self.n_data}")
+        if self.n_data is not None and self.n_data < 1:
+            raise ValueError(f"n_data must be >= 1, got {self.n_data}")
+        spatial = []
         if self.n_space != 1:
-            multi.append(f"n_space={self.n_space}")
+            spatial.append(f"n_space={self.n_space}")
         if self.spatial_shard:
-            multi.append("spatial_shard=True")
-        if multi:
+            spatial.append("spatial_shard=True")
+        if spatial:
             raise NotImplementedError(
-                f"{', '.join(multi)}: this port trains on one device; "
-                "multi-device training is ROADMAP A.12"
+                f"{', '.join(spatial)}: this port trains data-parallel only; "
+                "spatially sharded IFNet-3D training is ROADMAP A.12b"
             )
         if self.compiler_options:
             raise ValueError(
                 "compiler_options are XLA overrides of the JAX package and mean "
-                "nothing to PyTorch; leave them unset (ROADMAP A.12)"
+                "nothing to PyTorch; leave them unset"
             )
         if self.hbm_dataset_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"hbm_dataset_dtype {self.hbm_dataset_dtype!r}")

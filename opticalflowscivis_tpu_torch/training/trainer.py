@@ -1,4 +1,4 @@
-"""RIFE training runtime on one device.
+"""RIFE training runtime, on one device or data-parallel.
 
 Counterpart of ``opticalflowscivis_tpu/training/trainer.py``:
 
@@ -24,7 +24,17 @@ outputs are handed to the losses as channels-last views.  Parameters and optimiz
 positions (``data.device_synthetic``): the positions go up once an epoch, the
 frames never cross from the host.
 
-One device only: ``n_data`` other than None / 1 raises (ROADMAP A.12).
+Data parallelism (``TrainConfig.n_data``, one process a device under
+``torchrun``; ``parallel.data_parallel_mesh``): every rank draws the same
+global batch with the same seeds (shuffles, on-device flips, samplers), keeps
+its rows at the entry of the train step, and averages the gradients over the
+ranks by one all-reduce; the loss terms that are not linear in the batch are
+taken over the global batch (``losses.rife``), so the step equals the
+one-device step on the global batch.  The returned parts, ``loss.json`` and
+the validation loss are global values (every rank evaluates the whole
+validation set); rank 0 alone writes files, and checkpoints keep the
+one-device format.  ``n_data`` above 1 without a process group of that size
+raises.
 """
 
 from __future__ import annotations
@@ -49,6 +59,8 @@ from opticalflowscivis_tpu_torch.data import (
 from opticalflowscivis_tpu_torch.device import resolve_device
 from opticalflowscivis_tpu_torch.losses.rife import rife_losses
 from opticalflowscivis_tpu_torch.models.ifnet import IFNet
+from opticalflowscivis_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh, shard_batch
+from opticalflowscivis_tpu_torch.parallel.multihost import local_device
 from opticalflowscivis_tpu_torch.training.checkpoint import restore_state, save_state
 from opticalflowscivis_tpu_torch.training.config import TrainConfig
 from opticalflowscivis_tpu_torch.training.schedule import warmup_cosine
@@ -110,11 +122,15 @@ def _channels_last(x):
 
 
 def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
-                    gt_flow_scale: float = 1.0):
-    """``(train_step, eval_step)`` over a ``TrainState`` and a device batch."""
+                    gt_flow_scale: float = 1.0, mesh: Mesh | None = None):
+    """``(train_step, eval_step)`` over a ``TrainState`` and a device batch.
+
+    With a data-parallel ``mesh`` the train step takes the global batch, runs
+    on this rank's rows and averages the gradients and the parts over the
+    ranks; the eval step runs the whole batch it is given."""
     ndim = cfg.model.ndim
 
-    def losses(batch: torch.Tensor):
+    def losses(batch: torch.Tensor, mesh: Mesh | None = None):
         img0, img1, gt, gt_flow = split_batch(batch, ndim, has_flow)
         if gt_flow is not None and gt_flow_scale != 1.0:
             gt_flow = gt_flow * gt_flow_scale  # stored units → px/frame
@@ -122,21 +138,26 @@ def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
         outputs = {k: v if k == "loss_distill" else _channels_last(v) for k, v in out.items()}
         loss, parts = rife_losses(
             outputs, img0, img1, gt, dict(model.named_parameters()), cfg.loss, ndim,
-            gt_flow=gt_flow, fast_warp_r=cfg.model.fast_warp_r,
+            gt_flow=gt_flow, fast_warp_r=cfg.model.fast_warp_r, mesh=mesh,
         )
         return loss, parts, outputs
 
     def train_step(state: TrainState, batch: torch.Tensor) -> dict[str, torch.Tensor]:
         """One update of ``state`` in place; returns the detached loss parts."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss, parts, _ = losses(batch)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        loss, parts, _ = losses(batch, mesh)
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(model.parameters())
         if cfg.optim.grad_clip:
             torch.nn.utils.clip_grad_norm_(model.parameters(), cfg.optim.grad_clip)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {k: v.detach() for k, v in parts.items()}
+        parts = {k: v.detach() for k, v in parts.items()}
+        return parts if mesh is None else mesh.mean_values(parts)
 
     def eval_step(state: TrainState, batch: torch.Tensor):
         with torch.no_grad():
@@ -154,21 +175,27 @@ def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
 
 
 class Trainer:
-    """End-to-end RIFE trainer (2-D and 3-D by config).  Runs on ``cuda`` unless ``device="cpu"``."""
+    """End-to-end RIFE trainer (2-D and 3-D by config).  Runs on ``cuda`` unless
+    ``device="cpu"``; data-parallel on ``cuda:LOCAL_RANK`` under a process group."""
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
         cfg.validate()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = data_parallel_mesh(cfg.n_data)
+        self.n_data = 1 if self.mesh is None else self.mesh.n_data
+        self.device = resolve_device(device) if self.mesh is None else local_device(device)
         if cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
         self.spec = get_spec(cfg.dataset)
         if cfg.model.ndim != self.spec.ndim:
             raise ValueError(f"model ndim {cfg.model.ndim} != dataset ndim {self.spec.ndim}")
         self.model = build_model(cfg, self.device)
+        if self.mesh is not None:
+            self.mesh.broadcast_module(self.model)
         self.has_flow = self.spec.has_flow and cfg.loss.flow > 0
         self._train_step_fn, self._eval_step_fn = make_train_step(
             self.model, cfg, self.has_flow, gt_flow_scale=self.spec.gt_flow_stride,
+            mesh=self.mesh,
         )
         self.state: TrainState | None = None
         self.steps_per_epoch = 1  # set by fit()
@@ -189,11 +216,17 @@ class Trainer:
     # -- data -------------------------------------------------------------
     def load_datasets(self):
         cfg = self.cfg
+        # data-parallel: rank 0 writes a generated series and the prepared
+        # tuples' cache, the other ranks read them after it
+        if self.mesh is not None and not self.is_writer:
+            self.mesh.barrier(self.device)
         train, val = load_data(
             cfg.dataset, cfg.exp, "train", cfg.data_dir,
             # on-device augmentation → keep the host arrays unaugmented
             host_flip_aug=False if cfg.device_flip_aug else None,
         )
+        if self.mesh is not None and self.is_writer:
+            self.mesh.barrier(self.device)
         return self._pad_spatial(train), self._pad_spatial(val)
 
     def _pad_spatial(self, arr: np.ndarray) -> np.ndarray:
@@ -205,9 +238,15 @@ class Trainer:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, dtype)
 
     # -- steps --------------------------------------------------------------
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes files and logs (rank 0, or the only one)."""
+        return self.mesh is None or self.mesh.is_writer
+
     def train_step(self, batch: torch.Tensor) -> dict[str, torch.Tensor]:
-        """One optimizer update on a device batch ``[B, slots, *S, C]``;
-        returns the loss parts as 0-d tensors on the device."""
+        """One optimizer update on a device batch ``[B, slots, *S, C]`` (the
+        global batch under data parallelism); returns the loss parts as 0-d
+        tensors on the device."""
         return self._train_step_fn(self.state, batch)
 
     def eval_step(self, batch: torch.Tensor):
@@ -225,7 +264,8 @@ class Trainer:
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
         batch = cfg.batch_size or self.spec.batch_size
-        batch = max(1, min(batch, train_tuples.shape[0]))
+        # a multiple of the data-parallel ranks, at least one row each
+        batch = max(self.n_data, (min(batch, train_tuples.shape[0]) // self.n_data) * self.n_data)
         # Device-resident dataset: one bulk upload, then only indices per step.
         # device_flip_aug keeps only the unaugmented base tuples resident and
         # extends the index space 4x (equal to the host flip_augment order).
@@ -374,7 +414,7 @@ class Trainer:
             for dev_batch in epoch_batches(epoch):
                 parts = self.train_step(dev_batch)
                 step += 1
-                if log_every and step % log_every == 0:
+                if log_every and step % log_every == 0 and self.is_writer:
                     g = float(parts["loss_G"])
                     rate = (step - step0) / (time.time() - t0)
                     print(f"epoch {epoch} step {step} loss_G {g:.5f} ({rate:.2f} it/s)",
@@ -391,7 +431,8 @@ class Trainer:
             if not cfg.keep_best_only or improved:
                 self.save_checkpoint()
             if cfg.early_stop_patience and patience >= cfg.early_stop_patience:
-                print(f"early stopping at epoch {epoch}", flush=True)
+                if self.is_writer:
+                    print(f"early stopping at epoch {epoch}", flush=True)
                 break
             if on_epoch_end is not None:
                 on_epoch_end(epoch, val_parts)
@@ -440,7 +481,9 @@ class Trainer:
             return len(json.load(f).get("val_loss", []))
 
     def _append_loss_json(self, parts: dict[str, float]) -> None:
-        """Append the reference's 7-tuple to ``loss.json``."""
+        """Append the reference's 7-tuple to ``loss.json`` (rank 0 only)."""
+        if not self.is_writer:
+            return
         os.makedirs(self.results_dir, exist_ok=True)
         path = os.path.join(self.results_dir, "loss.json")
         tup = [
@@ -464,6 +507,10 @@ class Trainer:
         )
 
     def save_checkpoint(self) -> None:
+        """The model, optimizer, schedule and step (rank 0 only; the same file
+        one device writes)."""
+        if not self.is_writer:
+            return
         s = self.state
         save_state(self.checkpoint_path(), s.model, s.optimizer, s.scheduler, s.step)
 

@@ -1,4 +1,4 @@
-"""UPFlow training runtime on one device.
+"""UPFlow training runtime, on one device or data-parallel.
 
 Counterpart of ``opticalflowscivis_tpu/training/upflow_trainer.py``:
 
@@ -33,7 +33,15 @@ the device from integer positions (``data.device_synthetic``); the scene's
 constants and the positions go up once an epoch, no frame crosses from the
 host.
 
-One device only: ``n_data`` other than None / 1 raises (ROADMAP A.12).
+Data parallelism (``n_data``, one process a device under ``torchrun``), as
+in ``training.trainer``: every rank draws the same global batch (the same
+shuffles, KITTI draws, generated scenes and spatial-transform seeds), keeps
+its rows at the entry of the train step, and averages the gradients by one
+all-reduce; the occlusion-normalised ratios and the census term run over the
+global batch (``losses.upflow``), so the step equals the one-device step on
+the global batch.  The parts, ``loss.json`` and ``val_epe`` are global
+values; rank 0 alone writes files, and the ``STOP`` decision is rank 0's,
+broadcast.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ from opticalflowscivis_tpu_torch.losses.selfsup import (
 )
 from opticalflowscivis_tpu_torch.losses.upflow import UPFlowLossConfig, upflow_losses
 from opticalflowscivis_tpu_torch.models.upflow import UPFlowConfig, UPFlowNet
+from opticalflowscivis_tpu_torch.parallel.mesh import data_parallel_mesh, shard_batch
+from opticalflowscivis_tpu_torch.parallel.multihost import local_device
 from opticalflowscivis_tpu_torch.training.checkpoint import restore_state, save_state
 from opticalflowscivis_tpu_torch.training.trainer import TrainState
 
@@ -77,7 +87,8 @@ class UPFlowTrainConfig:
     exp_dir: str = "./demo_exp"
     bfloat16: bool = True
     pad_multiple: int = 64  # 6 stride-2 levels
-    n_data: int | None = None  # data-parallel degree; this port runs one device
+    n_data: int | None = None  # data-parallel degree: the processes of the default
+    #   group (torchrun); None = all of them, or one device without a group
     hbm_dataset_gb: float = 6.0  # keep the pair set in GPU memory when it fits
     #   (0 = always stream): one upload, then only batch indices per step
     # ARFlow / ex_runner spatial-transform distillation (losses/selfsup.py)
@@ -146,17 +157,16 @@ class UPFlowTrainer:
     """End-to-end UPFlow trainer.  Runs on ``cuda`` unless ``device="cpu"``."""
 
     def __init__(self, cfg: UPFlowTrainConfig, device: str | torch.device | None = None):
-        if cfg.n_data not in (None, 1):
-            raise NotImplementedError(
-                f"n_data={cfg.n_data}: this port trains on one device; "
-                "multi-device training is ROADMAP A.12"
-            )
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = data_parallel_mesh(cfg.n_data)
+        self.n_data = 1 if self.mesh is None else self.mesh.n_data
+        self.device = resolve_device(device) if self.mesh is None else local_device(device)
         self.net = UPFlowNet(
             cfg.model, dtype=torch.bfloat16 if cfg.bfloat16 else None, device=self.device,
             seed=cfg.seed,
         )
+        if self.mesh is not None:
+            self.mesh.broadcast_module(self.net)
         self.state: TrainState | None = None
         self._use_sp = cfg.eq_weight > 0 or cfg.oi_weight > 0
         self._sp_gen = torch.Generator()
@@ -189,48 +199,62 @@ class UPFlowTrainer:
     def _forward(self, im1: torch.Tensor, im2: torch.Tensor) -> dict:
         return _channels_last(self.net(im1.movedim(-1, 1), im2.movedim(-1, 1)))
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes files and logs (rank 0, or the only one)."""
+        return self.mesh is None or self.mesh.is_writer
+
     # -- steps --------------------------------------------------------------
     def losses(self, batch: dict[str, torch.Tensor], step: int = 0):
         """``(total, parts)`` of a device batch; ``step`` seeds the spatial
-        transform of the eq / oi terms."""
-        cfg = self.cfg
-        im1, im2 = batch["im1"], batch["im2"]
+        transform of the eq / oi terms.  Under data parallelism ``batch`` is
+        the global batch and the loss is this rank's part of it."""
+        cfg, mesh = self.cfg, self.mesh
+        local = batch if mesh is None else shard_batch(batch, mesh)
+        im1, im2 = local["im1"], local["im2"]
         raw = (
-            (batch["im1_raw"], batch["im2_raw"], batch["start"])
-            if "im1_raw" in batch else None
+            (local["im1_raw"], local["im2_raw"], local["start"])
+            if "im1_raw" in local else None
         )
         out = self._forward(im1, im2)
-        total, parts = upflow_losses(out, im1, im2, cfg.loss, raw=raw)
+        total, parts = upflow_losses(out, im1, im2, cfg.loss, raw=raw, mesh=mesh)
         if self._use_sp:
             # student on the transformed pair, teacher = the detached
             # prediction on the untransformed one; one seed per step, so that
-            # a resumed run draws what the first run would have drawn
+            # a resumed run draws what the first run would have drawn.  The
+            # draws are the global batch's, so every rank takes its rows of them.
             self._sp_gen.manual_seed((cfg.seed + 1) * 1_000_003 + step)
-            t1, t2, sp = sp_transform_pair(self._sp_gen, im1, im2, SPTransformConfig())
+            drawn = sp_transform_pair(self._sp_gen, batch["im1"], batch["im2"],
+                                      SPTransformConfig())
+            t1, t2, sp = drawn if mesh is None else shard_batch(drawn, mesh)
             out_t = self._forward(t1, t2)
             if cfg.eq_weight > 0:
                 parts["eq_loss"] = cfg.eq_weight * eq_loss(out_t["flow_f"], out["flow_f"], sp)
                 total = total + parts["eq_loss"]
             if cfg.oi_weight > 0:
                 parts["oi_loss"] = cfg.oi_weight * oi_loss(
-                    t1, t2, out_t["flow_f"], out_t["flow_b"])
+                    t1, t2, out_t["flow_f"], out_t["flow_b"], mesh=mesh)
                 total = total + parts["oi_loss"]
             parts["loss_total"] = total
         return total, parts
 
     def train_step(self, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """One optimizer update on a device batch (a dict of channels-last
-        tensors); returns the detached loss parts as 0-d tensors."""
+        tensors; the global batch under data parallelism); returns the
+        detached loss parts as 0-d tensors."""
         s = self.state
         s.optimizer.zero_grad(set_to_none=True)
         total, parts = self.losses(batch, s.step)
         total.backward()
+        if self.mesh is not None:
+            self.mesh.average_gradients(self.net.parameters())
         if self.cfg.grad_clip:
             torch.nn.utils.clip_grad_norm_(self.net.parameters(), self.cfg.grad_clip)
         s.optimizer.step()
         s.scheduler.step()
         s.step += 1
-        return {k: v.detach() for k, v in parts.items()}
+        parts = {k: v.detach() for k, v in parts.items()}
+        return parts if self.mesh is None else self.mesh.mean_values(parts)
 
     def eval_step(self, batch: dict[str, torch.Tensor]):
         """Loss parts and ``{"flow_f", "flow_b"}`` (channels-last, on the
@@ -261,7 +285,11 @@ class UPFlowTrainer:
             raise ValueError("no training pairs")
         pairs, _ = pad_to_multiple(pairs, cfg.pad_multiple, leading_axes=2)
         epochs = epochs if epochs is not None else cfg.n_epoch
-        batch = max(1, min(cfg.batch_size, pairs.shape[0]))
+        n = self.n_data  # a multiple of the data-parallel ranks, one row each at least
+        batch = max(n, (min(cfg.batch_size, pairs.shape[0]) // n) * n)
+        if pairs.shape[0] < batch:
+            raise ValueError(f"{pairs.shape[0]} pairs < batch {batch} ({n} data-parallel "
+                             "ranks need at least one pair each)")
         ds = TupleDataset(pairs, batch, seed=cfg.seed)
         steps_per_epoch = max(1, len(ds))
         restored = self.state is not None  # a live in-memory state continues
@@ -307,7 +335,7 @@ class UPFlowTrainer:
                     meter[k] = meter[k] + v if k in meter else v
                 n += 1
                 step = self.state.step
-                if log_every and step % log_every == 0:
+                if log_every and step % log_every == 0 and self.is_writer:
                     done = step - start_epoch * steps_per_epoch
                     print(f"epoch {epoch} step {step} loss "
                           f"{float(meter['loss_total']) / n:.5f} "
@@ -317,6 +345,12 @@ class UPFlowTrainer:
                 print(f"STOP sentinel: ending after epoch {epoch}", flush=True)
                 break
         return history
+
+    def _batch_size(self) -> int:
+        """``cfg.batch_size`` rounded down to a multiple of the data-parallel
+        ranks (at least one row each)."""
+        n = self.n_data
+        return max(n, (self.cfg.batch_size // n) * n)
 
     def _close_epoch(self, meter: dict[str, torch.Tensor], n: int, val, epoch: int,
                      start_epoch: int, epochs: int) -> dict[str, float]:
@@ -330,7 +364,8 @@ class UPFlowTrainer:
         if val is not None:
             epoch_means["val_epe"] = self._val_epe_device(*val[:2])
             epoch_means["val_epe_zero_flow"] = val[2]
-            print(f"epoch {epoch} val_epe {epoch_means['val_epe']:.4f} "
+            if self.is_writer:
+                print(f"epoch {epoch} val_epe {epoch_means['val_epe']:.4f} "
                   f"(zero-flow {epoch_means['val_epe_zero_flow']:.4f})", flush=True)
         self._append_loss_json(epoch_means)
         if ((epoch - start_epoch + 1) % cfg.ckpt_every == 0
@@ -440,7 +475,7 @@ class UPFlowTrainer:
                     meter[k] = meter[k] + v if k in meter else v
             means = self._close_epoch(meter, steps_per_epoch, val, epoch, start_epoch, epochs)
             history.append(means)
-            if log_every:
+            if log_every and self.is_writer:
                 done = (epoch - start_epoch + 1) * steps_per_epoch
                 print(f"epoch {epoch} step {self.state.step} loss {means['loss_total']:.5f} "
                       f"({done / (time.time() - t0):.2f} it/s)", flush=True)
@@ -479,7 +514,7 @@ class UPFlowTrainer:
                     meter[k] = meter[k] + v if k in meter else v
                 n += 1
                 step += 1
-                if log_every and step % log_every == 0:
+                if log_every and step % log_every == 0 and self.is_writer:
                     print(f"epoch {epoch} step {step} loss "
                           f"{float(meter['loss_total']) / n:.5f} "
                           f"({step / (time.time() - t0):.2f} it/s)", flush=True)
@@ -502,7 +537,7 @@ class UPFlowTrainer:
         ``loss.json`` and the checkpoint are written every epoch."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.n_epoch
-        batch = max(1, cfg.batch_size)
+        batch = self._batch_size()
         self._init_kitti(steps_per_epoch, resume)
         pin = self.device.type == "cuda"
 
@@ -542,7 +577,7 @@ class UPFlowTrainer:
         ``fit_kitti``."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.n_epoch
-        batch = max(1, cfg.batch_size)
+        batch = self._batch_size()
         store = self.kitti_store(cache)
         self._init_kitti(steps_per_epoch, resume)
         rng = np.random.default_rng(cfg.seed + 2)
@@ -576,6 +611,8 @@ class UPFlowTrainer:
             return len(json.load(f).get("loss", []))
 
     def _append_loss_json(self, parts: dict[str, float]) -> None:
+        if not self.is_writer:
+            return
         os.makedirs(self.cfg.exp_dir, exist_ok=True)
         path = os.path.join(self.cfg.exp_dir, "loss.json")
         data = {"loss": []}
@@ -590,7 +627,7 @@ class UPFlowTrainer:
         """Drop ``loss.json`` entries past the restored checkpoint (a resume
         after a crash between ``ckpt_every`` saves runs those epochs again)."""
         path = os.path.join(self.cfg.exp_dir, "loss.json")
-        if not os.path.exists(path):
+        if not self.is_writer or not os.path.exists(path):
             return
         with open(path) as f:
             data = json.load(f)
@@ -601,13 +638,19 @@ class UPFlowTrainer:
 
     def _stop_requested(self) -> bool:
         """``<exp_dir>/STOP`` ends the run at the next epoch boundary, after
-        its checkpoint."""
-        return os.path.exists(os.path.join(self.cfg.exp_dir, "STOP"))
+        its checkpoint; under data parallelism rank 0's view, broadcast, so
+        that the ranks end together."""
+        stop = os.path.exists(os.path.join(self.cfg.exp_dir, "STOP"))
+        return stop if self.mesh is None else self.mesh.agree(stop, self.device)
 
     def checkpoint_path(self) -> str:
         return os.path.abspath(os.path.join(self.cfg.exp_dir, "upflow.ckpt"))
 
     def save_checkpoint(self, epochs_completed: int | None = None) -> None:
+        """The model, optimizer, schedule and step, and ``ckpt_meta.json``
+        (rank 0 only; the same file one device writes)."""
+        if not self.is_writer:
+            return
         s = self.state
         save_state(self.checkpoint_path(), s.model, s.optimizer, s.scheduler, s.step)
         if epochs_completed is not None:

@@ -37,7 +37,7 @@ def _last_json(capsys):
 
 def test_generate_train_test_inference_video(tmp_path, capsys):
     data, res, log = (str(tmp_path / d) for d in ("d", "r", "l"))
-    main(["generate", "--dataset", "rectangle2d", "--frames", "99", "--data_dir", data])
+    main(["generate", "--dataset", "rectangle2d", "--frames", "60", "--data_dir", data])
     assert os.path.exists(os.path.join(data, "rectangle2d.pkl"))
 
     cfg = TrainConfig(

@@ -48,7 +48,10 @@ def test_importing_every_module_loads_no_jax():
                    "models.upflow", "losses.upflow", "losses.selfsup",
                    "training.upflow_trainer", "evalsuite.flow_eval", "models.refine",
                    "models.ifnet_hd", "models.ifnet_hd_legacy", "losses.perceptual",
-                   "data.device_synthetic", "data.vimeo", "data.lbs"):
+                   "data.device_synthetic", "data.vimeo", "data.lbs", "data.converters",
+                   "data.yuv_io", "data.fastprep", "evalsuite.benchmarks", "parallel",
+                   "parallel.mesh", "parallel.multihost", "parallel.spatial",
+                   "scripts.dryrun_dp"):
         assert f"opticalflowscivis_tpu_torch.{module}" in names
 
 

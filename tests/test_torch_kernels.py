@@ -317,6 +317,93 @@ def test_warp3d_kernel_backward_matches_plain_on_card(padding, radii, dtype, lay
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+def test_warp3d_z_offset_slab_is_the_volume_on_card(padding, dtype, channels):
+    """The ``*_offset`` instances: a slab of a volume with its ``z_offset``
+    gives the volume's output and ``dflow`` on the slab's interior bit for
+    bit, flow_z an integer ± 2^-22 included (where the slab's own frame would
+    round to the other side); ``dimg`` (atomics) within the backward's
+    tolerance; against the plain version with the same offset too."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    z, lo, r = 40, 7, 4  # the slab is rows [7, 40); rows [11, 40) sample inside it
+    shape = (2, channels, z, 9, 19)
+    img = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda().to(dt)
+    fz = rng.integers(-3, 4, (2, 1) + shape[2:]) + rng.choice([-1.0, 1.0], (2, 1) + shape[2:]) * 2.0**-22
+    flow = torch.from_numpy(np.concatenate([fz, rng.normal(0, 2, (2, 2) + shape[2:])], axis=1)
+                            .astype(np.float32)).cuda().to(dt)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dt)
+    g[:, :, : lo + r] = 0
+
+    def run(fn, i, f, gg, **kw):
+        i, f = i.clone().requires_grad_(True), f.clone().requires_grad_(True)
+        out = fn(i, f, r, 0, padding, **kw)
+        out.backward(gg)
+        return out.detach(), i.grad, f.grad
+
+    out, dimg, dflow = run(warp3d, img, flow, g)
+    slab = [t[:, :, lo:].contiguous() for t in (img, flow, g)]
+    before = dict(LAUNCHES)
+    got = run(warp3d, *slab, z_offset=lo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp3d"] == before["warp3d"] + 1
+    assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1
+    inner = slice(r, None)
+    assert torch.equal(got[0][:, :, inner], out[:, :, lo + r:])
+    assert torch.equal(got[2][:, :, inner], dflow[:, :, lo + r:])
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    want = dimg[:, :, lo + 2 * r:].float()  # rows whose every contribution is in the slab
+    err = (got[1][:, :, 2 * r:].float() - want).abs().max()
+    assert float(err) <= rel * float(want.abs().max())
+    plain = run(tw.warp3d_plain, *slab, z_offset=lo)
+    for k, (a, b) in enumerate(zip(got, plain)):
+        scale = 1.0 if k == 0 else float(b.float().abs().max())
+        tol = (VAL_TOL if k == 0 else rel * scale) if dt == torch.float32 else 2e-2 * max(scale, 1)
+        assert float((a.float() - b.float()).abs().max()) <= tol, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img_grad", [True, False])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+def test_one_shard_sharded_warp_is_the_unsharded_warp_on_card(padding, img_grad):
+    """``backward_warp3d_sharded`` on a mesh of one space rank and no process
+    group: the halo is filled at both global ends and the ``*_offset``
+    instances run on the haloed volume; values within VAL_TOL, gradients
+    within 1e-4 of the largest, of ``warp3d`` on the volume.  Without an image
+    gradient the offset backward still writes (and drops) ``dimg``."""
+    _cuda_or_skip()
+    from opticalflowscivis_tpu_torch.parallel import Mesh
+    from opticalflowscivis_tpu_torch.parallel.spatial import backward_warp3d_sharded
+
+    rng = np.random.default_rng(14)
+    shape = (1, 1, 24, 11, 13)
+    img = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda()
+    flow = torch.from_numpy(rng.normal(0, 3, (1, 3) + shape[2:]).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+
+    def run(fn):
+        i, f = img.clone().requires_grad_(img_grad), flow.clone().requires_grad_(True)
+        out = fn(i, f)
+        out.backward(g)
+        return out.detach(), i.grad, f.grad
+
+    before = dict(LAUNCHES)
+    got = run(lambda i, f: backward_warp3d_sharded(i, f, Mesh(1, 1, 0), r_z=4, padding=padding))
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp3d"] == before["warp3d"] + 1
+    assert LAUNCHES["warp3d_bwd"] == before["warp3d_bwd"] + 1
+    want = run(lambda i, f: warp3d(i, f, 4, 0, padding))
+    assert float((got[0] - want[0]).abs().max()) <= VAL_TOL
+    for k in (1, 2) if img_grad else (2,):
+        assert float((got[k] - want[k]).abs().max()) <= 1e-4 * float(want[k].abs().max()), k
+    if not img_grad:
+        assert got[1] is None
+
+
+@pytest.mark.cuda
 def test_warp3d_kernel_zeroes_flow_gradient_on_the_bound_on_card():
     """A flow component exactly on its radius is clamped: no gradient."""
     _cuda_or_skip()

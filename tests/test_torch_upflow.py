@@ -345,9 +345,15 @@ def test_bf16_model_matches_jax_bf16_with_a_float32_mask(monkeypatch):
     im1 = im1.permute(0, 2, 3, 1).numpy()
     im2 = np.roll(im1, (2, -3), axis=(1, 2))
 
-    unpatched = jax.jit(lambda p, a, b: jnet.apply(p, a, b))(params, im1, im2)
-    monkeypatch.setattr(jupflow, "warp_with_mask", warp_with_float32_mask)
-    ref = jax.jit(lambda p, a, b: jnet.apply(p, a, b))(params, im1, im2)
+    def both(p, a, b):
+        """The reference as it stands and with the float32 mask, in one
+        compiled function (the replacement acts while it is traced)."""
+        unpatched = jnet.apply(p, a, b)
+        with monkeypatch.context() as m:
+            m.setattr(jupflow, "warp_with_mask", warp_with_float32_mask)
+            return unpatched, jnet.apply(p, a, b)
+
+    unpatched, ref = jax.jit(both)(params, im1, im2)
     with torch.no_grad():
         out = net.eval()(_nchw(im1), _nchw(im2))
 

@@ -144,8 +144,12 @@ def test_three_train_steps_match_optax(recipe, tmp_path, monkeypatch):
     monkeypatch.setattr(upflow_trainer, "sp_transform_pair", torch_transform)
 
     jtr = jtrainer.UPFlowTrainer(jcfg)
-    jtr.init_state(pairs[:1], steps_per_epoch=2)
     params = _numpy_params(jtr.net, (1, size, size, 3), seed=3)
+    with monkeypatch.context() as m:
+        # init_state builds the optimizer chain around a compiled random init
+        # (as long to compile as the train step); hand it the drawn weights
+        m.setattr(type(jtr.net), "init", lambda self, *a, **k: params)
+        jtr.init_state(pairs[:1], steps_per_epoch=2)
     jstate = jtr.state.replace(params=params, opt_state=jtr.state.tx.init(params), step=0)
     jstep = jax.jit(jtr._train_step)
 
@@ -394,8 +398,10 @@ def test_stop_file_ends_the_run_after_its_epoch_and_a_stale_one_is_removed(tmp_p
 
 
 def test_what_waits_raises_with_its_roadmap_item(tmp_path):
+    """``n_data`` above 1 trains data-parallel only over a process group of
+    that size; without one it raises and says how to launch."""
     cfg = UPFlowTrainConfig(exp_dir=str(tmp_path), model=TINY)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.12"):
+    with pytest.raises(RuntimeError, match=r"none is initialised: launch with `torchrun"):
         UPFlowTrainer(dataclasses.replace(cfg, n_data=2), device="cpu")
 
 
