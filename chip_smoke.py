@@ -140,6 +140,15 @@ Phases, printed in order:
      written trees) against the same protocols with the plain kernels
      (``eval protocols``); ``fastprep`` on ``rectangle2d``'s train split bit
      for bit against numpy, both timed on the host (``fastprep (host)``);
+ 9c. spatially sharded IFNet-3D training: ``scripts/dryrun_dp.py --size full
+     --n_space 2`` (``ifnet_3d`` at full width with ``remat``, 256^3 batch 1,
+     f32, cuDNN deterministic) over two gloo ranks sharing the card, against
+     the one-device step in this process: parts within ``SP_PARTS_RTOL``,
+     each gradient within ``SP_GRAD_TOL`` of its tensor's largest value,
+     ``loss.json``, the checkpoint's format, 8 + 8 launches a rank a step, all
+     through the z-offset instances, no level gathered; each rank's halo
+     exchanges and gathers, peak device memory and the step's host-routed
+     time (``dp x sp``);
  10. times (CUDA events, warm-up, inputs that vary from call to call) and
      profiles of all paths; each forward warp kernel against ``F.grid_sample``
      in turns (the median of 5 profiler windows of 40 calls each), also at
@@ -3987,6 +3996,13 @@ DP_STEP_LAUNCHES = {"rife": {"warp2d": 10, "warp2d_bwd": 10},
                     "upflow": {"corr": 5, "corr_bwd": 5, "warp2d": 8, "warp2d_bwd": 6}}
 SHARDED_SIZE = 256  # [1, 1, 256, 256, 256] f32 over 2 ranks: Z_local 128
 SHARDED_R_Z = 8
+# the dp x sp step at 256^3 against the one-device step: f32 sums in other
+# orders (each rank's half of every weight gradient's sum, then the all-reduce)
+SP_PARTS_RTOL = 1e-5
+SP_GRAD_TOL = 1e-4  # of each gradient tensor's largest value
+SP_TIME_STEPS = 2
+# a rank's launches a step: the model's 8 warps through the z-offset instances
+SP_STEP_LAUNCHES = {"warp3d": 8, "warp3d_bwd": 8}
 HD_HW = (1080, 1920)
 HD_FRAMES = 5
 PROTOCOL_HW = (256, 448)  # the triplet and Vimeo trees' frames
@@ -4132,6 +4148,82 @@ def phase_sharded_warp(torch, tmp: str) -> tuple[dict, dict]:
           + json.dumps(times))
     shard = sharded_kernel_times(torch)
     return launches, {"worst": worst, "rank_event_ms": times, "haloed_shard_kernels": shard}
+
+
+def phase_spatial_shard(torch, tmp: str) -> dict:
+    """9c, spatially sharded IFNet-3D training through ``scripts/dryrun_dp.py
+    --n_space``: ``ifnet_3d`` at full width (``ModelConfig.preset_3d(remat=True)``)
+    at 256^3 batch 1, f32, cuDNN deterministic, its depth over two gloo ranks
+    sharing the card, against the one-device step in this process: the parts
+    within SP_PARTS_RTOL, each gradient within SP_GRAD_TOL of its tensor's
+    largest value, ``loss.json`` and the checkpoint's format; each rank's
+    launches a step (all through the z-offset instances), halo exchanges and
+    gathers, peak device memory beside the one device's, and the step's time
+    on the host's clock, every halo through the host (gloo)."""
+    from opticalflowscivis_tpu_torch.scripts import dryrun_dp
+
+    torch.cuda.empty_cache()
+    runs = {"plain": os.path.join(tmp, "sp_plain"), "gloo_2": os.path.join(tmp, "sp_gloo2")}
+    with deterministic_cudnn(torch):
+        dryrun_dp.run_sp(runs["plain"], "full", None, None, 1, SP_TIME_STEPS)
+    torch.cuda.empty_cache()
+    torchrun(2, "opticalflowscivis_tpu_torch.scripts.dryrun_dp",
+             ["--out", runs["gloo_2"], "--size", "full", "--n_space", "2", "--backend", "gloo",
+              "--deterministic", "--time_steps", str(SP_TIME_STEPS)],
+             "dp x sp two gloo ranks on one card")
+    want, got = (torch.load(os.path.join(d, "sp", "step.pt"), weights_only=False)
+                 for d in (runs["plain"], runs["gloo_2"]))
+    check(got["mesh"] == [1, 2], f"dp x sp mesh {got['mesh']}")
+    check(set(got["grads"]) == set(want["grads"]), "dp x sp: other parameters have gradients")
+    parts = {k: abs(got["parts"][k] - v) / abs(v) for k, v in want["parts"].items() if v}
+    grads = {k: float((got["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+             for k, g in want["grads"].items()}
+    worst_part, worst_grad = max(parts.values()), max(grads.values())
+    with open(os.path.join(runs["plain"], "sp", "res/rectangle3d/2x/flownet/loss.json")) as f:
+        want_loss = json.load(f)["val_loss"][-1]
+    with open(os.path.join(runs["gloo_2"], "sp", "res/rectangle3d/2x/flownet/loss.json")) as f:
+        got_loss = json.load(f)["val_loss"][-1]
+    ckpt = [torch.load(os.path.join(d, "sp", "log/rectangle3d/flownet.ckpt"), weights_only=True)
+            for d in (runs["plain"], runs["gloo_2"])]
+    offset = [r["offset_launches"] for r in got["ranks"]]
+
+    def gb(n):
+        return None if n is None else n / 1e9
+
+    plain_warps = [{k: r["launches"][k] - r["offset_launches"].get(k, 0)
+                    for k in ("warp3d", "warp3d_bwd")} for r in got["ranks"]]
+    report = {
+        "parts_rel_err": worst_part, "worst_part": max(parts, key=parts.get),
+        "grad_err_of_tensor_largest": worst_grad, "worst_grad": max(grads, key=grads.get),
+        "loss_json_rel_err": max(abs(b - a) / max(abs(a), 1e-12)
+                                 for a, b in zip(want_loss, got_loss)),
+        "offset_launches_per_rank": offset, "plain_warp3d_launches_per_rank": plain_warps,
+        "collectives_per_rank": [r["collectives"] for r in got["ranks"]],
+        "peak_gb_per_rank": [gb(r["peak_bytes"]) for r in got["ranks"]],
+        "plain_peak_gb": gb(want["peak_bytes"]),
+        "host_routed_step_ms": got["step_ms"], "plain_step_ms": want["step_ms"],
+    }
+    print(f"dp x sp {json.dumps(report)}  (ifnet_3d full width, 256^3 batch 1, f32, 2 gloo "
+          f"ranks on one card, {card_line()}; host_routed_step_ms: every halo exchange and "
+          "gather crosses the host under gloo)")
+    check(worst_part <= SP_PARTS_RTOL, f"dp x sp parts {worst_part:.3e} (tol {SP_PARTS_RTOL})")
+    check(worst_grad <= SP_GRAD_TOL, f"dp x sp gradients {worst_grad:.3e} of the tensor's "
+                                     f"largest (tol {SP_GRAD_TOL})")
+    check(report["loss_json_rel_err"] <= TRAIN_PARTS_TOL,
+          f"dp x sp loss.json {report['loss_json_rel_err']:.3e}")
+    check(ckpt[0]["model"].keys() == ckpt[1]["model"].keys() and ckpt[0]["step"] == ckpt[1]["step"],
+          "dp x sp: the checkpoint is not the one-device format")
+    for r, (n, plain) in enumerate(zip(offset, plain_warps)):
+        check(n == SP_STEP_LAUNCHES and not any(plain.values()),
+              f"dp x sp rank {r}: z-offset launches {n}, plain warp3d launches {plain}")
+    check(all(r["collectives"]["gather"] == 0 and r["collectives"]["halo_exchange"] > 0
+              for r in got["ranks"]), "dp x sp: a 256^3 level ran gathered, or no halo")
+    launches = {}
+    for r in got["ranks"]:
+        for k, v in r["launches_run"].items():
+            launches[k] = launches.get(k, 0) + v
+    PER_CALL["sp_ifnet_3d_train_step"] = dict(offset[0])
+    return launches, report
 
 
 def sharded_kernel_times(torch) -> dict:
@@ -5086,6 +5178,7 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         dp_launches = phase_data_parallel(torch, tmp)
         sharded_launches, sharded = phase_sharded_warp(torch, tmp)
+        sp_launches, sp_report = phase_spatial_shard(torch, tmp)
         protocol_launches = phase_eval_protocols(torch, tmp)
         phase_fastprep()
         torch.cuda.empty_cache()
@@ -5277,6 +5370,14 @@ def main(argv: list) -> int:
         by_name[name]["sharded_warp"] = {
             "shape": [1, 1, SHARDED_SIZE, SHARDED_SIZE, SHARDED_SIZE], "r_z": SHARDED_R_Z,
             "ranks": 2, "backend": "gloo, one card", **sharded}
+        # phase 9c: the dp x sp dry run's two ranks (step and fit)
+        by_name[name]["launches"] += sp_launches.get(name, 0)
+        by_name[name]["launches_sp_training_path"] = sp_launches.get(name, 0)
+        by_name[name]["launches_per_sp_train_step_per_rank"] = PER_CALL[
+            "sp_ifnet_3d_train_step"][name]
+        by_name[name]["sp_training"] = {
+            "model": "ifnet_3d full width, remat", "shape": [1, 256, 256, 256, 1],
+            "mesh": [1, 2], "backend": "gloo, one card", **sp_report}
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

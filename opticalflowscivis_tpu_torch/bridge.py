@@ -34,6 +34,11 @@ and for the refinement of ``IFNet(refine=True)`` (``models/refine.py``):
 | ``unet/DeconvPReLU_{i}/PReLU_0``                    | ``unet.up{i}.prelu``               |
 | ``unet/Conv_0``                                     | ``unet.conv``                      |
 
+``conv_stack_params_from_flax(tree)`` takes the params of a flax
+``nn.Sequential(conv_stack(...))`` (``layers_{i}/Conv_0``, ``layers_{i}/PReLU_0``)
+and returns a ``state_dict`` for ``nn.Sequential(*models.layers.conv_stack(...))``
+(``{i}.conv``, ``{i}.prelu``).
+
 ``upflow_params_from_flax(tree)`` does the same for ``models.upflow.UPFlowNet``
 (conv kernels HWIO → OIHW, biases as they are).  Flax names its
 ``nn.compact`` children ``ConvLeaky_{k}/Conv_0`` in call order:
@@ -150,6 +155,24 @@ def ifnet_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
         if key in state:
             raise KeyError(f"flax leaf {'/'.join(path)} collides on {key}")
         state[key] = torch.tensor(_convert(path, arr))
+    return state
+
+
+_CONV_STACK = re.compile(r"^layers_(\d+)/(Conv|PReLU)_0$")
+
+
+def conv_stack_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Convert the params of a flax ``nn.Sequential(conv_stack(...))`` to a
+    torch ``state_dict`` of ``nn.Sequential(*conv_stack(...))``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    state: dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(tree):
+        m = _CONV_STACK.match("/".join(path[:-1]))
+        if m is None or path[-1] not in _LEAF:
+            raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
+        state[f"{m.group(1)}.{_LAYER[m.group(2)]}.{_LEAF[path[-1]]}"] = torch.tensor(
+            _convert(path, arr))
     return state
 
 

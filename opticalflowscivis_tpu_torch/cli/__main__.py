@@ -8,7 +8,9 @@ protocol); and ``select``, time-step selection.  ``--cpu`` selects
 is none.  ``train`` and ``train_upflow`` train data-parallel when launched by
 ``torchrun`` (one process a device; NCCL, or gloo with ``--cpu``):
 ``torchrun --nproc_per_node k -m opticalflowscivis_tpu_torch.cli train
---config_json cfg.json`` with ``"n_data": k`` in the json.  The verbs that draw panels import the plotting module inside their
+--config_json cfg.json`` with ``"n_data": k`` in the json; ``train`` also
+spatially sharded, with ``"n_space"`` and ``"spatial_shard": true`` there (k
+processes form the ``(k / n_space, n_space)`` mesh).  The verbs that draw panels import the plotting module inside their
 drawing step: without matplotlib they say so in one line and write their
 reports all the same.
 """

@@ -4,6 +4,11 @@ Counterpart of ``opticalflowscivis_tpu/losses/basic.py``: images
 ``[B, *S, C]``, flows ``[B, *S, ndim]`` or, from the model,
 ``[B, *S, 2 * ndim]`` as (F_t→0, F_t→1), each (dy, dx) or (dz, dy, dx).
 ``sobel_loss`` is 2-D only, as in the reference.
+
+On a depth shard (``shard``, a ``parallel.spatial.DepthShard``; spatially
+sharded training) the tensors are this rank's slices of axis 1 and a loss is
+this rank's share under the rule of ``parallel.spatial``: the means are this
+rank's means, and a sum over voxels counts ``n_space`` times this rank's sum.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ def photometric_loss(
     img1: torch.Tensor,
     ndim: int,
     fast_warp_r: int = 0,
+    shard=None,
 ) -> torch.Tensor:
     """RIFE's photometric consistency term.
 
@@ -66,38 +72,51 @@ def photometric_loss(
     Hopper kernels on CUDA tensors, the plain versions on the CPU.  In 2-D the
     flow is clipped to ``±fast_warp_r`` (0 = unbounded), the bound the model's
     own warps have; in 3-D the warp is unbounded, as the reference's is.
+    On a depth shard each warp takes the gathered prediction and this rank's
+    flow zero-padded to the whole, and keeps this rank's slices.
     """
     if ndim not in (2, 3) or merged.dim() != ndim + 2:
         raise ValueError(f"ndim {ndim} does not fit a prediction of {tuple(merged.shape)}")
     per_image_denom = merged.shape[0] * 3
     pred = merged.movedim(-1, 1).contiguous()
     flow_nchw = flow.movedim(-1, 1).to(pred.dtype)
+    if shard is not None:
+        pred = shard.gather(pred, 2)
 
     def one_side(f: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        if shard is not None:
+            f = shard.pad_to_whole(f, 2)
         if ndim == 2:
             warped = warp2d(pred, f, fast_warp_r, "zeros")
         else:
             warped = warp3d(pred, f, 0, 0, "zeros")
+        if shard is not None:
+            warped = shard.scatter(warped, 2)
         return charbonnier(_f32(warped.movedim(1, -1)) - _f32(target)).sum() / per_image_denom
 
     loss = one_side(flow_nchw[:, ndim:], img0) + one_side(flow_nchw[:, :ndim], img1)
-    return loss / 2.0
+    return loss / 2.0 * (1 if shard is None else shard.n)
 
 
-def smoothness_loss(flow: torch.Tensor) -> torch.Tensor:
+def smoothness_loss(flow: torch.Tensor, shard=None) -> torch.Tensor:
     """First-order Charbonnier smoothness of a flow field.
 
     Zero-padded forward differences, summed over pixels, averaged over
-    channels and divided by the batch size.
+    channels and divided by the batch size.  On a depth shard the difference
+    across the shard's end reads the next rank's first slice (an ``edge``
+    halo, whose last difference is the volume's zero).
     """
     f = _f32(flow)
     total = 0.0
     for axis in range(1, f.dim() - 1):
+        if shard is not None and axis == 1:
+            total = total + charbonnier(torch.diff(shard.halo(f, (0, 1), "edge", 1), dim=1))
+            continue
         d = torch.diff(f, dim=axis)
         pad = [0, 0] * f.dim()
         pad[2 * (f.dim() - 1 - axis) + 1] = 1  # F.pad counts from the last axis
         total = total + charbonnier(F.pad(d, pad))
-    return (total / 2.0).mean(dim=-1).sum() / f.shape[0]
+    return (total / 2.0).mean(dim=-1).sum() / f.shape[0] * (1 if shard is None else shard.n)
 
 
 def flow_supervision(

@@ -6,7 +6,9 @@ photometric, smoothness, flow supervision) plus the optional flow leash, and
 the ``parts`` dict under the same keys.  The 3-D recipe is a preset of
 ``RIFELossWeights``, not a code fork.  Every term is a mean over the batch
 but the distillation guard, which under data parallelism tests the global
-mean (``Mesh.batch_mean``).
+mean (``Mesh.batch_mean``).  On depth shards (``shard``) each term is this
+rank's share under the rule of ``parallel.spatial``, and the guard tests the
+mean over the whole mesh.
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ def rife_losses(
     gt_flow: torch.Tensor | None = None,
     fast_warp_r: int = 0,
     mesh=None,
+    shard=None,
 ):
     """Compose the total RIFE training loss.
 
@@ -90,8 +93,10 @@ def rife_losses(
       ndim: spatial rank (2 or 3).
       gt_flow: optional ground-truth flow ``[B, *S, ndim]`` (per-step
         velocity, row-major axes) enabling the supervised term.
-      mesh: the data-parallel ``parallel.Mesh`` of a train step on this
-        rank's rows (None on one device).
+      mesh: the ``parallel.Mesh`` of a train step on this rank's part of
+        the batch (None on one device).
+      shard: the ``parallel.spatial.DepthShard`` when the tensors are this
+        rank's depth shards (spatially sharded training), else None.
 
     Returns:
       (loss_G, dict of weighted components); the dict mirrors the 7-tuple
@@ -103,7 +108,11 @@ def rife_losses(
     merged_teacher = outputs["merged_teacher"]
     zero = torch.zeros((), dtype=torch.float32, device=gt.device)
 
-    recon = lap_loss if weights.use_lap else l1_loss
+    def recon(pred, target):
+        if weights.use_lap:
+            return lap_loss(pred, target, shard=shard)
+        return l1_loss(pred, target)
+
     loss_l1 = recon(merged[-1], gt)
     loss_tea = recon(merged_teacher, gt) if merged_teacher is not None else zero
 
@@ -117,10 +126,11 @@ def rife_losses(
 
     l1_reg = _block_param_l1(params) if weights.reg else zero
     loss_photo = (
-        photometric_loss(merged[-1], flow_list[-1], img0, img1, ndim, fast_warp_r=fast_warp_r)
+        photometric_loss(merged[-1], flow_list[-1], img0, img1, ndim, fast_warp_r=fast_warp_r,
+                         shard=shard)
         if weights.photo else zero
     )
-    loss_smooth = smoothness_loss(flow_list[-1]) if weights.smooth else zero
+    loss_smooth = smoothness_loss(flow_list[-1], shard) if weights.smooth else zero
     loss_flow = (
         flow_supervision(flow_list, flow_teacher, gt_flow, ndim)
         if (weights.flow and gt_flow is not None) else zero

@@ -46,6 +46,30 @@ A flow component at or beyond its radius carries no gradient through the warp.
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
 activations: the memory mode of 256³ training.  The warps lie outside the
 blocks and are not rerun, so the launch counts do not change.
+
+Depth-sharded (``forward(..., shard=DepthShard)``, spatially sharded
+training): the inputs are this rank's slices of the first spatial axis, and
+so are the outputs.
+- A block's level (its input after the ``scale`` resize, then ÷2 and ÷4
+  after the stride-2 convs) runs sharded when every shard there holds whole
+  slices, starts on a multiple of the level's stride and holds the halo
+  (``layers.conv_shardable``).  Below the first level that does not, the
+  block's tensor at that level is gathered (``gather_space``), the rest of
+  the block runs whole on every rank of the space group, and its output at
+  that level is cut back (``scatter_space``).  The choice depends on shapes
+  alone, so every rank issues the same collectives in the same order, also
+  when ``remat`` reruns a block.
+- The warps take ``backward_warp3d_sharded`` (the ``warp3d`` kernels'
+  z-offset instances on a haloed shard) when ``bounded_warp_rz >= 1`` and a
+  shard holds ``r_z + 1`` slices.  Otherwise (unbounded or 2-D warps, thin
+  shards) the gather form: the frame gathered once per forward, this rank's
+  flow zero-padded to the whole volume (``warp3d`` takes one depth for image
+  and flow, so ``z_offset`` cannot stand in), one warp of the whole, and
+  this rank's slices kept.
+- The concatenations, sigmoids, blending and the distillation term are
+  local; ``loss_distill`` is this rank's mean (``parallel.spatial`` says how
+  the ranks' means make the global one).  The refinement runs whole on
+  gathered inputs, its residual cut back to the shard.
 """
 
 from __future__ import annotations
@@ -61,24 +85,25 @@ from opticalflowscivis_tpu_torch.models.layers import (
     ConvPReLU,
     DeconvPReLU,
     ResConvBlock,
+    conv_shardable,
     deconv,
     deconv_forward,
+    deconv_shardable,
 )
 from opticalflowscivis_tpu_torch.models.refine import Contextnet, Unet
 from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp3d
 from opticalflowscivis_tpu_torch.ops.resize import resize_flow_nchw, resize_nchw
+from opticalflowscivis_tpu_torch.parallel.spatial import backward_warp3d_sharded
 
 
 class _Head(nn.Module):
-    """Deconv(c → c/2) + PReLU, then deconv(c/2 → out)."""
+    """Deconv(c → c/2) + PReLU, then deconv(c/2 → out); ``IFBlock.forward``
+    runs the two, each on its level's shards or whole."""
 
     def __init__(self, c: int, out_ch: int, generator: torch.Generator, ndim: int):
         super().__init__()
         self.up = DeconvPReLU(c, c // 2, generator, ndim)
         self.out = deconv(c // 2, out_ch, generator, ndim)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return deconv_forward(self.out, self.up(x))
 
 
 class IFBlock(nn.Module):
@@ -101,22 +126,62 @@ class IFBlock(nn.Module):
         self.flow_head = _Head(c, 2 * ndim, generator, ndim)
         self.mask_head = _Head(c, 1, generator, ndim)
 
-    def forward(self, x: torch.Tensor, flow: torch.Tensor | None, scale: int):
+    def sharded_levels(self, length: int, scale: int, n_shards: int,
+                       dim: int = 2) -> tuple[bool, bool, bool, bool]:
+        """Whether the input and the block's three levels (1/scale, then ÷2,
+        ÷4) run on shards of ``length`` slices: each level holds whole
+        slices, starts on a multiple of its stride and holds the halo of each
+        layer that reads it."""
+        heads = (self.flow_head, self.mask_head)
+        n0 = length // scale
+        n1 = n0 // self.conv0[0].conv.stride[dim - 2]
+        n2 = n1 // self.conv0[1].conv.stride[dim - 2]
+        ok1 = length % scale == 0 and n0 >= 1
+        ok2 = ok1 and conv_shardable(self.conv0[0].conv, n0, n_shards, dim) and all(
+            deconv_shardable(h.out, n1, n_shards, dim) for h in heads)
+        ok3 = ok2 and conv_shardable(self.conv0[1].conv, n1, n_shards, dim) and all(
+            conv_shardable(c.conv, n2, n_shards, dim)
+            for block in self.convblock for c in block.convs) and all(
+            deconv_shardable(h.up.deconv, n2, n_shards, dim) for h in heads)
+        return True, ok1, ok2, ok3
+
+    def forward(self, x: torch.Tensor, flow: torch.Tensor | None, scale: int, shard=None):
+        """``(flow, mask)`` at ``x``'s size; on depth shards with ``shard``
+        (the module docstring's rule for levels)."""
+        if shard is None:
+            ok = (False,) * 4
+        else:
+            ok = self.sharded_levels(x.shape[shard.dim], scale, shard.n, shard.dim)
+
+        def on(level):  # the shard context of the layers that read a level
+            return shard if ok[level] else None
+
+        def down(t, level):  # the last sharded level before a whole one: gather
+            return shard.gather(t) if ok[level] and not ok[level + 1] else t
+
+        def up(t, level):  # ... and cut the whole result back there
+            return shard.scatter(t) if ok[level] and not ok[level + 1] else t
+
+        x = down(x, 0)
+        flow = None if flow is None else down(flow, 0)
         full = tuple(x.shape[2:])
         if scale != 1:
             small = tuple(s // scale for s in full)
-            x = resize_nchw(x, small)
+            x = resize_nchw(x, small)  # a shrink stays inside a shard
             if flow is not None:
                 flow = resize_flow_nchw(flow, small)  # values rescale by 1/scale
         if flow is not None:
             x = torch.cat([x, flow.to(x.dtype)], dim=1)
-        x = self.convblock(self.conv0(x))
-        f = self.flow_head(x)
-        m = self.mask_head(x)
+        x = self.conv0[0](down(x, 1), on(2))
+        x = self.conv0[1](down(x, 2), on(3))
+        for block in self.convblock:
+            x = block(x, on(3))
+        f, m = (up(deconv_forward(head.out, up(head.up(x, on(3)), 2), on(2)), 1)
+                for head in (self.flow_head, self.mask_head))
         if scale != 1:
-            f = resize_flow_nchw(f, full)  # values rescale by `scale`
-            m = resize_nchw(m, full)
-        return f, m
+            f = resize_flow_nchw(f, full, shard=on(1))  # values rescale by `scale`
+            m = resize_nchw(m, full, shard=on(1))
+        return up(f, 0), up(m, 0)
 
 
 class IFNet(nn.Module):
@@ -185,10 +250,27 @@ class IFNet(nn.Module):
         r_yx = (self.fast_warp_r or r_z) if r_z > 0 else 0
         return warp3d(img, flow, r_z, r_yx, "border")
 
-    def _block(self, block: IFBlock, x: torch.Tensor, flow: torch.Tensor | None, scale: int):
+    def halo_warps(self, length: int) -> bool:
+        """Whether depth shards of ``length`` slices warp through the halo
+        (``backward_warp3d_sharded``) rather than the gather form."""
+        r_z = self.bounded_warp_rz
+        return self.ndim == 3 and r_z >= 1 and length >= r_z + 1
+
+    def _warp_sharded(self, img: torch.Tensor, whole: torch.Tensor | None,
+                      flow: torch.Tensor, shard) -> torch.Tensor:
+        """This rank's slices of the warp: through the halo, or the gather
+        form on ``whole``, the gathered frame (module docstring)."""
+        if whole is None:
+            r_z = self.bounded_warp_rz
+            return backward_warp3d_sharded(img, flow, shard.mesh, r_z, "border",
+                                           self.fast_warp_r or r_z)
+        return shard.scatter(self._warp(whole, shard.pad_to_whole(flow)))
+
+    def _block(self, block: IFBlock, x: torch.Tensor, flow: torch.Tensor | None, scale: int,
+               shard=None):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, x, flow, scale, use_reentrant=False)
-        return block(x, flow, scale)
+            return checkpoint(block, x, flow, scale, shard, use_reentrant=False)
+        return block(x, flow, scale, shard)
 
     def forward(
         self,
@@ -196,7 +278,10 @@ class IFNet(nn.Module):
         img1: torch.Tensor,
         gt: torch.Tensor | None = None,
         timestep: float | torch.Tensor = 0.5,
+        shard=None,
     ) -> dict:
+        """``shard`` (a ``parallel.spatial.DepthShard``): the inputs are this
+        rank's depth shards, and so are the outputs (module docstring)."""
         compute = img0.dtype if self.dtype is None else self.dtype
         # the warp kernels read contiguous channels-first images
         img0 = img0.to(compute).contiguous()
@@ -212,6 +297,13 @@ class IFNet(nn.Module):
                 t = t.view((-1,) + (1,) * (nd + 1))
             return t.expand((img0.shape[0], 1) + tuple(img0.shape[2:]))
 
+        whole0 = whole1 = None  # the gather form warps the whole frames: gather each once
+        if shard is not None and not self.halo_warps(img0.shape[shard.dim]):
+            whole0, whole1 = shard.gather(img0), shard.gather(img1)
+
+        def warp(img, whole, f):
+            return self._warp(img, f) if shard is None else self._warp_sharded(img, whole, f, shard)
+
         flow = mask = None
         warped0, warped1 = img0, img1
         flow_list, mask_list, merged = [], [], []
@@ -220,13 +312,14 @@ class IFNet(nn.Module):
             if self.arbitrary_timestep:
                 inp.append(ts_channel())
             block = getattr(self, f"block{i}")
-            flow_d, mask_d = self._block(block, torch.cat(inp, dim=1), flow, self.scales[i])
+            flow_d, mask_d = self._block(block, torch.cat(inp, dim=1), flow, self.scales[i],
+                                         shard)
             flow = flow_d if flow is None else flow + flow_d
             mask = mask_d if mask is None else mask + mask_d
             flow_list.append(flow)
             mask_list.append(torch.sigmoid(mask))
-            warped0 = self._warp(img0, flow[:, :nd])  # F_t→0 samples img0
-            warped1 = self._warp(img1, flow[:, nd:])  # F_t→1 samples img1
+            warped0 = warp(img0, whole0, flow[:, :nd])  # F_t→0 samples img0
+            warped1 = warp(img1, whole1, flow[:, nd:])  # F_t→1 samples img1
             merged.append((warped0, warped1))
 
         flow_teacher = merged_teacher = None
@@ -237,10 +330,10 @@ class IFNet(nn.Module):
             if self.arbitrary_timestep:
                 tea_inp.append(ts_channel())
             flow_d, mask_d = self._block(self.block_tea, torch.cat(tea_inp, dim=1), flow,
-                                         self.teacher_scale)
+                                         self.teacher_scale, shard)
             flow_teacher = flow + flow_d
-            w0_tea = self._warp(img0, flow_teacher[:, :nd])
-            w1_tea = self._warp(img1, flow_teacher[:, nd:])
+            w0_tea = warp(img0, whole0, flow_teacher[:, :nd])
+            w1_tea = warp(img1, whole1, flow_teacher[:, nd:])
             mask_teacher = torch.sigmoid(mask + mask_d)
             merged_teacher = w0_tea * mask_teacher + w1_tea * (1 - mask_teacher)
 
@@ -264,9 +357,15 @@ class IFNet(nn.Module):
                 loss_distill = loss_distill + (rmse * worse).mean()
 
         if self.refine:
-            c0 = self.contextnet(img0, flow[:, :nd])
-            c1 = self.contextnet(img1, flow[:, nd:])
-            res = self.unet(img0, img1, warped0, warped1, mask, flow, c0, c1)
+            inputs = (img0, img1, warped0, warped1, mask, flow)
+            if shard is not None:  # whole on gathered inputs, the residual cut back
+                inputs = tuple(shard.gather(t) for t in inputs)
+            i0, i1, w0, w1, mk, fl = inputs
+            c0 = self.contextnet(i0, fl[:, :nd])
+            c1 = self.contextnet(i1, fl[:, nd:])
+            res = self.unet(i0, i1, w0, w1, mk, fl, c0, c1)
+            if shard is not None:
+                res = shard.scatter(res)
             merged_out[-1] = torch.clamp(merged_out[-1] + (res * 2 - 1), 0, 1)
 
         return {

@@ -21,8 +21,12 @@ image gradient, of the cost volume for one feature map's gradient or both.
 LAUNCHES: dict[str, int] = {
     "warp2d": 0, "warp2d_bwd": 0, "warp3d": 0, "warp3d_bwd": 0, "corr": 0, "corr_bwd": 0,
 }
+# the part of LAUNCHES made by the 3-D warps' z-offset instances (``warp3d``'s
+# ``z_offset``: a depth shard's haloed slab)
+OFFSET_LAUNCHES: dict[str, int] = {"warp3d": 0, "warp3d_bwd": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, OFFSET_LAUNCHES):
+        for name in counts:
+            counts[name] = 0

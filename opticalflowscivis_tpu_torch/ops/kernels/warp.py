@@ -53,7 +53,7 @@ from typing import NamedTuple, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES
+from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, OFFSET_LAUNCHES
 from opticalflowscivis_tpu_torch.ops.kernels.build import load
 from opticalflowscivis_tpu_torch.ops.warp import warp2d_plain, warp3d_plain
 
@@ -399,6 +399,7 @@ def _launch3d(img: torch.Tensor, flow: torch.Tensor, r_z: int, r_yx: int,
     if err:
         raise RuntimeError(f"warp3d kernel launch failed with CUDA error {err}")
     LAUNCHES["warp3d"] += 1
+    OFFSET_LAUNCHES["warp3d"] += bool(z_offset)
     return out
 
 
@@ -430,6 +431,7 @@ def _launch3d_backward(
     if err:
         raise RuntimeError(f"warp3d backward kernel launch failed with CUDA error {err}")
     LAUNCHES["warp3d_bwd"] += 1
+    OFFSET_LAUNCHES["warp3d_bwd"] += bool(z_offset)
     return (acc.to(img.dtype) if need_dimg else None), dflow
 
 

@@ -109,13 +109,17 @@ def laplacian_pyramid(img: torch.Tensor, max_levels: int = 5) -> list[torch.Tens
     return [_from_planes(p, img.shape[0]) for p in _planes_pyramid(_to_planes(img), max_levels)]
 
 
-def lap_loss(pred: torch.Tensor, target: torch.Tensor, max_levels: int = 5) -> torch.Tensor:
+def lap_loss(pred: torch.Tensor, target: torch.Tensor, max_levels: int = 5,
+             shard=None) -> torch.Tensor:
     """Sum over levels of mean-|diff| between the two Laplacian pyramids.
 
     Both pyramids are built in one pass over the two stacked inputs, in
-    float32.
+    float32.  On a depth shard (``shard``: the inputs are this rank's slices
+    of axis 1) both are gathered first, and the loss is the whole one.
     """
     _check_rank(pred)
+    if shard is not None:
+        pred, target = shard.gather(pred, 1), shard.gather(target, 1)
     if pred.shape != target.shape:
         raise ValueError(f"shapes differ: {tuple(pred.shape)} and {tuple(target.shape)}")
     n = pred.shape[0] * pred.shape[-1]

@@ -22,6 +22,16 @@ UPFlow meets the first at 64 x 64 inputs, where its coarsest plane is 1 x 1.
 The public functions take channels-last ``[B, *S, C]``; the ``*_nchw`` forms
 take the channels-first tensors the models carry (``[B, C, H, W]`` or
 ``[B, C, Z, Y, X]``).
+
+Depth-sharded (``shard``, a ``parallel.spatial.DepthShard``; half-pixel
+linear only): ``x`` and ``spatial`` are this rank's slices of the sharded
+axis.  Shrinking it by an integer factor f reads only inside a shard that
+starts on a multiple of f (output o reads around f·o + (f - 1) / 2), so it
+runs on the shard as it is; growing it by f reads one slice past each end,
+which an ``edge`` halo supplies (the plain resize clamps there), and the
+haloed result is cut back to the shard; the volume's first shard keeps no
+halo before it, where the plain resize samples slice 0 alone.  The flow's values scale by the
+ratio of the whole sizes, which equal shards give too.
 """
 
 from __future__ import annotations
@@ -62,15 +72,41 @@ def _resize_align_corners(x: torch.Tensor, spatial: tuple[int, ...], ndim: int) 
     return out
 
 
+def _resize_sharded(x: torch.Tensor, spatial: tuple[int, ...], ndim: int, shard) -> torch.Tensor:
+    d = shard.dim
+    n, m = x.shape[d], spatial[d - 2]
+    if n == m or n % m == 0:  # kept or shrunk: inside the shard
+        return F.interpolate(x, size=spatial, mode=_MODES[ndim], align_corners=False)
+    if m % n:
+        raise ValueError(f"a depth-sharded resize takes integer factors, got {n} -> {m}")
+    f = m // n
+    haloed = shard.halo(x, 1, "edge")
+    start = f
+    if shard.index == 0:
+        # the plain resize clamps a coordinate below 0 to slice 0 itself,
+        # where the edge halo would blend slice 0 with its copy: start the
+        # volume's first shard unhaloed, to run the plain arithmetic
+        haloed, start = haloed.narrow(d, 1, n + 1), 0
+    size = list(spatial)
+    size[d - 2] = haloed.shape[d] * f
+    out = F.interpolate(haloed, size=tuple(size), mode=_MODES[ndim], align_corners=False)
+    return out.narrow(d, start, m)
+
+
 def resize_nchw(x: torch.Tensor, spatial: tuple[int, ...], method: str = "linear",
-                align_corners: bool = False) -> torch.Tensor:
+                align_corners: bool = False, shard=None) -> torch.Tensor:
     """Resize ``[B, C, *S]`` to ``[B, C, *spatial]``: linear (half-pixel, or
-    endpoint-aligned with ``align_corners``) or ``"nearest"``."""
+    endpoint-aligned with ``align_corners``) or ``"nearest"``; on a depth
+    shard with ``shard`` (module docstring)."""
     ndim = _check_rank(x, spatial)
     if method not in ("linear", "nearest"):
         raise ValueError(f"method must be 'linear' or 'nearest', got {method!r}")
     if tuple(x.shape[2:]) == tuple(spatial):
         return x
+    if shard is not None:
+        if method != "linear" or align_corners:
+            raise ValueError("a depth-sharded resize is linear and half-pixel")
+        return _resize_sharded(x, tuple(spatial), ndim, shard)
     if align_corners:
         if method != "linear":
             raise ValueError("align_corners=True is a linear resize")
@@ -81,14 +117,15 @@ def resize_nchw(x: torch.Tensor, spatial: tuple[int, ...], method: str = "linear
 
 
 def resize_flow_nchw(flow: torch.Tensor, spatial: tuple[int, ...], method: str = "linear",
-                     align_corners: bool = False) -> torch.Tensor:
+                     align_corners: bool = False, shard=None) -> torch.Tensor:
     """Resize ``[B, k * ndim, *S]`` displacement groups and rescale the values
-    of each channel by the size ratio of its own axis."""
+    of each channel by the size ratio of its own axis (of the whole sizes on a
+    depth shard)."""
     ndim = flow.dim() - 2
     if flow.shape[1] % ndim:
         raise ValueError(f"flow channels {flow.shape[1]} not a multiple of ndim {ndim}")
     src = flow.shape[2:]
-    out = resize_nchw(flow, spatial, method, align_corners)
+    out = resize_nchw(flow, spatial, method, align_corners, shard)
     ratios = torch.tensor(
         [t / s for t, s in zip(spatial, src)], dtype=out.dtype, device=out.device
     )

@@ -13,9 +13,16 @@ n_space)``.  Under gloo, a CUDA tensor goes through the host for each
 collective (gloo's point-to-point ops take CPU tensors only); under NCCL it
 stays on the card.
 
+A train step's means and gradients reduce over the data axis, or over the
+whole mesh when the space axis shards the volumes (``Mesh.spatial``: each
+rank's loss is then a mean over its rows and slices, and the step's is the
+mean over all ranks, ``parallel.spatial``).  With ``n_space > 1`` and
+``spatial`` off, every rank of a space group runs the same step on the same
+rows (the reference's trainer replicates the batch over ``space`` then).
+
 Terms of a loss that are not linear in the batch (a ratio of sums over the
 batch, a guard on a batch mean) would differ between one rank on the global
-batch and k ranks each on its rows.  ``Mesh.batch_ratio`` and
+batch and k ranks each on its part.  ``Mesh.batch_ratio`` and
 ``Mesh.batch_mean`` give every rank the global value, with a local term
 whose gradient, averaged over the ranks, is the global one; their
 collectives run in the forward only, so the backward has none.
@@ -65,13 +72,27 @@ def broadcast_(t: torch.Tensor, group) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's place in an ``(n_data, n_space)`` mesh and its two groups
-    (None where the axis has one rank)."""
+    (None where the axis has one rank).  ``spatial``: the space axis shards
+    the volumes, so that a step reduces over the whole mesh."""
 
     n_data: int
     n_space: int
     rank: int
     data_group: Any = None
     space_group: Any = None
+    spatial: bool = False
+
+    @property
+    def world_group(self):
+        """The group of the whole mesh (None for a mesh of one rank)."""
+        return dist.group.WORLD if self.n_data * self.n_space > 1 else None
+
+    @property
+    def _reduction(self) -> tuple[Any, int]:
+        """(group, ranks) a step's means and gradients reduce over."""
+        if self.spatial and self.n_space > 1:
+            return self.world_group, self.n_data * self.n_space
+        return self.data_group, self.n_data
 
     @property
     def data_index(self) -> int:
@@ -86,50 +107,56 @@ class Mesh:
         """Rank 0 alone writes files."""
         return self.rank == 0
 
-    # -- data-parallel collectives ------------------------------------------
+    # -- the collectives of a train step ---------------------------------------
     def batch_ratio(self, num: torch.Tensor, den: torch.Tensor, eps: float = 0.0,
                     den_batched: bool = True) -> torch.Tensor:
         """``sum(num) / (sum(den) + eps)`` over the global batch, where ``num``
-        (and ``den`` when ``den_batched``) are this rank's sums over its rows;
-        a ``den`` that is not a sum over rows is the same on every rank."""
-        k = self.n_data
+        (and ``den`` when ``den_batched``) are this rank's sums over its part;
+        a ``den`` that is not such a sum is the same on every rank."""
+        group, k = self._reduction
         sums = torch.stack([num.detach().float(), den.detach().float()])
-        all_reduce_(sums, self.data_group)
+        all_reduce_(sums, group)
         if not den_batched:
             sums[1] = den.detach().float()
         d = sums[1] + eps
         value = sums[0] / d
-        # d(N/D) = dN/D - N/D^2 dD; each rank holds 1/k of the rows of N (and
-        # of D when batched), and the gradients are averaged over k ranks
+        # d(N/D) = dN/D - N/D^2 dD; each rank holds 1/k of N (and of D when
+        # batched), and the gradients are averaged over k ranks
         local = (k * num - (k if den_batched else 1) * value * den) / d
         return value + (local - local.detach())
 
     def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of a per-rank batch mean ``x``: the global
-        mean, with this rank's gradient."""
+        """The mean over the ranks of a per-rank mean ``x`` (over its rows, and
+        its slices when ``spatial``): the global mean, with this rank's
+        gradient."""
+        group, k = self._reduction
         total = x.detach().float().clone()
-        all_reduce_(total, self.data_group)
-        return total / self.n_data + (x - x.detach())
+        all_reduce_(total, group)
+        return total / k + (x - x.detach())
 
     def mean_values(self, values: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        """Each detached 0-d value averaged over the data axis, in one all-reduce."""
+        """Each detached 0-d value averaged over the ranks a step reduces
+        over, in one all-reduce."""
         if not values:
             return values
+        group, k = self._reduction
         stacked = torch.stack([v.detach().float() for v in values.values()])
-        all_reduce_(stacked, self.data_group)
-        stacked /= self.n_data
+        all_reduce_(stacked, group)
+        stacked /= k
         return dict(zip(values, stacked.unbind()))
 
     def average_gradients(self, params) -> None:
-        """Average the gradients of ``params`` over the data axis in one
-        all-reduce of a flat buffer; parameters without a gradient stay so
-        (every rank runs the same graph, so the same ones have none)."""
+        """Average the gradients of ``params`` over the ranks a step reduces
+        over, in one all-reduce of a flat buffer; parameters without a
+        gradient stay so (every rank runs the same graph, so the same ones
+        have none)."""
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
+        group, k = self._reduction
         flat = torch.cat([g.reshape(-1).float() for g in grads])
-        all_reduce_(flat, self.data_group)
-        flat /= self.n_data
+        all_reduce_(flat, group)
+        flat /= k
         offset = 0
         for g in grads:
             n = g.numel()
@@ -137,23 +164,23 @@ class Mesh:
             offset += n
 
     def broadcast_module(self, module: torch.nn.Module) -> None:
-        """Give every rank of the data axis rank 0's parameters and buffers."""
+        """Give every rank of the mesh rank 0's parameters and buffers."""
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
-                broadcast_(t.data, self.data_group)
+                broadcast_(t.data, self.world_group)
 
     def barrier(self, device: torch.device) -> None:
-        """Wait until every rank of the data axis is here."""
-        all_reduce_(torch.zeros(1, device=device), self.data_group)
+        """Wait until every rank of the mesh is here."""
+        all_reduce_(torch.zeros(1, device=device), self.world_group)
 
     def agree(self, flag: bool, device: torch.device) -> bool:
-        """Rank 0's ``flag`` on every rank of the data axis (a decision all
-        ranks must take together, such as ending the run)."""
+        """Rank 0's ``flag`` on every rank of the mesh (a decision all ranks
+        must take together, such as ending the run)."""
         t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
-        return bool(broadcast_(t, self.data_group).item())
+        return bool(broadcast_(t, self.world_group).item())
 
 
-def make_mesh(n_data: int | None = None, n_space: int = 1) -> Mesh:
+def make_mesh(n_data: int | None = None, n_space: int = 1, spatial: bool = False) -> Mesh:
     """The ``(n_data, n_space)`` mesh over the default process group, which
     must be initialised (``parallel.multihost.initialize_multihost``) with
     ``n_data * n_space`` processes; ``n_data`` None takes them all.  Every
@@ -184,29 +211,43 @@ def make_mesh(n_data: int | None = None, n_space: int = 1) -> Mesh:
         g = group([d * n_space + s for s in range(n_space)])
         if rank // n_space == d:
             space_group = g
-    return Mesh(n_data, n_space, rank, data_group, space_group)
+    return Mesh(n_data, n_space, rank, data_group, space_group, spatial and n_space > 1)
 
 
-def data_parallel_mesh(n_data: int | None) -> Mesh | None:
+def trainer_mesh(n_data: int | None, n_space: int = 1, spatial: bool = False) -> Mesh | None:
     """The mesh a trainer runs on: None (one device, no collectives) without
-    an initialised process group when ``n_data`` is None or 1; else the
-    ``(n_data, 1)`` mesh over the default group, whose size must be
-    ``n_data`` (None takes it).  Never trains on one device when ``n_data``
-    asks for more."""
+    an initialised process group when the mesh has one rank; else the
+    ``(n_data, n_space)`` mesh over the default group, whose size must be
+    ``n_data * n_space`` (``n_data`` None takes what ``n_space`` leaves).
+    ``spatial``: the space axis shards the volumes.  Never trains on one
+    device when the mesh asks for more."""
+    if n_space < 1:
+        raise ValueError(f"n_space must be >= 1, got {n_space}")
     if not (dist.is_available() and dist.is_initialized()):
-        if n_data in (None, 1):
+        if n_data in (None, 1) and n_space == 1:
             return None
+        k = (n_data or 1) * n_space
+        what = f"n_data={n_data}" + (f", n_space={n_space}" if n_space > 1 else "")
         raise RuntimeError(
-            f"n_data={n_data} needs a default process group of {n_data} processes, and "
-            f"none is initialised: launch with `torchrun --nproc_per_node {n_data} -m "
+            f"{what} needs a default process group of {k} processes, and "
+            f"none is initialised: launch with `torchrun --nproc_per_node {k} -m "
             "opticalflowscivis_tpu_torch.cli train --config_json cfg.json` (the CLI "
             "initialises the group from torchrun's environment; add --cpu for gloo), "
             "or call parallel.initialize_multihost in each process first")
     world = dist.get_world_size()
-    if n_data not in (None, world):
-        raise RuntimeError(f"n_data={n_data}, but the default process group has {world} "
-                           "processes: launch one process per data-parallel rank")
-    return make_mesh(world, 1)
+    if n_data is None:
+        n_data = world // n_space
+    if n_data * n_space != world:
+        raise RuntimeError(
+            f"n_data={n_data}, n_space={n_space}, but the default process group has {world} "
+            "processes: launch one process per rank of the (n_data, n_space) mesh")
+    return make_mesh(n_data, n_space, spatial)
+
+
+def data_parallel_mesh(n_data: int | None) -> Mesh | None:
+    """The data-parallel trainers' mesh: ``trainer_mesh(n_data)``, the
+    ``(n_data, 1)`` mesh, or None on one device."""
+    return trainer_mesh(n_data)
 
 
 def shard_batch(batch, mesh: Mesh):

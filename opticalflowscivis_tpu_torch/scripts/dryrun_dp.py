@@ -1,13 +1,26 @@
-"""Data-parallel dry run: one train step and a short fit of RIFE-2D and UPFlow.
+"""Data-parallel and spatially sharded dry runs: one train step and a short fit.
 
-The counterpart of the data-parallel half of the reference's
-``__graft_entry__.dryrun_multichip``.  Run under ``torchrun``, each rank
-takes its rows of one global batch; run alone, the plain one-device trainers
-take the whole batch, which is what the ranks together must equal:
+The counterpart of the reference's ``__graft_entry__.dryrun_multichip``.  Its
+data-parallel half trains RIFE-2D and UPFlow; run under ``torchrun``, each
+rank takes its rows of one global batch; run alone, the plain one-device
+trainers take the whole batch, which is what the ranks together must equal:
 
     torchrun --nproc_per_node 2 -m opticalflowscivis_tpu_torch.scripts.dryrun_dp \\
         --cpu --out /tmp/dp2                       # two gloo ranks on the CPU
     python -m opticalflowscivis_tpu_torch.scripts.dryrun_dp --cpu --out /tmp/dp1
+
+``--n_space k`` runs the dp x sp half instead: IFNet-3D on ``rectangle3d``
+volumes whose depth is sharded over ``k`` space ranks (``TrainConfig(n_space=k,
+spatial_shard=True)``; the process count over ``k`` data ranks, the batch
+fixed), ``--n_space 1`` the same on one device.  The tiny size is the
+reference's own (16^3, blocks (8, 8, 8), teacher 8, ``conv0_kernel=3``, its
+unbounded warps; ``__graft_entry__.py:130-160``), batch 2; ``--size full`` is
+``ModelConfig.preset_3d(remat=True)``, ``ifnet_3d`` at full width, at 256^3
+batch 1, the model of ``scripts/train256.py``:
+
+    torchrun --nproc_per_node 4 -m opticalflowscivis_tpu_torch.scripts.dryrun_dp \\
+        --cpu --n_space 2 --out /tmp/sp4          # a (2, 2) mesh of gloo ranks
+    python -m opticalflowscivis_tpu_torch.scripts.dryrun_dp --cpu --n_space 1 --out /tmp/sp1
 
 ``--size full`` trains at the models' full widths (``ifnet_2d`` at batch 64
 on 128x128 rectangle tuples, UPFlow at 256x832 batch 8) on the card; the
@@ -20,7 +33,10 @@ loss parts, every parameter's gradient, the kernel launches of the step and
 of the whole run, the step's time), the fit's ``loss.json`` and its
 checkpoint, in the one-device format.  UPFlow trains with the occlusion-normalised photometric
 term, census and (tiny) the ex_runner's transformed-pair terms, on a box that
-moves over a still background, so that the batch has occlusion.
+moves over a still background, so that the batch has occlusion.  The dp x sp
+half writes ``<out>/sp/step.pt`` (with the step's halo exchanges and gathers
+and each rank's launches and peak device memory), its ``loss.json`` and
+checkpoint.
 """
 
 from __future__ import annotations
@@ -110,6 +126,41 @@ def upflow_setup(out: str, size: str, n_data: int | None):
     return cfg, pairs[:-2], pairs[-2:], val_flow
 
 
+SP_FULL_GRID = 256  # the full size's volume edge
+
+
+def sp_setup(out: str, size: str, n_data: int | None, n_space: int):
+    """(TrainConfig, train tuples, val tuples) of the spatially sharded
+    IFNet-3D run: one train batch and one validation tuple, the moving box on
+    a random texture."""
+    from opticalflowscivis_tpu_torch.data import group_tuples, rectangle_3d
+    from opticalflowscivis_tpu_torch.losses import RIFELossWeights
+    from opticalflowscivis_tpu_torch.training import ModelConfig, OptimConfig, TrainConfig
+
+    if size == "full":
+        model, batch = ModelConfig.preset_3d(remat=True, bfloat16=False), 1
+        grid, box = SP_FULL_GRID, 3 * SP_FULL_GRID // 8
+    else:
+        model = ModelConfig(ndim=3, block_channels=(8, 8, 8), teacher_channels=8,
+                            conv0_kernel=3, bfloat16=False)
+        batch, grid, box = 2, 16, 6
+    cfg = TrainConfig(
+        dataset="rectangle3d", epochs=1, batch_size=batch, n_data=n_data, n_space=n_space,
+        spatial_shard=n_space > 1, model=model, loss=RIFELossWeights.preset_3d(),
+        optim=OptimConfig(lr_max=1e-3, warmup_steps=5),
+        data_dir=os.path.join(out, "sp", "data"), log_dir=os.path.join(out, "sp", "log"),
+        results_dir=os.path.join(out, "sp", "res"),
+    )
+    frames = rectangle_3d(n_frames=3 * (batch + 1), grid=(grid,) * 3, box=(box,) * 3,
+                          seed=5, with_flow=False)
+    coarse = np.random.default_rng(6).uniform(0.05, 0.3, (frames.shape[0], 1, 8, 8, 8))
+    frames += torch.nn.functional.interpolate(
+        torch.from_numpy(coarse.astype(np.float32)), size=(grid,) * 3, mode="trilinear",
+        align_corners=True).numpy()[..., None].reshape(frames.shape)
+    tuples = group_tuples(frames, 1)
+    return cfg, tuples[:batch], tuples[batch:]
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -177,6 +228,55 @@ def run(out: str, size: str = "tiny", device: str | None = None,
     return result
 
 
+def run_sp(out: str, size: str = "tiny", device: str | None = None,
+           n_data: int | None = None, n_space: int = 1, time_steps: int = 0) -> dict:
+    """The dp x sp half in this process: its ``volume_batch_sharding`` part
+    of the global batch when a process group is initialised, the whole batch
+    on one device otherwise.  Rank 0 writes ``<out>/sp/step.pt``; every
+    rank's launches and peak device memory are gathered into it."""
+    import torch.distributed as dist
+
+    from opticalflowscivis_tpu_torch.ops.kernels import LAUNCHES, OFFSET_LAUNCHES, reset_launches
+    from opticalflowscivis_tpu_torch.parallel.spatial import COLLECTIVES
+    from opticalflowscivis_tpu_torch.training import Trainer
+
+    reset_launches()
+    cfg, train, val = sp_setup(out, size, n_data, n_space)
+    tr = Trainer(cfg, device=device)
+    tr.init_state(total_steps=2 + time_steps)
+    batch = tr.upload(train)
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    before, offset = dict(COLLECTIVES), dict(OFFSET_LAUNCHES)
+    rec = _step_record(tr, tr.model, tr.train_step, batch, 0)
+    rec["collectives"] = {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+    rec["offset_launches"] = {k: OFFSET_LAUNCHES[k] - offset[k] for k in OFFSET_LAUNCHES}
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated(tr.device) if cuda else None
+    if time_steps:
+        t0 = time.perf_counter()
+        for _ in range(time_steps):
+            tr.train_step(batch)
+        _sync(tr.device)
+        rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / time_steps
+    del batch
+    hist = tr.fit(train, val, epochs=1, log_every=0)
+    _sync(tr.device)
+    rec.update(val_loss=hist[-1], launches_run=dict(LAUNCHES))
+    rec["mesh"] = [tr.n_data, 1 if tr.mesh is None else tr.mesh.n_space]
+    mine = {k: rec[k] for k in ("launches", "offset_launches", "collectives", "peak_bytes",
+                                "launches_run")}
+    if tr.mesh is not None:
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        rec["ranks"] = ranks
+    else:
+        rec["ranks"] = [mine]
+    if tr.is_writer:
+        torch.save(rec, os.path.join(out, "sp", "step.pt"))
+    return {"sp": rec}
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="dryrun_dp", description=__doc__.splitlines()[0])
     p.add_argument("--out", required=True)
@@ -194,6 +294,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--timeout_s", type=float, default=600.0)
+    p.add_argument("--n_space", type=int, default=0,
+                   help="run the dp x sp half with this many space ranks (1: one device)")
     args = p.parse_args(argv)
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -212,12 +314,16 @@ def main(argv: list[str] | None = None) -> int:
     info = initialize_multihost(args.coordinator, args.num_processes, args.process_id,
                                 device=device, timeout_s=args.timeout_s, backend=args.backend)
     try:
-        result = run(args.out, args.size, device,
-                     info["process_count"] if info["initialized"] else None, args.time_steps)
+        world = info["process_count"] if info["initialized"] else None
+        if args.n_space:
+            result = run_sp(args.out, args.size, device,
+                            world and world // args.n_space, args.n_space, args.time_steps)
+        else:
+            result = run(args.out, args.size, device, world, args.time_steps)
         if info["process_index"] == 0:
             print(json.dumps({"dryrun_dp": info, **{
-                name: {k: r[k] for k in ("parts", "launches", "first_step_s", "step_ms")
-                       if k in r}
+                name: {k: r[k] for k in ("parts", "launches", "first_step_s", "step_ms",
+                                         "collectives", "ranks") if k in r}
                 for name, r in result.items()}}), flush=True)
     finally:
         if info["initialized"]:

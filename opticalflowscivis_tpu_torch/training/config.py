@@ -2,9 +2,10 @@
 
 Counterpart of ``opticalflowscivis_tpu/training/config.py``.  The field names
 are the reference's, so a config json written by either package loads in the
-other.  Fields that select what this port does not have yet are accepted at
-their neutral value only and raise otherwise (``validate``): spatial sharding
-(``n_space``, ``spatial_shard``, ROADMAP A.12b) and ``compiler_options``.
+other.  ``validate`` refuses what cannot run: ``compiler_options`` (XLA
+overrides of the JAX package) and mesh degrees below 1.  A volume depth that
+does not split over ``n_space`` ranks is refused where the data meets the
+mesh (``parallel.spatial.volume_batch_sharding``).
 """
 
 from __future__ import annotations
@@ -85,8 +86,10 @@ class TrainConfig:
     device_flip_aug: bool = False  # flip-augment per batch on the device
     #   instead of 4x-ing the host arrays: only the unaugmented base tuples
     #   are kept resident
-    n_space: int = 1  # spatial-shard degree; 1 only (ROADMAP A.12b)
-    spatial_shard: bool = False
+    n_space: int = 1  # spatial-shard degree: the space axis of the (n_data, n_space)
+    #   mesh; > 1 without spatial_shard repeats each step over it, as the reference does
+    spatial_shard: bool = False  # shard the first spatial axis (a volume's depth,
+    #   a frame's height) over the space axis
     debug_nans: bool = False  # torch.autograd.set_detect_anomaly
     compiler_options: dict | None = None  # XLA overrides of the JAX package; must be unset
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -94,19 +97,11 @@ class TrainConfig:
     loss: RIFELossWeights = dataclasses.field(default_factory=RIFELossWeights)
 
     def validate(self) -> None:
-        """Raise on a field that asks for what this port does not have yet."""
+        """Raise on a field that asks for what cannot run, saying what to change."""
         if self.n_data is not None and self.n_data < 1:
             raise ValueError(f"n_data must be >= 1, got {self.n_data}")
-        spatial = []
-        if self.n_space != 1:
-            spatial.append(f"n_space={self.n_space}")
-        if self.spatial_shard:
-            spatial.append("spatial_shard=True")
-        if spatial:
-            raise NotImplementedError(
-                f"{', '.join(spatial)}: this port trains data-parallel only; "
-                "spatially sharded IFNet-3D training is ROADMAP A.12b"
-            )
+        if self.n_space < 1:
+            raise ValueError(f"n_space must be >= 1 (1: no spatial sharding), got {self.n_space}")
         if self.compiler_options:
             raise ValueError(
                 "compiler_options are XLA overrides of the JAX package and mean "

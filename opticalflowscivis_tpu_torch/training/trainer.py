@@ -25,7 +25,7 @@ positions (``data.device_synthetic``): the positions go up once an epoch, the
 frames never cross from the host.
 
 Data parallelism (``TrainConfig.n_data``, one process a device under
-``torchrun``; ``parallel.data_parallel_mesh``): every rank draws the same
+``torchrun``; ``parallel.trainer_mesh``): every rank draws the same
 global batch with the same seeds (shuffles, on-device flips, samplers), keeps
 its rows at the entry of the train step, and averages the gradients over the
 ranks by one all-reduce; the loss terms that are not linear in the batch are
@@ -35,6 +35,21 @@ the validation loss are global values (every rank evaluates the whole
 validation set); rank 0 alone writes files, and checkpoints keep the
 one-device format.  ``n_data`` above 1 without a process group of that size
 raises.
+
+Spatial sharding (``TrainConfig.spatial_shard`` with ``n_space > 1``; the
+``(n_data, n_space)`` mesh of ``parallel.trainer_mesh``, rank ``r`` at
+``divmod(r, n_space)``): every rank draws and flips the same global batch,
+and the train step takes its ``volume_batch_sharding`` part, its rows on
+``data`` and its slices of the first spatial axis on ``space`` (a volume's
+depth, a frame's height).  The model and the losses run on the shard
+(``models.ifnet``, ``losses.rife``); the parts and the gradients are averaged
+over the whole mesh (``parallel.spatial`` gives the rule), so the step is the
+one-device step on the global batch.  Parameters start from rank 0's by a
+broadcast over the mesh.  Evaluation runs whole on every rank, as under data
+parallelism, so the validation loss and ``loss.json`` are the one-device
+values.  ``n_space > 1`` without ``spatial_shard`` repeats the
+data-parallel step on every rank of a space group, as the reference's
+trainer does.
 """
 
 from __future__ import annotations
@@ -59,8 +74,9 @@ from opticalflowscivis_tpu_torch.data import (
 from opticalflowscivis_tpu_torch.device import resolve_device
 from opticalflowscivis_tpu_torch.losses.rife import rife_losses
 from opticalflowscivis_tpu_torch.models.ifnet import IFNet
-from opticalflowscivis_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh, shard_batch
+from opticalflowscivis_tpu_torch.parallel.mesh import Mesh, shard_batch, trainer_mesh
 from opticalflowscivis_tpu_torch.parallel.multihost import local_device
+from opticalflowscivis_tpu_torch.parallel.spatial import DepthShard, volume_batch_sharding
 from opticalflowscivis_tpu_torch.training.checkpoint import restore_state, save_state
 from opticalflowscivis_tpu_torch.training.config import TrainConfig
 from opticalflowscivis_tpu_torch.training.schedule import warmup_cosine
@@ -125,29 +141,33 @@ def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
                     gt_flow_scale: float = 1.0, mesh: Mesh | None = None):
     """``(train_step, eval_step)`` over a ``TrainState`` and a device batch.
 
-    With a data-parallel ``mesh`` the train step takes the global batch, runs
-    on this rank's rows and averages the gradients and the parts over the
-    ranks; the eval step runs the whole batch it is given."""
+    With a ``mesh`` the train step takes the global batch, runs on this rank's
+    part (its rows; its depth slices too when ``mesh.spatial``) and averages
+    the gradients and the parts over the ranks; the eval step runs the whole
+    batch it is given."""
     ndim = cfg.model.ndim
+    shard = DepthShard(mesh) if mesh is not None and mesh.spatial else None
 
-    def losses(batch: torch.Tensor, mesh: Mesh | None = None):
+    def losses(batch: torch.Tensor, mesh: Mesh | None = None, shard: DepthShard | None = None):
         img0, img1, gt, gt_flow = split_batch(batch, ndim, has_flow)
         if gt_flow is not None and gt_flow_scale != 1.0:
             gt_flow = gt_flow * gt_flow_scale  # stored units → px/frame
-        out = model(_nchw(img0), _nchw(img1), _nchw(gt))
+        out = model(_nchw(img0), _nchw(img1), _nchw(gt), shard=shard)
         outputs = {k: v if k == "loss_distill" else _channels_last(v) for k, v in out.items()}
         loss, parts = rife_losses(
             outputs, img0, img1, gt, dict(model.named_parameters()), cfg.loss, ndim,
-            gt_flow=gt_flow, fast_warp_r=cfg.model.fast_warp_r, mesh=mesh,
+            gt_flow=gt_flow, fast_warp_r=cfg.model.fast_warp_r, mesh=mesh, shard=shard,
         )
         return loss, parts, outputs
 
     def train_step(state: TrainState, batch: torch.Tensor) -> dict[str, torch.Tensor]:
         """One update of ``state`` in place; returns the detached loss parts."""
         state.optimizer.zero_grad(set_to_none=True)
-        if mesh is not None:
+        if shard is not None:
+            batch = volume_batch_sharding(batch, mesh, n_leading=2)
+        elif mesh is not None:
             batch = shard_batch(batch, mesh)
-        loss, parts, _ = losses(batch, mesh)
+        loss, parts, _ = losses(batch, mesh, shard)
         loss.backward()
         if mesh is not None:
             mesh.average_gradients(model.parameters())
@@ -176,12 +196,13 @@ def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
 
 class Trainer:
     """End-to-end RIFE trainer (2-D and 3-D by config).  Runs on ``cuda`` unless
-    ``device="cpu"``; data-parallel on ``cuda:LOCAL_RANK`` under a process group."""
+    ``device="cpu"``; data-parallel or spatially sharded on ``cuda:LOCAL_RANK``
+    under a process group."""
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device | None = None):
         cfg.validate()
         self.cfg = cfg
-        self.mesh = data_parallel_mesh(cfg.n_data)
+        self.mesh = trainer_mesh(cfg.n_data, cfg.n_space, cfg.spatial_shard)
         self.n_data = 1 if self.mesh is None else self.mesh.n_data
         self.device = resolve_device(device) if self.mesh is None else local_device(device)
         if cfg.debug_nans:

@@ -11,7 +11,8 @@
   and the UPFlow step's parts and gradients, the fit's ``loss.json`` and its
   checkpoint, with the occlusion-normalised photometric term and census on a
   batch with occlusion;
-- the refusals: ``n_data`` without a process group, spatial sharding (A.12b).
+- the refusals: ``n_data`` or ``n_space`` without a process group, an
+  ``n_space`` below 1, a depth that does not split over the space ranks.
 
 Each multi-process case starts its ranks as subprocesses with one torch
 thread each, a ``file://`` rendezvous in ``tmp_path`` and a 120 s timeout on
@@ -37,7 +38,11 @@ from opticalflowscivis_tpu.parallel.spatial import (
 )
 from opticalflowscivis_tpu_torch.ops.kernels.warp import warp3d
 from opticalflowscivis_tpu_torch.parallel import Mesh, data_parallel_mesh
-from opticalflowscivis_tpu_torch.parallel.spatial import backward_warp3d_sharded, halo_exchange
+from opticalflowscivis_tpu_torch.parallel.spatial import (
+    backward_warp3d_sharded,
+    halo_exchange,
+    volume_batch_sharding,
+)
 from opticalflowscivis_tpu_torch.scripts import dryrun_dp
 from opticalflowscivis_tpu_torch.training import Trainer, TrainConfig, UPFlowTrainConfig, UPFlowTrainer
 
@@ -94,7 +99,11 @@ _SPATIAL_RANK = r"""
 import sys, torch
 torch.set_num_threads(1)
 from opticalflowscivis_tpu_torch.parallel import initialize_multihost, make_mesh
-from opticalflowscivis_tpu_torch.parallel.spatial import backward_warp3d_sharded, halo_exchange
+from opticalflowscivis_tpu_torch.parallel.spatial import (
+    backward_warp3d_sharded,
+    halo_exchange,
+    volume_batch_sharding,
+)
 rank, world, url, out, halo, zl, rz = sys.argv[1:8]
 rank, world, halo, zl, rz = int(rank), int(world), int(halo), int(zl), int(rz)
 initialize_multihost(url, world, rank, device="cpu", timeout_s=120)
@@ -389,7 +398,30 @@ def test_n_data_without_a_process_group_raises(tmp_path):
         UPFlowTrainer(UPFlowTrainConfig(n_data=2, exp_dir=str(tmp_path)), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"n_space": 2}, {"spatial_shard": True}])
-def test_spatial_sharding_waits_for_a12b(kw):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.12b"):
+@pytest.mark.parametrize("kw, error, match", [
+    ({"n_space": 2, "spatial_shard": True}, RuntimeError,
+     r"n_data=None, n_space=2 needs a default process group of 2 processes.*"
+     r"torchrun --nproc_per_node 2"),
+    ({"n_data": 2, "n_space": 2}, RuntimeError, r"of 4 processes.*--nproc_per_node 4"),
+    ({"n_space": 0}, ValueError, r"n_space must be >= 1"),
+])
+def test_spatial_sharding_without_its_mesh_raises(kw, error, match):
+    """A sharded run needs ``n_data * n_space`` processes and says how to
+    launch them; ``n_space`` below 1 is refused by the config."""
+    with pytest.raises(error, match=match):
         Trainer(dataclasses.replace(TrainConfig(), **kw), device="cpu")
+
+
+@pytest.mark.parametrize("n_leading", [1, 2])
+def test_depth_that_does_not_split_over_the_space_ranks_raises(n_leading):
+    """``volume_batch_sharding`` names what to change when the first spatial
+    axis does not split over ``n_space`` ranks, and cuts one that does."""
+    mesh = Mesh(1, 3, 2, spatial=True)  # the last of 3 space ranks; no group needed
+    shape = (2,) + (3,) * (n_leading - 1) + (16, 4, 1)
+    batch = np.arange(np.prod(shape)).reshape(shape)
+    with pytest.raises(ValueError, match=r"pad_multiple.*n_space"):
+        volume_batch_sharding(batch, mesh, n_leading)
+    cut = volume_batch_sharding(batch[(slice(None),) * n_leading + (slice(0, 15),)], mesh,
+                                n_leading)
+    want = batch[(slice(None),) * n_leading + (slice(10, 15),)]
+    np.testing.assert_array_equal(cut, want)

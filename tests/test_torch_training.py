@@ -396,8 +396,8 @@ def test_train_config_json_round_trip_and_jax_json_loads(tiny_setup):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    ({"n_space": 2}, NotImplementedError, r"A\.12b"),
-    ({"spatial_shard": True}, NotImplementedError, r"A\.12b"),
+    ({"n_space": 2, "spatial_shard": True}, RuntimeError, "torchrun"),
+    ({"n_space": 0}, ValueError, "n_space must be >= 1"),
     ({"compiler_options": {"xla_flag": "1"}}, ValueError, "XLA overrides"),
     ({"hbm_dataset_dtype": "float16"}, ValueError, "hbm_dataset_dtype"),
     ({"dataset": "rectangle3d"}, ValueError, "ndim"),
