@@ -1,0 +1,7 @@
+"""Device time of the convolution kernels in the traced sub-window of training, per sample."""
+
+from portbench import readers
+
+
+def read(record: dict):
+    return readers.conv_ms_per_sample(record, "train")

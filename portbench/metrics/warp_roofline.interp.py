@@ -1,0 +1,7 @@
+"""The forward warps' share of their roofline in interpolation, in the traced sub-window."""
+
+from portbench import readers
+
+
+def read(record: dict):
+    return readers.warp_roofline_pct(record, "interp")
