@@ -25,7 +25,7 @@ module layout so that each counterpart is found under the same path:
 - ``data``       — numpy generators, pipeline, dataset registry, the KITTI
   readers, samplers and frame store.
 - ``viz``        — flow colourings and the matplotlib panels.
-- ``utils``      — profiling (``trace``), ``StepTimer``, ``check_tensor``.
+- ``utils``      — profiling (``trace``, the ``ofs.`` spans), ``check_tensor``.
 
 Conventions at the public functions are the reference's: channels-last
 arrays and row-major flow, (dy, dx) in 2-D and (dz, dy, dx) in 3-D.

@@ -30,6 +30,7 @@ from opticalflowscivis_tpu_torch.device import resolve_device
 from opticalflowscivis_tpu_torch.models.ifnet import IFNet
 from opticalflowscivis_tpu_torch.ops.resize import resize_flow_nchw
 from opticalflowscivis_tpu_torch.ops.ssim import ssim
+from opticalflowscivis_tpu_torch.utils.profiling import span
 
 
 def _spatial_dims(x: torch.Tensor) -> tuple[int, ...]:
@@ -90,7 +91,7 @@ class Interpolator(_PaddedFrames):
         at the same timestep, and the un-mirrored merged frames are averaged;
         flow and mask stay from the primary pass.
         """
-        with torch.inference_mode():
+        with span("ofs.interpolate"), torch.inference_mode():
             merged, flow, mask = self._forward_plain(img0, img1, timestep)
             if self.tta:
                 spatial = _spatial_dims(img0)
@@ -219,6 +220,9 @@ def interpolate_series_device(
     forward on the device (level d fills the midpoints of all known pairs at
     gap ``factor / 2^d``), and the reconstruction downloads once.  The
     recursive-midpoint semantics are those of ``interpolate_recursive``.
+    Spans: ``ofs.series`` around the call, with ``ofs.series.upload``, one
+    ``ofs.series.level`` a bisection level, ``ofs.series.flows`` and
+    ``ofs.series.download`` (every copy to the host) inside it.
     """
     if factor < 2 or factor & (factor - 1):
         raise ValueError(f"factor must be a power of two >= 2, got {factor}")
@@ -228,23 +232,27 @@ def interpolate_series_device(
     padded, orig_shape = interp._pad(kept)
     n_out = (kept.shape[0] - 1) * factor + 1
     dev = interp.device
-    with torch.inference_mode():
-        src = interp._to_tensor(padded)
+    with span("ofs.series"), torch.inference_mode():
+        with span("ofs.series.upload"):
+            src = interp._to_tensor(padded)
         recon = torch.zeros((n_out,) + tuple(src.shape[1:]), dtype=torch.float32, device=dev)
         recon[::factor] = src
         gap = factor
         while gap > 1:
-            starts = torch.arange(0, n_out - 1, gap, device=dev)
-            merged, _, _ = interp.forward(recon[starts], recon[starts + gap], 0.5)
-            recon[starts + gap // 2] = merged.float()
+            with span("ofs.series.level"):
+                starts = torch.arange(0, n_out - 1, gap, device=dev)
+                merged, _, _ = interp.forward(recon[starts], recon[starts + gap], 0.5)
+                recon[starts + gap // 2] = merged.float()
             gap //= 2
 
-        crop = interp._crop(orig_shape)
-        flows = None
+        flow = None
         if collect_flow:
-            _, flow, _ = interp.forward(src[:-1], src[1:], 0.5)
-            flows = interp._to_numpy(flow)[crop]
-        return interp._to_numpy(recon)[crop], flows
+            with span("ofs.series.flows"):
+                _, flow, _ = interp.forward(src[:-1], src[1:], 0.5)
+        crop = interp._crop(orig_shape)
+        with span("ofs.series.download"):
+            flows = None if flow is None else interp._to_numpy(flow)[crop]
+            return interp._to_numpy(recon)[crop], flows
 
 
 def batched_pair_inference(

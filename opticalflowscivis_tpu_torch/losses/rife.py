@@ -9,6 +9,11 @@ but the distillation guard, which under data parallelism tests the global
 mean (``Mesh.batch_mean``).  On depth shards (``shard``) each term is this
 rank's share under the rule of ``parallel.spatial``, and the guard tests the
 mean over the whole mesh.
+
+Spans (``utils.profiling.span``): ``ofs.losses`` around the composition and
+``ofs.losses.<part>`` around each term computed (``l1``, ``tea``, ``reg``,
+``photo``, ``smooth``, ``flow``, ``leash``: its key in ``parts`` without
+``loss_``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from opticalflowscivis_tpu_torch.losses.basic import (
     smoothness_loss,
 )
 from opticalflowscivis_tpu_torch.ops.pyramid import lap_loss
+from opticalflowscivis_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,56 +108,65 @@ def rife_losses(
       (loss_G, dict of weighted components); the dict mirrors the 7-tuple
       appended to ``loss.json``.
     """
-    merged = outputs["merged"]
-    flow_list = outputs["flow_list"]
-    flow_teacher = outputs["flow_teacher"]
-    merged_teacher = outputs["merged_teacher"]
-    zero = torch.zeros((), dtype=torch.float32, device=gt.device)
+    with span("ofs.losses"):
+        merged = outputs["merged"]
+        flow_list = outputs["flow_list"]
+        flow_teacher = outputs["flow_teacher"]
+        merged_teacher = outputs["merged_teacher"]
+        zero = torch.zeros((), dtype=torch.float32, device=gt.device)
 
-    def recon(pred, target):
-        if weights.use_lap:
-            return lap_loss(pred, target, shard=shard)
-        return l1_loss(pred, target)
+        def recon(pred, target):
+            if weights.use_lap:
+                return lap_loss(pred, target, shard=shard)
+            return l1_loss(pred, target)
 
-    loss_l1 = recon(merged[-1], gt)
-    loss_tea = recon(merged_teacher, gt) if merged_teacher is not None else zero
+        with span("ofs.losses.l1"):
+            loss_l1 = recon(merged[-1], gt)
+        loss_tea = zero
+        if merged_teacher is not None:
+            with span("ofs.losses.tea"):
+                loss_tea = recon(merged_teacher, gt)
 
-    loss_distill = outputs["loss_distill"].float()
-    if mesh is not None:
-        loss_distill = mesh.batch_mean(loss_distill)  # the guard sees the global value
-    # NaN / overflow guard: a bad distill value is dropped, gradient included
-    loss_distill = torch.where(
-        torch.isnan(loss_distill) | (loss_distill > 10.0), zero, loss_distill
-    )
+        loss_distill = outputs["loss_distill"].float()
+        if mesh is not None:
+            loss_distill = mesh.batch_mean(loss_distill)  # the guard sees the global value
+        # NaN / overflow guard: a bad distill value is dropped, gradient included
+        loss_distill = torch.where(
+            torch.isnan(loss_distill) | (loss_distill > 10.0), zero, loss_distill
+        )
 
-    l1_reg = _block_param_l1(params) if weights.reg else zero
-    loss_photo = (
-        photometric_loss(merged[-1], flow_list[-1], img0, img1, ndim, fast_warp_r=fast_warp_r,
-                         shard=shard)
-        if weights.photo else zero
-    )
-    loss_smooth = smoothness_loss(flow_list[-1], shard) if weights.smooth else zero
-    loss_flow = (
-        flow_supervision(flow_list, flow_teacher, gt_flow, ndim)
-        if (weights.flow and gt_flow is not None) else zero
-    )
+        l1_reg = loss_photo = loss_smooth = loss_flow = zero
+        if weights.reg:
+            with span("ofs.losses.reg"):
+                l1_reg = _block_param_l1(params)
+        if weights.photo:
+            with span("ofs.losses.photo"):
+                loss_photo = photometric_loss(merged[-1], flow_list[-1], img0, img1, ndim,
+                                              fast_warp_r=fast_warp_r, shard=shard)
+        if weights.smooth:
+            with span("ofs.losses.smooth"):
+                loss_smooth = smoothness_loss(flow_list[-1], shard)
+        if weights.flow and gt_flow is not None:
+            with span("ofs.losses.flow"):
+                loss_flow = flow_supervision(flow_list, flow_teacher, gt_flow, ndim)
 
-    parts = {
-        "loss_l1": loss_l1 * weights.l1,
-        "loss_tea": loss_tea * weights.tea,
-        "loss_distill": loss_distill * weights.distill,
-        "l1_reg": l1_reg * weights.reg,
-        "loss_photo": loss_photo * weights.photo,
-        "loss_smooth": loss_smooth * weights.smooth,
-        "loss_flow": loss_flow * weights.flow,
-    }
-    if weights.flow_leash and weights.flow_leash_radius:
-        r = weights.flow_leash_radius
-        loss_leash = zero
-        for f in list(flow_list) + ([flow_teacher] if flow_teacher is not None else []):
-            excess = torch.relu(f.float().abs() - (r - 1.0))
-            loss_leash = loss_leash + (excess**2).mean()
-        parts["loss_leash"] = loss_leash * weights.flow_leash
-    loss_G = sum(parts.values())
-    parts["loss_G"] = loss_G
-    return loss_G, parts
+        parts = {
+            "loss_l1": loss_l1 * weights.l1,
+            "loss_tea": loss_tea * weights.tea,
+            "loss_distill": loss_distill * weights.distill,
+            "l1_reg": l1_reg * weights.reg,
+            "loss_photo": loss_photo * weights.photo,
+            "loss_smooth": loss_smooth * weights.smooth,
+            "loss_flow": loss_flow * weights.flow,
+        }
+        if weights.flow_leash and weights.flow_leash_radius:
+            with span("ofs.losses.leash"):
+                r = weights.flow_leash_radius
+                loss_leash = zero
+                for f in list(flow_list) + ([flow_teacher] if flow_teacher is not None else []):
+                    excess = torch.relu(f.float().abs() - (r - 1.0))
+                    loss_leash = loss_leash + (excess**2).mean()
+            parts["loss_leash"] = loss_leash * weights.flow_leash
+        loss_G = sum(parts.values())
+        parts["loss_G"] = loss_G
+        return loss_G, parts

@@ -47,6 +47,12 @@ A flow component at or beyond its radius carries no gradient through the warp.
 activations: the memory mode of 256³ training.  The warps lie outside the
 blocks and are not rerun, so the launch counts do not change.
 
+Spans (``utils.profiling.span``): ``ofs.ifnet`` around ``forward``,
+``ofs.block{i}`` around each block with its two warps, ``ofs.teacher``
+around the teacher's, ``ofs.distill`` around the merges and the
+distillation.  A block rerun under remat runs inside the backward of the
+block's own operations, on autograd's thread, and opens no span there.
+
 Depth-sharded (``forward(..., shard=DepthShard)``, spatially sharded
 training): the inputs are this rank's slices of the first spatial axis, and
 so are the outputs.
@@ -94,6 +100,7 @@ from opticalflowscivis_tpu_torch.models.refine import Contextnet, Unet
 from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp3d
 from opticalflowscivis_tpu_torch.ops.resize import resize_flow_nchw, resize_nchw
 from opticalflowscivis_tpu_torch.parallel.spatial import backward_warp3d_sharded
+from opticalflowscivis_tpu_torch.utils.profiling import span
 
 
 class _Head(nn.Module):
@@ -282,100 +289,106 @@ class IFNet(nn.Module):
     ) -> dict:
         """``shard`` (a ``parallel.spatial.DepthShard``): the inputs are this
         rank's depth shards, and so are the outputs (module docstring)."""
-        compute = img0.dtype if self.dtype is None else self.dtype
-        # the warp kernels read contiguous channels-first images
-        img0 = img0.to(compute).contiguous()
-        img1 = img1.to(compute).contiguous()
-        nd = self.ndim
-        if img0.dim() != nd + 2:
-            raise ValueError(f"a {nd}-D IFNet takes [B, C, *S] with {nd} spatial axes, "
-                             f"got {tuple(img0.shape)}")
+        with span("ofs.ifnet"):
+            compute = img0.dtype if self.dtype is None else self.dtype
+            # the warp kernels read contiguous channels-first images
+            img0 = img0.to(compute).contiguous()
+            img1 = img1.to(compute).contiguous()
+            nd = self.ndim
+            if img0.dim() != nd + 2:
+                raise ValueError(f"a {nd}-D IFNet takes [B, C, *S] with {nd} spatial axes, "
+                                 f"got {tuple(img0.shape)}")
 
-        def ts_channel() -> torch.Tensor:
-            t = torch.as_tensor(timestep, dtype=compute, device=img0.device)
-            if t.dim() == 1:
-                t = t.view((-1,) + (1,) * (nd + 1))
-            return t.expand((img0.shape[0], 1) + tuple(img0.shape[2:]))
+            def ts_channel() -> torch.Tensor:
+                t = torch.as_tensor(timestep, dtype=compute, device=img0.device)
+                if t.dim() == 1:
+                    t = t.view((-1,) + (1,) * (nd + 1))
+                return t.expand((img0.shape[0], 1) + tuple(img0.shape[2:]))
 
-        whole0 = whole1 = None  # the gather form warps the whole frames: gather each once
-        if shard is not None and not self.halo_warps(img0.shape[shard.dim]):
-            whole0, whole1 = shard.gather(img0), shard.gather(img1)
+            whole0 = whole1 = None  # the gather form warps the whole frames: gather each once
+            if shard is not None and not self.halo_warps(img0.shape[shard.dim]):
+                whole0, whole1 = shard.gather(img0), shard.gather(img1)
 
-        def warp(img, whole, f):
-            return self._warp(img, f) if shard is None else self._warp_sharded(img, whole, f, shard)
+            def warp(img, whole, f):
+                if shard is None:
+                    return self._warp(img, f)
+                return self._warp_sharded(img, whole, f, shard)
 
-        flow = mask = None
-        warped0, warped1 = img0, img1
-        flow_list, mask_list, merged = [], [], []
-        for i in range(self.n_blocks):
-            inp = [img0, img1] if flow is None else [img0, img1, warped0, warped1, mask]
-            if self.arbitrary_timestep:
-                inp.append(ts_channel())
-            block = getattr(self, f"block{i}")
-            flow_d, mask_d = self._block(block, torch.cat(inp, dim=1), flow, self.scales[i],
-                                         shard)
-            flow = flow_d if flow is None else flow + flow_d
-            mask = mask_d if mask is None else mask + mask_d
-            flow_list.append(flow)
-            mask_list.append(torch.sigmoid(mask))
-            warped0 = warp(img0, whole0, flow[:, :nd])  # F_t→0 samples img0
-            warped1 = warp(img1, whole1, flow[:, nd:])  # F_t→1 samples img1
-            merged.append((warped0, warped1))
+            flow = mask = None
+            warped0, warped1 = img0, img1
+            flow_list, mask_list, merged = [], [], []
+            for i in range(self.n_blocks):
+                with span(f"ofs.block{i}"):
+                    inp = [img0, img1] if flow is None else [img0, img1, warped0, warped1, mask]
+                    if self.arbitrary_timestep:
+                        inp.append(ts_channel())
+                    block = getattr(self, f"block{i}")
+                    flow_d, mask_d = self._block(block, torch.cat(inp, dim=1), flow,
+                                                 self.scales[i], shard)
+                    flow = flow_d if flow is None else flow + flow_d
+                    mask = mask_d if mask is None else mask + mask_d
+                    flow_list.append(flow)
+                    mask_list.append(torch.sigmoid(mask))
+                    warped0 = warp(img0, whole0, flow[:, :nd])  # F_t→0 samples img0
+                    warped1 = warp(img1, whole1, flow[:, nd:])  # F_t→1 samples img1
+                    merged.append((warped0, warped1))
 
-        flow_teacher = merged_teacher = None
-        loss_distill = torch.zeros((), dtype=torch.float32, device=img0.device)
-        if gt is not None:
-            gt = gt.to(compute)
-            tea_inp = [img0, img1, warped0, warped1, mask, gt]
-            if self.arbitrary_timestep:
-                tea_inp.append(ts_channel())
-            flow_d, mask_d = self._block(self.block_tea, torch.cat(tea_inp, dim=1), flow,
-                                         self.teacher_scale, shard)
-            flow_teacher = flow + flow_d
-            w0_tea = warp(img0, whole0, flow_teacher[:, :nd])
-            w1_tea = warp(img1, whole1, flow_teacher[:, nd:])
-            mask_teacher = torch.sigmoid(mask + mask_d)
-            merged_teacher = w0_tea * mask_teacher + w1_tea * (1 - mask_teacher)
-
-        merged_out = []
-        for i in range(self.n_blocks):
-            m = merged[i][0] * mask_list[i] + merged[i][1] * (1 - mask_list[i])
-            merged_out.append(m)
+            flow_teacher = merged_teacher = None
+            loss_distill = torch.zeros((), dtype=torch.float32, device=img0.device)
             if gt is not None:
-                # masked RMSE toward the teacher's flow wherever the student's
-                # reconstruction is worse than the teacher's by > 0.01
-                err_stu = (m - gt).abs().mean(dim=1, keepdim=True)
-                err_tea = (merged_teacher - gt).abs().mean(dim=1, keepdim=True)
-                worse = (err_stu > err_tea + 0.01).float().detach()
-                # eps inside the sqrt: the bare sqrt has an infinite gradient
-                # where student and teacher flows agree
-                rmse = torch.sqrt(
-                    ((flow_teacher.detach() - flow_list[i]).float() ** 2)
-                    .mean(dim=1, keepdim=True)
-                    + 1e-12
-                )
-                loss_distill = loss_distill + (rmse * worse).mean()
+                with span("ofs.teacher"):
+                    gt = gt.to(compute)
+                    tea_inp = [img0, img1, warped0, warped1, mask, gt]
+                    if self.arbitrary_timestep:
+                        tea_inp.append(ts_channel())
+                    flow_d, mask_d = self._block(self.block_tea, torch.cat(tea_inp, dim=1),
+                                                 flow, self.teacher_scale, shard)
+                    flow_teacher = flow + flow_d
+                    w0_tea = warp(img0, whole0, flow_teacher[:, :nd])
+                    w1_tea = warp(img1, whole1, flow_teacher[:, nd:])
+                    mask_teacher = torch.sigmoid(mask + mask_d)
+                    merged_teacher = w0_tea * mask_teacher + w1_tea * (1 - mask_teacher)
 
-        if self.refine:
-            inputs = (img0, img1, warped0, warped1, mask, flow)
-            if shard is not None:  # whole on gathered inputs, the residual cut back
-                inputs = tuple(shard.gather(t) for t in inputs)
-            i0, i1, w0, w1, mk, fl = inputs
-            c0 = self.contextnet(i0, fl[:, :nd])
-            c1 = self.contextnet(i1, fl[:, nd:])
-            res = self.unet(i0, i1, w0, w1, mk, fl, c0, c1)
-            if shard is not None:
-                res = shard.scatter(res)
-            merged_out[-1] = torch.clamp(merged_out[-1] + (res * 2 - 1), 0, 1)
+            with span("ofs.distill"):  # the merges, and the distillation toward the teacher
+                merged_out = []
+                for i in range(self.n_blocks):
+                    m = merged[i][0] * mask_list[i] + merged[i][1] * (1 - mask_list[i])
+                    merged_out.append(m)
+                    if gt is not None:
+                        # masked RMSE toward the teacher's flow wherever the student's
+                        # reconstruction is worse than the teacher's by > 0.01
+                        err_stu = (m - gt).abs().mean(dim=1, keepdim=True)
+                        err_tea = (merged_teacher - gt).abs().mean(dim=1, keepdim=True)
+                        worse = (err_stu > err_tea + 0.01).float().detach()
+                        # eps inside the sqrt: the bare sqrt has an infinite gradient
+                        # where student and teacher flows agree
+                        rmse = torch.sqrt(
+                            ((flow_teacher.detach() - flow_list[i]).float() ** 2)
+                            .mean(dim=1, keepdim=True)
+                            + 1e-12
+                        )
+                        loss_distill = loss_distill + (rmse * worse).mean()
 
-        return {
-            "flow_list": flow_list,
-            "mask_list": mask_list,
-            "merged": merged_out,
-            "flow_teacher": flow_teacher,
-            "merged_teacher": merged_teacher,
-            "loss_distill": loss_distill,
-        }
+            if self.refine:
+                inputs = (img0, img1, warped0, warped1, mask, flow)
+                if shard is not None:  # whole on gathered inputs, the residual cut back
+                    inputs = tuple(shard.gather(t) for t in inputs)
+                i0, i1, w0, w1, mk, fl = inputs
+                c0 = self.contextnet(i0, fl[:, :nd])
+                c1 = self.contextnet(i1, fl[:, nd:])
+                res = self.unet(i0, i1, w0, w1, mk, fl, c0, c1)
+                if shard is not None:
+                    res = shard.scatter(res)
+                merged_out[-1] = torch.clamp(merged_out[-1] + (res * 2 - 1), 0, 1)
+
+            return {
+                "flow_list": flow_list,
+                "mask_list": mask_list,
+                "merged": merged_out,
+                "flow_teacher": flow_teacher,
+                "merged_teacher": merged_teacher,
+                "loss_distill": loss_distill,
+            }
 
 
 def ifnet_2d(

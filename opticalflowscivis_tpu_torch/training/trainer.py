@@ -80,6 +80,7 @@ from opticalflowscivis_tpu_torch.parallel.spatial import DepthShard, volume_batc
 from opticalflowscivis_tpu_torch.training.checkpoint import restore_state, save_state
 from opticalflowscivis_tpu_torch.training.config import TrainConfig
 from opticalflowscivis_tpu_torch.training.schedule import warmup_cosine
+from opticalflowscivis_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -162,22 +163,26 @@ def make_train_step(model: IFNet, cfg: TrainConfig, has_flow: bool,
 
     def train_step(state: TrainState, batch: torch.Tensor) -> dict[str, torch.Tensor]:
         """One update of ``state`` in place; returns the detached loss parts."""
-        state.optimizer.zero_grad(set_to_none=True)
-        if shard is not None:
-            batch = volume_batch_sharding(batch, mesh, n_leading=2)
-        elif mesh is not None:
-            batch = shard_batch(batch, mesh)
-        loss, parts, _ = losses(batch, mesh, shard)
-        loss.backward()
-        if mesh is not None:
-            mesh.average_gradients(model.parameters())
-        if cfg.optim.grad_clip:
-            torch.nn.utils.clip_grad_norm_(model.parameters(), cfg.optim.grad_clip)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        parts = {k: v.detach() for k, v in parts.items()}
-        return parts if mesh is None else mesh.mean_values(parts)
+        with span("ofs.train_step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            if shard is not None:
+                batch = volume_batch_sharding(batch, mesh, n_leading=2)
+            elif mesh is not None:
+                batch = shard_batch(batch, mesh)
+            loss, parts, _ = losses(batch, mesh, shard)
+            with span("ofs.backward"):
+                loss.backward()
+            if mesh is not None:
+                with span("ofs.allreduce"):
+                    mesh.average_gradients(model.parameters())
+            with span("ofs.optimizer"):
+                if cfg.optim.grad_clip:
+                    torch.nn.utils.clip_grad_norm_(model.parameters(), cfg.optim.grad_clip)
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            parts = {k: v.detach() for k, v in parts.items()}
+            return parts if mesh is None else mesh.mean_values(parts)
 
     def eval_step(state: TrainState, batch: torch.Tensor):
         with torch.no_grad():

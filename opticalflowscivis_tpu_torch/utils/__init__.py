@@ -1,5 +1,5 @@
-"""Utility subsystems: profiling/tracing, timers, debug helpers."""
+"""Utility subsystems: profiling/tracing with the port's spans, debug helpers."""
 
-from opticalflowscivis_tpu_torch.utils.profiling import StepTimer, check_tensor, trace
+from opticalflowscivis_tpu_torch.utils.profiling import check_tensor, span, spans, trace
 
-__all__ = ["StepTimer", "check_tensor", "trace"]
+__all__ = ["check_tensor", "span", "spans", "trace"]

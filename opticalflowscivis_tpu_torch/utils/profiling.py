@@ -1,27 +1,60 @@
-"""Profiling, timing and debug helpers over ``torch.profiler``.
+"""Profiling and debug helpers over ``torch.profiler``.
 
 - ``trace``: context manager that profiles the enclosed block (host and, on
   a GPU, device activity) and writes a Chrome trace (``chrome://tracing``,
-  Perfetto) into ``log_dir``.
-- ``StepTimer``: step-rate meter that waits for the device only when it
-  samples, so that timing does not serialize the launch queue.
+  Perfetto) into ``log_dir``; the port's spans are on inside it.
+- ``span``: a named span at one of the port's layer boundaries (all names
+  start with ``ofs.``).  While spans are on it is a
+  ``torch.profiler.record_function``, which lands in whatever profiler
+  session is running as a ``user_annotation`` event on the clock of the
+  device's activity; while they are off it is one shared no-op.
+- ``spans``: turns the spans on (or off) for its extent.
 - ``check_tensor``: prints a tensor's shape, min, max, mean and whether it
   holds a NaN.
+
+A span never synchronises, allocates a tensor or reads a device value.  Its
+parent is the span that encloses it on its thread; a step or request is
+one instance of its top-level span (``ofs.train_step``, ``ofs.series``,
+``ofs.interpolate``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+
+_OFF = contextlib.nullcontext()
+# the switch is the process's, not a thread's: autograd's threads run the
+# backward of a step whose spans the caller turned on
+_on = False
+
+
+def span(name: str):
+    """``with span('ofs.losses'): ...``; free while spans are off."""
+    if not _on:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def spans(enabled: bool = True):
+    """Spans on (``enabled``) or off for the enclosed block; the previous
+    state comes back after it."""
+    global _on
+    before, _on = _on, enabled
+    try:
+        yield
+    finally:
+        _on = before
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "torch-trace"):
-    """Profile the enclosed block: ``with trace('tb') as path: step(...)``
-    leaves the Chrome trace at ``path`` (``<log_dir>/trace.json``)."""
+    """Profile the enclosed block with the spans on: ``with trace('tb') as
+    path: step(...)`` leaves the Chrome trace at ``path``
+    (``<log_dir>/trace.json``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -29,48 +62,11 @@ def trace(log_dir: str = "torch-trace"):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, spans():
         yield path
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
-
-
-class StepTimer:
-    """Rolling steps-per-second meter."""
-
-    def __init__(self, sample_every: int = 50):
-        self.sample_every = sample_every
-        self.t0 = time.perf_counter()
-        self.steps = 0
-        self.rate = 0.0
-
-    def tick(self, result=None) -> float | None:
-        """Count one step; every ``sample_every`` steps, wait for ``result``
-        (a tensor, or a dict / list / tuple of them) to be computed and
-        return the steps per second since the last sample."""
-        self.steps += 1
-        if self.steps % self.sample_every:
-            return None
-        if result is not None:
-            _synchronize(result)
-        now = time.perf_counter()
-        self.rate = self.sample_every / (now - self.t0)
-        self.t0 = now
-        return self.rate
-
-
-def _synchronize(result) -> None:
-    """Wait for the devices that hold ``result``'s tensors."""
-    if isinstance(result, torch.Tensor):
-        if result.device.type == "cuda":
-            torch.cuda.synchronize(result.device)
-    elif isinstance(result, dict):
-        for v in result.values():
-            _synchronize(v)
-    elif isinstance(result, (list, tuple)):
-        for v in result:
-            _synchronize(v)
 
 
 def check_tensor(x: torch.Tensor, name: str = "tensor") -> None:

@@ -1,0 +1,9 @@
+"""Synchronising CUDA calls (``spans.SYNC_CALLS``) made inside
+``ofs.train_step`` in a traced sub-window of training with the spans on, per
+step."""
+
+from portbench import spans
+
+
+def read(record: dict):
+    return spans.train_step_per_step(record, "syncs")

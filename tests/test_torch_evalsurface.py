@@ -1,8 +1,8 @@
 """PyTorch port: the evaluation surface against the JAX package.
 
-Twins of ``tests/test_aux.py``'s selection and timer cases and of
+Twins of ``tests/test_aux.py``'s selection cases and of
 ``tests/test_evalsuite.py``'s viz smoke: time-step selection and its curve
-equal the reference's; ``StepTimer``, ``check_tensor`` and ``trace`` over
+equal the reference's; ``check_tensor`` and ``trace`` over
 ``torch.profiler``; the flow colourings equal the reference's and every panel
 writes its file; the ``select`` verb with ``--linear`` (its report equals the
 reference CLI's) and with a trained checkpoint; the panels the verbs draw,
@@ -31,7 +31,7 @@ from opticalflowscivis_tpu_torch.evalsuite import (
 )
 from opticalflowscivis_tpu_torch.losses import RIFELossWeights
 from opticalflowscivis_tpu_torch.training import ModelConfig, OptimConfig, TrainConfig
-from opticalflowscivis_tpu_torch.utils import StepTimer, check_tensor, trace
+from opticalflowscivis_tpu_torch.utils import check_tensor, trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -82,15 +82,6 @@ def test_selection_curve_equals_the_reference():
 
 
 # -- profiling ---------------------------------------------------------------------------
-
-
-def test_step_timer_samples_every_n_steps():
-    t = StepTimer(sample_every=2)
-    assert t.tick() is None
-    rate = t.tick(torch.zeros(()))
-    assert rate is not None and rate > 0 and t.rate == rate
-    assert t.tick({"a": torch.ones(2), "b": [torch.ones(1)]}) is None
-    assert t.tick((torch.ones(1),)) > 0
 
 
 def test_check_tensor_prints_its_statistics(capsys):
