@@ -7,17 +7,32 @@ in both packages (the port through the bridge, on the CPU).  Frames are
 - bisection series 1e-4: predicted frames feed the next level's forwards;
 - metrics 1e-4 on SSIM (float32 variance terms cancel at 255 range), exact
   for the numpy-only functions.
+
+The series job's staging ring is held bit for bit to the plain pageable
+download of the same device tensors: on the CPU through slots smaller than a
+frame, and on a card (``cuda``; on a host without JAX run
+``python -m pytest --noconftest tests/test_torch_inference.py -m cuda``).
 """
 
-import jax
-import jax.numpy as jnp
+import contextlib
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
 
-from opticalflowscivis_tpu import inference as jinf
-from opticalflowscivis_tpu.evalsuite import metrics as jmetrics
-from opticalflowscivis_tpu.models import IFNet as JaxIFNet
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from opticalflowscivis_tpu import inference as jinf
+    from opticalflowscivis_tpu.evalsuite import metrics as jmetrics
+    from opticalflowscivis_tpu.models import IFNet as JaxIFNet
+except ModuleNotFoundError:  # a host without JAX runs the ``cuda`` test alone
+    jax = None
+
 from opticalflowscivis_tpu_torch import inference as tinf
 from opticalflowscivis_tpu_torch.bridge import ifnet_params_from_flax
 from opticalflowscivis_tpu_torch.evalsuite import metrics as tmetrics
@@ -86,6 +101,179 @@ def test_series_device_path_matches_jax(interps):
     np.testing.assert_allclose(out, ref, atol=SERIES_TOL)
     np.testing.assert_allclose(flows, ref_flows, atol=SERIES_TOL)
     np.testing.assert_array_equal(out[::4], frames[::4])
+
+
+def _pageable_series(interp, frames, factor):
+    """The series job as it downloaded before the staging ring: the same
+    forwards on the device, then ``_to_numpy`` of the reconstruction and the
+    flows, cropped."""
+    kept = np.asarray(frames[::factor], np.float32)
+    padded, orig_shape = interp._pad(kept)
+    n_out = (kept.shape[0] - 1) * factor + 1
+    with torch.inference_mode():
+        src = interp._to_tensor(padded)
+        recon = torch.zeros((n_out,) + tuple(src.shape[1:]), device=interp.device)
+        recon[::factor] = src
+        gap = factor
+        while gap > 1:
+            starts = torch.arange(0, n_out - 1, gap, device=interp.device)
+            merged, _, _ = interp.forward(recon[starts], recon[starts + gap], 0.5)
+            recon[starts + gap // 2] = merged.float()
+            gap //= 2
+        _, flow, _ = interp.forward(src[:-1], src[1:], 0.5)
+        crop = interp._crop(orig_shape)
+        return interp._to_numpy(recon)[crop], interp._to_numpy(flow)[crop]
+
+
+# a 64x96 padded frame is 24576 bytes: 1000 and 24000 put chunk boundaries
+# inside frames and wrap the ring within a level; the default moves a level
+# in one chunk
+@pytest.mark.parametrize("slot_bytes,slots", [(1000, 3), (24000, 2),
+                                               (tinf.STAGE_SLOT_BYTES, tinf.STAGE_SLOTS)],
+                         ids=["1000x3", "24000x2", "default"])
+def test_series_staging_ring_matches_the_pageable_download(interps, slot_bytes, slots):
+    """Factor 4 on 9 frames of 50x70 (padded to 64x96): each level's rows
+    ``starts + gap // 2``, the kept frames and the flows equal the plain
+    download bit for bit, through slots smaller than a frame."""
+    _, interp = interps[False]
+    interp = tinf.Interpolator(interp.model, pad_multiple=32, device="cpu")
+    interp._ring = tinf._StagingRing(interp.device, slot_bytes, slots)
+    frames = _frames(13, 9)
+    recon, flows = tinf.interpolate_series_device(interp, frames, 4, collect_flow=True)
+    ref, ref_flows = _pageable_series(interp, frames, 4)
+    assert recon.shape == ref.shape == (9, H, W, 1) and flows.shape == (2, H, W, 4)
+    for gap in (4, 2):
+        np.testing.assert_array_equal(recon[gap // 2:-1:gap], ref[gap // 2:-1:gap])
+    np.testing.assert_array_equal(recon[::4], frames[::4])
+    np.testing.assert_array_equal(flows, ref_flows)
+    assert recon.flags.owndata and flows.flags.owndata
+    assert interp._ring.slots.shape == (slots, slot_bytes)
+
+
+@pytest.mark.parametrize("shape,crop,slot_bytes,layout", [
+    ((5, 3, 8, 12), (5, 3, 7, 9), 40, "apart"),
+    ((4, 2, 6, 8, 10), (4, 2, 5, 8, 7), 136, "apart"),
+    ((3, 4, 6, 10), (3, 4, 6, 10), 1 << 12, "apart"),
+    ((4, 4, 6, 10), (4, 4, 5, 7), 56, "channels_last"),
+], ids=["2d-c3", "3d-c2", "whole", "channels-last"])
+def test_staging_ring_moves_rows_into_cropped_destinations(shape, crop, slot_bytes, layout):
+    """The ring on the CPU: a bf16 tensor whose rows lie apart (every other
+    row of a larger one) or whose channels are innermost lands widened into
+    a cropped float32 destination, and a host array uploads unchanged,
+    through slots of a few lines."""
+    ring = tinf._StagingRing(torch.device("cpu"), slot_bytes, 3)
+    if layout == "apart":
+        rows = torch.randn((2 * shape[0],) + shape[1:]).to(torch.bfloat16)[1::2]
+    else:
+        rows = torch.randn(shape).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dst = torch.empty(crop)
+    ring.download(rows, dst)
+    ring.drain()
+    index = tuple(slice(0, c) for c in crop)
+    torch.testing.assert_close(dst, rows[index].float(), rtol=0, atol=0)
+    host = np.random.default_rng(3).uniform(0, 1, shape).astype(np.float32)
+    np.testing.assert_array_equal(ring.upload(host).numpy(), host)
+
+
+def test_staging_ring_thread_lands_every_chunk_under_contention(monkeypatch):
+    """The ring's thread on the CPU (CUDA's events and stream stood in for by
+    no-ops; the copies are synchronous): rounds of three downloads through 3
+    slots of a few lines, with the interpreter switching threads every
+    microsecond, land every element where it belongs, after the page
+    reservation and before the next round, and hand every slot back."""
+
+    class Event:
+        def record(self, stream=None):
+            pass
+
+        def synchronize(self):
+            pass
+
+    class Stream:
+        def wait_event(self, event):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    ring = tinf._StagingRing(torch.device("cpu"), 136, 3)
+    ring.stream, ring.events = Stream(), [Event() for _ in range(3)]
+    ring.worker = ThreadPoolExecutor(1)
+    gen = torch.Generator().manual_seed(0)
+    failures = []
+
+    def rounds():
+        try:
+            for _ in range(20):
+                rows = [torch.randn((8, 3, 6, 10), generator=gen)[1::2] for _ in range(3)]
+                dsts = [torch.empty(4, 3, 5, 9) for _ in rows]
+                host = np.full(40, 7.0, np.float32)
+                ring.reserve(host)  # zeroes what the copy below then overwrites
+                ring.host_copy(torch.from_numpy(host)[:5], torch.ones(5))
+                for r, d in zip(rows, dsts):
+                    ring.download(r, d)
+                ring.drain()
+                for r, d in zip(rows, dsts):
+                    assert torch.equal(d, r[:, :, :5, :9])
+                assert (host[:5] == 1).all() and ring.free.qsize() == 3
+        except Exception as e:  # reported by the test's thread
+            failures.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        t = threading.Thread(target=rounds)
+        t.start()
+        t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+        ring.worker.shutdown(wait=False)
+    assert not t.is_alive() and failures == []
+
+
+@pytest.mark.cuda
+def test_series_staging_ring_on_the_card_matches_the_pageable_download():
+    """On the card, factor 8 with the flows on 33 frames of 50x70, bf16
+    compute, through 3 slots of 24000 bytes (under a 64x96 frame: the ring
+    wraps within every level): each level's rows and the flows equal
+    ``_to_numpy`` of the very device tensors the call queued (cuDNN's
+    kernels need not repeat a forward bit for bit), the results own their
+    memory, and a second call leaves the first call's arrays as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.manual_seed(0)
+    net = IFNet(fast_warp_r=16, dtype=torch.bfloat16, device="cuda", **NARROW)
+    interp = tinf.Interpolator(net, pad_multiple=32, device="cuda")
+    ring = interp._ring = tinf._StagingRing(interp.device, 24000, 3)
+    queued = []
+    download = ring.download
+
+    def spy(rows, dst):
+        queued.append(rows.clone())
+        download(rows, dst)
+
+    ring.download = spy
+    frames, other = _frames(14, 33), _frames(15, 33)
+    recon, flows = tinf.interpolate_series_device(interp, frames, 8, collect_flow=True)
+    assert recon.shape == (33, H, W, 1) and flows.shape == (4, H, W, 4)
+    crop = (slice(None), slice(0, H), slice(0, W))
+    assert len(queued) == 4  # the levels at gaps 8, 4, 2, then the flows
+    for gap, rows in zip((8, 4, 2), queued):
+        np.testing.assert_array_equal(recon[gap // 2:-1:gap], interp._to_numpy(rows)[crop])
+    np.testing.assert_array_equal(recon[::8], frames[::8])
+    np.testing.assert_array_equal(flows, interp._to_numpy(queued[3])[crop])
+    kept = recon.copy(), flows.copy()
+    recon2, flows2 = tinf.interpolate_series_device(interp, other, 8, collect_flow=True)
+    np.testing.assert_array_equal(recon2[::8], other[::8])
+    np.testing.assert_array_equal(flows2, interp._to_numpy(queued[7])[crop])
+    np.testing.assert_array_equal(recon, kept[0])
+    np.testing.assert_array_equal(flows, kept[1])
+    assert ring.stream is not None and ring.slots.is_pinned()
+    pinned = ring.slots.numpy()
+    for a in (recon, flows):
+        for b in (recon2, flows2, pinned):
+            assert not np.shares_memory(a, b)
+    assert not np.shares_memory(recon2, pinned) and not np.shares_memory(flows2, pinned)
 
 
 def test_series_host_path_with_ssim_gate_matches_jax(interps):

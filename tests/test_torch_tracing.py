@@ -95,11 +95,17 @@ def test_a_series_call_and_a_request_under_trace_nest_their_spans(trainer, tmp_p
     tree = _span_tree(path)
     request = [("ofs.interpolate", "ofs.series.level"), ("ofs.ifnet", "ofs.interpolate")] + [
         (f"ofs.block{i}", "ofs.ifnet") for i in range(3)] + [("ofs.distill", "ofs.ifnet")]
-    level = [("ofs.series.level", "ofs.series")] + request
+    download = [("ofs.series.download", "ofs.series")]
+    level = [("ofs.series.level", "ofs.series")] + request + download
     flows_spans = [(n, "ofs.series.flows" if p == "ofs.series.level" else p) for n, p in request]
-    assert tree == ([("ofs.series", None), ("ofs.series.upload", "ofs.series")] + level + level
-                    + [("ofs.series.flows", "ofs.series")] + flows_spans
-                    + [("ofs.series.download", "ofs.series")])
+    # one download a level and one for the flows, then the wait for them all
+    calls = [("ofs.series.upload", "ofs.series")] + level + level + [
+        ("ofs.series.flows", "ofs.series")] + flows_spans + download + download
+    # the staging ring is allocated at the interpolator's first call alone
+    assert tree == [("ofs.series", None), ("ofs.series.stage", "ofs.series")] + calls
+    with trace(str(tmp_path / "series2")) as path:
+        interpolate_series_device(interp, frames, 4, collect_flow=True)
+    assert _span_tree(path) == [("ofs.series", None)] + calls
 
     x = torch.from_numpy(frames[:2]).movedim(-1, 1)
     with trace(str(tmp_path / "pair")) as path:
