@@ -30,6 +30,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from opticalflowscivis_tpu_torch.utils.profiling import span
+
 _FLO_MAGIC = 202021.25
 
 
@@ -212,7 +214,8 @@ class KittiHBMCache:
     sequence.  ``pair_idx [P, 2]`` indexes ``frames``.
 
     The constructor reads and normalizes the files; ``from_frames`` builds
-    the cache from frames already in memory.
+    the cache from frames already in memory; ``for_store`` builds the index
+    side alone, for frames made on the device.
     """
 
     def __init__(self, image_dir: str, max_pairs: int | None = 1000,
@@ -244,14 +247,30 @@ class KittiHBMCache:
         cache._build(frames, pairs, crop, rho)
         return cache
 
+    @classmethod
+    def for_store(cls, frame_shape: Sequence[int], pair_idx, crop: tuple[int, int] = (256, 832),
+                  rho: int = 8) -> "KittiHBMCache":
+        """The draws of a store that already lies on the device: ``frame_shape``
+        ``(F, H, W, 3)``, the store's, and ``pair_idx [P, 2]``, indices into
+        it.  ``frames`` is None, so ``UPFlowTrainer.kitti_store`` cannot
+        upload it; ``draw`` and ``kitti_batch`` work as on any cache."""
+        cache = cls.__new__(cls)
+        cache.frames = None
+        cache._index(tuple(frame_shape), pair_idx, crop, rho)
+        return cache
+
     def _build(self, frames, pairs, crop, rho) -> None:
         used = sorted({int(i) for pr in pairs for i in pr})
         index = {i: k for k, i in enumerate(used)}
         hmin = min(frames[i].shape[0] for i in used)
         wmin = min(frames[i].shape[1] for i in used)
         self.frames = np.stack([frames[i][:hmin, :wmin] for i in used])
-        self.pair_idx = np.asarray([(index[int(a)], index[int(b)]) for a, b in pairs],
-                                   np.int32)
+        self._index(self.frames.shape, [(index[int(a)], index[int(b)]) for a, b in pairs],
+                    crop, rho)
+
+    def _index(self, frame_shape, pair_idx, crop, rho) -> None:
+        self.frame_shape = tuple(frame_shape)
+        self.pair_idx = np.asarray(pair_idx, np.int32).reshape(-1, 2)
         self.crop = tuple(crop)
         self.rho = rho
 
@@ -265,7 +284,7 @@ class KittiHBMCache:
         of the batch before its x offsets)."""
         ch, cw = self.crop
         rho = self.rho
-        fh, fw = self.frames.shape[1:3]
+        fh, fw = self.frame_shape[1:3]
         pid = self.pair_idx[rng.integers(len(self.pair_idx), size=batch)]
         offs = np.stack([
             rng.integers(rho, max(fh - ch - rho, rho) + 1, size=batch),
@@ -289,25 +308,27 @@ def device_batch(store: torch.Tensor, pid: torch.Tensor, offs: torch.Tensor,
     columns run backwards where ``flip`` is set, so that the crop is the
     window's interior either way.  ``swap`` exchanges the two frames.
     Returns ``im1``, ``im2``, ``im1_raw``, ``im2_raw`` and ``start`` [B, 2] =
-    (rho, rho), as ``KittiPairDataset.sample`` does.
+    (rho, rho), as ``KittiPairDataset.sample`` does.  The cut runs in the
+    span ``ofs.kitti_batch``.
     """
     ch, cw = crop
     fh, fw = store.shape[1:3]
     if fh < ch + 2 * rho or fw < cw + 2 * rho:
         raise ValueError(f"frames {fh}x{fw} are smaller than the crop {ch}x{cw} "
                          f"with its margin of {rho}")
-    dev = store.device
-    pid, offs = pid.to(dev, torch.int64), offs.to(dev, torch.int64)
-    flip, swap = flip.to(dev, torch.bool), swap.to(dev, torch.bool)
-    rows = offs[:, :1] - rho + torch.arange(ch + 2 * rho, device=dev)  # [B, RH]
-    cols = offs[:, 1:] - rho + torch.arange(cw + 2 * rho, device=dev)  # [B, RW]
-    cols = torch.where(flip[:, None], cols.flip(-1), cols)
-    first = torch.where(swap, pid[:, 1], pid[:, 0])
-    second = torch.where(swap, pid[:, 0], pid[:, 1])
-    out = {}
-    for name, frame in (("im1", first), ("im2", second)):
-        raw = store[frame[:, None, None], rows[:, :, None], cols[:, None, :]].float()
-        out[f"{name}_raw"] = raw
-        out[name] = raw[:, rho : rho + ch, rho : rho + cw].contiguous()
-    out["start"] = torch.full((pid.shape[0], 2), float(rho), device=dev)
-    return out
+    with span("ofs.kitti_batch"):
+        dev = store.device
+        pid, offs = pid.to(dev, torch.int64), offs.to(dev, torch.int64)
+        flip, swap = flip.to(dev, torch.bool), swap.to(dev, torch.bool)
+        rows = offs[:, :1] - rho + torch.arange(ch + 2 * rho, device=dev)  # [B, RH]
+        cols = offs[:, 1:] - rho + torch.arange(cw + 2 * rho, device=dev)  # [B, RW]
+        cols = torch.where(flip[:, None], cols.flip(-1), cols)
+        first = torch.where(swap, pid[:, 1], pid[:, 0])
+        second = torch.where(swap, pid[:, 0], pid[:, 1])
+        out = {}
+        for name, frame in (("im1", first), ("im2", second)):
+            raw = store[frame[:, None, None], rows[:, :, None], cols[:, None, :]].float()
+            out[f"{name}_raw"] = raw
+            out[name] = raw[:, rho : rho + ch, rho : rho + cw].contiguous()
+        out["start"] = torch.full((pid.shape[0], 2), float(rho), device=dev)
+        return out

@@ -17,6 +17,10 @@ a ``parallel.Mesh``) the occlusion-normalised ratios and the census term are
 taken over the global batch (``Mesh.batch_ratio``), so that k ranks on their
 rows compute the one-rank loss of the whole batch.  The full-resolution warps go through
 ``ops.backward_warp`` (on CUDA tensors the ``warp2d`` kernel, unbounded).
+
+``upflow_losses`` opens the spans ``ofs.losses.occ``, ``.smooth``,
+``.photo``, ``.census`` and ``.msd`` around its terms (the photometric warps
+are ``.photo``'s, which census reads too).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from opticalflowscivis_tpu_torch.ops.census import census_loss
 from opticalflowscivis_tpu_torch.ops.occlusion import occ_check
 from opticalflowscivis_tpu_torch.ops.resize import resize_like, upsample_flow_as
 from opticalflowscivis_tpu_torch.ops.warp import backward_warp, boundary_dilated_warp
+from opticalflowscivis_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,78 +173,79 @@ def upflow_losses(
     flow_f, flow_b = outputs["flow_f"], outputs["flow_b"]
     flows = outputs["flows"]
 
-    occ_fw, occ_bw = occ_check(flow_f, flow_b, cfg.occ_alpha_1, cfg.occ_alpha_2)
-    if cfg.stop_occ_gradient:
-        occ_fw, occ_bw = occ_fw.detach(), occ_bw.detach()
+    with span("ofs.losses.occ"):
+        occ_fw, occ_bw = occ_check(flow_f, flow_b, cfg.occ_alpha_1, cfg.occ_alpha_2)
+        if cfg.stop_occ_gradient:
+            occ_fw, occ_bw = occ_fw.detach(), occ_bw.detach()
 
-    # --- smooth loss
-    if cfg.smooth_level == "final":
-        s_ff, s_fb, s_im1, s_im2 = flow_f, flow_b, im1, im2
-    else:  # '1/4': the finest decoded level
-        s_ff, s_fb = flows[0]
-        s_im1 = resize_like(im1, s_ff)
-        s_im2 = resize_like(im2, s_fb)
-    smooth = torch.zeros((), dtype=torch.float32, device=flow_f.device)
-    for w, order in ((cfg.smooth_order_1_weight, 1), (cfg.smooth_order_2_weight, 2)):
-        if w > 0:
-            if cfg.smooth_type == "edge":
-                smooth = smooth + w * (
-                    edge_aware_smoothness(s_im1, s_ff, order)
-                    + edge_aware_smoothness(s_im2, s_fb, order)
-                )
-            else:
-                smooth = smooth + w * (
-                    flow_smooth_delta(s_ff, order == 2) + flow_smooth_delta(s_fb, order == 2)
-                )
+    with span("ofs.losses.smooth"):
+        if cfg.smooth_level == "final":
+            s_ff, s_fb, s_im1, s_im2 = flow_f, flow_b, im1, im2
+        else:  # '1/4': the finest decoded level
+            s_ff, s_fb = flows[0]
+            s_im1 = resize_like(im1, s_ff)
+            s_im2 = resize_like(im2, s_fb)
+        smooth = torch.zeros((), dtype=torch.float32, device=flow_f.device)
+        for w, order in ((cfg.smooth_order_1_weight, 1), (cfg.smooth_order_2_weight, 2)):
+            if w > 0:
+                if cfg.smooth_type == "edge":
+                    smooth = smooth + w * (
+                        edge_aware_smoothness(s_im1, s_ff, order)
+                        + edge_aware_smoothness(s_im2, s_fb, order)
+                    )
+                else:
+                    smooth = smooth + w * (
+                        flow_smooth_delta(s_ff, order == 2) + flow_smooth_delta(s_fb, order == 2)
+                    )
 
-    # --- photometric loss
-    if raw is not None:
-        im1_raw, im2_raw, start = raw
-        im1_warp = boundary_dilated_warp(im2_raw, flow_f, start)
-        im2_warp = boundary_dilated_warp(im1_raw, flow_b, start)
-    else:
-        im1_warp = backward_warp(im2, flow_f, padding="border")
-        im2_warp = backward_warp(im1, flow_b, padding="border")
-    photo = photo_loss_multi_type(
-        im1, im1_warp, occ_fw, cfg.photo_loss_type, cfg.photo_loss_delta, cfg.photo_loss_use_occ,
-        mesh,
-    ) + photo_loss_multi_type(
-        im2, im2_warp, occ_bw, cfg.photo_loss_type, cfg.photo_loss_delta, cfg.photo_loss_use_occ,
-        mesh,
-    )
-    photo = photo * cfg.photo_weight
+    with span("ofs.losses.photo"):
+        if raw is not None:
+            im1_raw, im2_raw, start = raw
+            im1_warp = boundary_dilated_warp(im2_raw, flow_f, start)
+            im2_warp = boundary_dilated_warp(im1_raw, flow_b, start)
+        else:
+            im1_warp = backward_warp(im2, flow_f, padding="border")
+            im2_warp = backward_warp(im1, flow_b, padding="border")
+        photo = photo_loss_multi_type(
+            im1, im1_warp, occ_fw, cfg.photo_loss_type, cfg.photo_loss_delta,
+            cfg.photo_loss_use_occ, mesh,
+        ) + photo_loss_multi_type(
+            im2, im2_warp, occ_bw, cfg.photo_loss_type, cfg.photo_loss_delta,
+            cfg.photo_loss_use_occ, mesh,
+        )
+        photo = photo * cfg.photo_weight
 
-    # --- census loss
     census = torch.zeros((), dtype=torch.float32, device=flow_f.device)
     if cfg.census_weight > 0:
-        census = cfg.census_weight * (
-            census_loss(im1, im1_warp, mask=occ_fw if cfg.photo_loss_use_occ else None,
-                        robust=True, mesh=mesh)
-            + census_loss(im2, im2_warp, mask=occ_bw if cfg.photo_loss_use_occ else None,
-                          robust=True, mesh=mesh)
-        )
+        with span("ofs.losses.census"):
+            census = cfg.census_weight * (
+                census_loss(im1, im1_warp, mask=occ_fw if cfg.photo_loss_use_occ else None,
+                            robust=True, mesh=mesh)
+                + census_loss(im2, im2_warp, mask=occ_bw if cfg.photo_loss_use_occ else None,
+                              robust=True, mesh=mesh)
+            )
 
-    # --- multi-scale distillation
     msd = torch.zeros((), dtype=torch.float32, device=flow_f.device)
     if cfg.msd_weight > 0:
-        label_f, label_b = flow_f.detach(), flow_b.detach()
-        for scale_f, scale_b in flows:
-            if cfg.msd_style == "down":
-                lf = upsample_flow_as(label_f, scale_f)
-                lb = upsample_flow_as(label_b, scale_b)
-                of = resize_like(occ_fw, scale_f, method="nearest")
-                ob = resize_like(occ_bw, scale_b, method="nearest")
-                sf, sb = scale_f, scale_b
-            else:  # 'upup'
-                lf, lb = label_f, label_b
-                sf = upsample_flow_as(scale_f, label_f)
-                sb = upsample_flow_as(scale_b, label_b)
-                of, ob = occ_fw, occ_bw
-            msd = msd + photo_loss_multi_type(sf, lf, of, "abs_robust", use_occ=cfg.msd_use_occ,
-                                              mesh=mesh)
-            msd = msd + photo_loss_multi_type(sb, lb, ob, "abs_robust", use_occ=cfg.msd_use_occ,
-                                              mesh=mesh)
-        msd = msd * cfg.msd_weight
+        with span("ofs.losses.msd"):
+            label_f, label_b = flow_f.detach(), flow_b.detach()
+            for scale_f, scale_b in flows:
+                if cfg.msd_style == "down":
+                    lf = upsample_flow_as(label_f, scale_f)
+                    lb = upsample_flow_as(label_b, scale_b)
+                    of = resize_like(occ_fw, scale_f, method="nearest")
+                    ob = resize_like(occ_bw, scale_b, method="nearest")
+                    sf, sb = scale_f, scale_b
+                else:  # 'upup'
+                    lf, lb = label_f, label_b
+                    sf = upsample_flow_as(scale_f, label_f)
+                    sb = upsample_flow_as(scale_b, label_b)
+                    of, ob = occ_fw, occ_bw
+                msd = msd + photo_loss_multi_type(sf, lf, of, "abs_robust",
+                                                  use_occ=cfg.msd_use_occ, mesh=mesh)
+                msd = msd + photo_loss_multi_type(sb, lb, ob, "abs_robust",
+                                                  use_occ=cfg.msd_use_occ, mesh=mesh)
+            msd = msd * cfg.msd_weight
 
     parts = {
         "photo_loss": photo,

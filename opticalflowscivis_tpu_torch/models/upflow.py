@@ -32,6 +32,13 @@ pair); the flow is never rounded to bf16.
 
 Flow convention: row-major (dy, dx).  ``UPFlowNet.forward`` takes and returns
 channels-first tensors; the trainer hands channels-last views to the losses.
+
+Spans (``utils.profiling.span``): ``ofs.upflow`` around a forward, with
+``ofs.upflow.features`` (the pyramid) and ``ofs.upflow.level0`` to
+``level4`` (each decoded level, both streams) inside it; ``ofs.upflow.corr``
+around each cost volume and ``ofs.upflow.sgu`` around each SGU upsampling,
+the last one (to full resolution, with its guidance convolutions) directly
+under ``ofs.upflow``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from opticalflowscivis_tpu_torch.models.layers import lecun_normal_
 from opticalflowscivis_tpu_torch.ops.kernels.correlation import cost_volume_kernel
 from opticalflowscivis_tpu_torch.ops.kernels.warp import warp2d, warp2d_with_mask
 from opticalflowscivis_tpu_torch.ops.resize import resize_nchw, upsample_flow_as_nchw
+from opticalflowscivis_tpu_torch.utils.profiling import span
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
@@ -270,19 +278,25 @@ class UPFlowNet(nn.Module):
             xb_warp = xb
         else:
             if self.sgi_model is not None:
-                flow_up = self.sgi_model(flow_up, xa_1x1, xb_1x1)
+                with span("ofs.upflow.sgu"):
+                    flow_up = self.sgi_model(flow_up, xa_1x1, xb_1x1)
             xb_warp = warp_with_mask(xb, flow_up)
         ca, cb = xa, xb_warp
         if cfg.if_norm_before_cost_volume:
             ca, cb = normalize_features(ca, cb, cfg.norm_moments_across_channels,
                                         cfg.norm_moments_across_images)
-        corr = _leaky(cost_volume_kernel(ca, cb, cfg.search_range))
+        with span("ofs.upflow.corr"):
+            corr = _leaky(cost_volume_kernel(ca, cb, cfg.search_range))
         feat, res = self.flow_estimators(torch.cat([corr, xa_1x1, flow_up.to(xa.dtype)], dim=1))
         flow_mid = flow_up + res.float()
         fine = self.context_networks(torch.cat([feat, flow_mid.to(xa.dtype)], dim=1))
         return flow_mid + fine.float()
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor) -> dict:
+        with span("ofs.upflow"):
+            return self._forward(im1, im2)
+
+    def _forward(self, im1: torch.Tensor, im2: torch.Tensor) -> dict:
         cfg = self.cfg
         if im1.dim() != 4 or im1.shape != im2.shape:
             raise ValueError(f"expected two frames [B, C, H, W] of one shape, got "
@@ -302,7 +316,8 @@ class UPFlowNet(nn.Module):
             # stacked batch are the pyramid of [im1; im2] itself; the target
             # features are its halves swapped.
             im_a = torch.cat([im1, im2], dim=0)
-            pyramid = self.feature_extractor(im_a)
+            with span("ofs.upflow.features"):
+                pyramid = self.feature_extractor(im_a)
 
             def swap(x):
                 return torch.cat([x[b:], x[:b]], dim=0)
@@ -311,35 +326,40 @@ class UPFlowNet(nn.Module):
                                device=im1.device)
             flows = []
             for level in range(self.n_levels):
-                xa = pyramid[level]
-                xa_1x1 = self.conv_1x1[level](xa)
-                xb_1x1 = swap(xa_1x1) if sgu is not None else None
-                flow = self._decode(level, xa, swap(xa), xa_1x1, xb_1x1, flow)
+                with span(f"ofs.upflow.level{level}"):
+                    xa = pyramid[level]
+                    xa_1x1 = self.conv_1x1[level](xa)
+                    xb_1x1 = swap(xa_1x1) if sgu is not None else None
+                    flow = self._decode(level, xa, swap(xa), xa_1x1, xb_1x1, flow)
                 flows.append((flow[:b], flow[b:]))
             flow_out = upsample_flow_as_nchw(flow, im_a)
             if sgu is not None:
-                ga = self.sgu_output_conv(im_a)
-                flow_out = sgu(flow, ga, swap(ga), output_level_flow=flow_out)
+                with span("ofs.upflow.sgu"):
+                    ga = self.sgu_output_conv(im_a)
+                    flow_out = sgu(flow, ga, swap(ga), output_level_flow=flow_out)
             return {"flow_f": flow_out[:b], "flow_b": flow_out[b:], "flows": flows[::-1]}
 
-        p1 = self.feature_extractor(im1)
-        p2 = self.feature_extractor(im2)
+        with span("ofs.upflow.features"):
+            p1 = self.feature_extractor(im1)
+            p2 = self.feature_extractor(im2)
         flow_f = torch.zeros((b, 2) + tuple(p1[0].shape[2:]), dtype=torch.float32,
                              device=im1.device)
         flow_b = torch.zeros_like(flow_f)
         flows = []
         for level in range(self.n_levels):
-            x1, x2 = p1[level], p2[level]
-            x1_1x1 = self.conv_1x1[level](x1)
-            x2_1x1 = self.conv_1x1[level](x2)
-            flow_f = self._decode(level, x1, x2, x1_1x1, x2_1x1, flow_f)
-            flow_b = self._decode(level, x2, x1, x2_1x1, x1_1x1, flow_b)
+            with span(f"ofs.upflow.level{level}"):
+                x1, x2 = p1[level], p2[level]
+                x1_1x1 = self.conv_1x1[level](x1)
+                x2_1x1 = self.conv_1x1[level](x2)
+                flow_f = self._decode(level, x1, x2, x1_1x1, x2_1x1, flow_f)
+                flow_b = self._decode(level, x2, x1, x2_1x1, x1_1x1, flow_b)
             flows.append((flow_f, flow_b))
         flow_f_out = upsample_flow_as_nchw(flow_f, im1)
         flow_b_out = upsample_flow_as_nchw(flow_b, im2)
         if sgu is not None:
-            g1 = self.sgu_output_conv(im1)
-            g2 = self.sgu_output_conv(im2)
-            flow_f_out = sgu(flow_f, g1, g2, output_level_flow=flow_f_out)
-            flow_b_out = sgu(flow_b, g2, g1, output_level_flow=flow_b_out)
+            with span("ofs.upflow.sgu"):
+                g1 = self.sgu_output_conv(im1)
+                g2 = self.sgu_output_conv(im2)
+                flow_f_out = sgu(flow_f, g1, g2, output_level_flow=flow_f_out)
+                flow_b_out = sgu(flow_b, g2, g1, output_level_flow=flow_b_out)
         return {"flow_f": flow_f_out, "flow_b": flow_b_out, "flows": flows[::-1]}

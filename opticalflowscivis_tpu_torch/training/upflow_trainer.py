@@ -24,9 +24,14 @@ compute in bfloat16 while every flow stays float32.
 KITTI multiview training: ``fit_kitti`` takes host batches from any
 ``sample(batch)`` dataset (``data.kitti.KittiPairDataset``, usually behind a
 ``PrefetchSampler``); ``fit_kitti_hbm`` keeps a ``KittiHBMCache``'s frames on
-the device and sends only indices each step.  Both pass the rho-dilated raw
-windows and the crop offset to the photometric term (boundary-dilated
-warping).
+the device and sends only indices each step (``kitti_batch`` cuts each
+step's batch).  Both pass the rho-dilated raw windows and the crop offset to
+the photometric term (boundary-dilated warping).
+
+Spans (``utils.profiling.span``): ``ofs.train_step`` around a step, with
+``ofs.backward``, ``ofs.allreduce`` and ``ofs.optimizer`` inside it, and
+``ofs.losses`` around the loss terms (the model's own spans are
+``ofs.upflow`` and its children).
 
 Device-generated training: ``fit_device_gen`` composes each step's pairs on
 the device from integer positions (``data.device_synthetic``); the scene's
@@ -68,6 +73,7 @@ from opticalflowscivis_tpu_torch.parallel.mesh import data_parallel_mesh, shard_
 from opticalflowscivis_tpu_torch.parallel.multihost import local_device
 from opticalflowscivis_tpu_torch.training.checkpoint import restore_state, save_state
 from opticalflowscivis_tpu_torch.training.trainer import TrainState
+from opticalflowscivis_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +223,8 @@ class UPFlowTrainer:
             if "im1_raw" in local else None
         )
         out = self._forward(im1, im2)
-        total, parts = upflow_losses(out, im1, im2, cfg.loss, raw=raw, mesh=mesh)
+        with span("ofs.losses"):
+            total, parts = upflow_losses(out, im1, im2, cfg.loss, raw=raw, mesh=mesh)
         if self._use_sp:
             # student on the transformed pair, teacher = the detached
             # prediction on the untransformed one; one seed per step, so that
@@ -228,13 +235,14 @@ class UPFlowTrainer:
                                       SPTransformConfig())
             t1, t2, sp = drawn if mesh is None else shard_batch(drawn, mesh)
             out_t = self._forward(t1, t2)
-            if cfg.eq_weight > 0:
-                parts["eq_loss"] = cfg.eq_weight * eq_loss(out_t["flow_f"], out["flow_f"], sp)
-                total = total + parts["eq_loss"]
-            if cfg.oi_weight > 0:
-                parts["oi_loss"] = cfg.oi_weight * oi_loss(
-                    t1, t2, out_t["flow_f"], out_t["flow_b"], mesh=mesh)
-                total = total + parts["oi_loss"]
+            with span("ofs.losses"):
+                if cfg.eq_weight > 0:
+                    parts["eq_loss"] = cfg.eq_weight * eq_loss(out_t["flow_f"], out["flow_f"], sp)
+                    total = total + parts["eq_loss"]
+                if cfg.oi_weight > 0:
+                    parts["oi_loss"] = cfg.oi_weight * oi_loss(
+                        t1, t2, out_t["flow_f"], out_t["flow_b"], mesh=mesh)
+                    total = total + parts["oi_loss"]
             parts["loss_total"] = total
         return total, parts
 
@@ -243,18 +251,22 @@ class UPFlowTrainer:
         tensors; the global batch under data parallelism); returns the
         detached loss parts as 0-d tensors."""
         s = self.state
-        s.optimizer.zero_grad(set_to_none=True)
-        total, parts = self.losses(batch, s.step)
-        total.backward()
-        if self.mesh is not None:
-            self.mesh.average_gradients(self.net.parameters())
-        if self.cfg.grad_clip:
-            torch.nn.utils.clip_grad_norm_(self.net.parameters(), self.cfg.grad_clip)
-        s.optimizer.step()
-        s.scheduler.step()
-        s.step += 1
-        parts = {k: v.detach() for k, v in parts.items()}
-        return parts if self.mesh is None else self.mesh.mean_values(parts)
+        with span("ofs.train_step"):
+            s.optimizer.zero_grad(set_to_none=True)
+            total, parts = self.losses(batch, s.step)
+            with span("ofs.backward"):
+                total.backward()
+            if self.mesh is not None:
+                with span("ofs.allreduce"):
+                    self.mesh.average_gradients(self.net.parameters())
+            with span("ofs.optimizer"):
+                if self.cfg.grad_clip:
+                    torch.nn.utils.clip_grad_norm_(self.net.parameters(), self.cfg.grad_clip)
+                s.optimizer.step()
+                s.scheduler.step()
+            s.step += 1
+            parts = {k: v.detach() for k, v in parts.items()}
+            return parts if self.mesh is None else self.mesh.mean_values(parts)
 
     def eval_step(self, batch: dict[str, torch.Tensor]):
         """Loss parts and ``{"flow_f", "flow_b"}`` (channels-last, on the
@@ -567,26 +579,32 @@ class UPFlowTrainer:
     def fit_kitti_hbm(self, cache, steps_per_epoch: int, epochs: int | None = None,
                       log_every: int = 20, resume: bool = False) -> list[dict[str, float]]:
         """KITTI-multiview training from a device-resident ``KittiHBMCache``:
-        the frames go to the device once (``kitti_store``); each step the host
-        draws the pair indices, crop offsets and flip and swap bits from
-        ``np.random.default_rng(cfg.seed + 2)`` (``KittiHBMCache.draw``), only
-        those cross to the device, and ``data.kitti.device_batch`` cuts the
-        crops, the rho-dilated raw windows, the flips and the swaps out of the
-        store there and casts them to float32.  Each call starts the draws
+        the frames go to the device once (``kitti_store``); each step
+        (``kitti_batch``) the host draws the pair indices, crop offsets and
+        flip and swap bits from ``np.random.default_rng(cfg.seed + 2)``
+        (``KittiHBMCache.draw``), only those cross to the device, and
+        ``data.kitti.device_batch`` cuts the crops, the rho-dilated raw
+        windows, the flips and the swaps out of the store there and casts
+        them to float32.  Each call starts the draws
         afresh.  ``resume``, ``loss.json`` and the checkpoint as in
         ``fit_kitti``."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.n_epoch
-        batch = self._batch_size()
         store = self.kitti_store(cache)
         self._init_kitti(steps_per_epoch, resume)
         rng = np.random.default_rng(cfg.seed + 2)
+        return self._kitti_epochs(lambda: self.kitti_batch(cache, store, rng), steps_per_epoch,
+                                  epochs, log_every)
 
-        def next_batch():
-            drawn = [torch.from_numpy(np.asarray(a)) for a in cache.draw(rng, batch)]
-            return device_batch(store, *drawn, cache.crop, cache.rho)
-
-        return self._kitti_epochs(next_batch, steps_per_epoch, epochs, log_every)
+    def kitti_batch(self, cache, store: torch.Tensor,
+                    rng: np.random.Generator) -> dict[str, torch.Tensor]:
+        """One step's device batch of ``fit_kitti_hbm``: ``cache.draw`` on the
+        host (the batch size's pair indices, crop offsets, flips and swaps
+        from ``rng``), then ``data.kitti.device_batch`` cuts it out of
+        ``store`` (``kitti_store``'s frames, or any ``[F, H, W, 3]`` tensor of
+        the cache's frame shape) on the device."""
+        drawn = [torch.from_numpy(np.asarray(a)) for a in cache.draw(rng, self._batch_size())]
+        return device_batch(store, *drawn, cache.crop, cache.rho)
 
     def predict(self, pairs: np.ndarray):
         """Eval forward on ``[N, 2, H, W, C]`` (edge-padded to the multiple):

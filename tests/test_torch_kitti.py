@@ -11,7 +11,9 @@ Twins of ``tests/test_vimeo_kitti.py``'s KITTI cases and of
   float32 and from a bfloat16 store;
 - one UPFlow train step with raw windows and ``start`` (boundary-dilated
   warping) against the reference's loss and gradients, from bridged weights;
-- ``fit_kitti`` and ``fit_kitti_hbm`` for two steps on a narrow model, and
+- ``fit_kitti`` and ``fit_kitti_hbm`` for two steps on a narrow model (the
+  latter's batches are ``kitti_batch``'s, the draws of ``default_rng(seed +
+  2)`` cut by ``device_batch`` as the loop cut them before), and
   the CLI's ``train_upflow --dataset kitti`` (both ``--hbm_cache`` paths) and
   ``test_upflow --kitti_root``, whose ``kitti2015`` report is the reference's
   ``evaluate_flow`` of the same predicted flows.
@@ -317,6 +319,28 @@ def test_device_batch_equals_the_reference_semantics(store_dtype):
     assert len(seen) == 4  # every flip and swap combination was cut
 
 
+def test_a_cache_for_a_device_store_draws_as_the_cache_of_its_frames():
+    """``KittiHBMCache.for_store`` holds no frames, only their shape and the
+    pairs: its draws and the batches ``kitti_batch`` cuts with them equal
+    those of ``from_frames`` over the same frames."""
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainConfig, UPFlowTrainer
+
+    rng = np.random.default_rng(5)
+    frames = [rng.uniform(-0.5, 0.5, (37, 61, 3)).astype(np.float32) for _ in range(5)]
+    full = kitti.KittiHBMCache.from_frames(frames, [(0, 1), (1, 2), (3, 4)], (16, 24), 4)
+    store = torch.from_numpy(full.frames)
+    bare = kitti.KittiHBMCache.for_store(store.shape, full.pair_idx, (16, 24), 4)
+    assert bare.frames is None and len(bare) == len(full) == 3
+    assert bare.frame_shape == full.frame_shape == (5, 37, 61, 3)
+    tr = UPFlowTrainer(UPFlowTrainConfig(batch_size=4), device="cpu")
+    rng_a, rng_b = np.random.default_rng(9), np.random.default_rng(9)
+    for _ in range(3):
+        a, b = tr.kitti_batch(full, store, rng_a), tr.kitti_batch(bare, store, rng_b)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
 def test_device_batch_refuses_frames_smaller_than_crop_and_margin():
     store = torch.zeros((2, 20, 30, 3))
     args = [torch.zeros((1, 2), dtype=torch.int64), torch.full((1, 2), 2),
@@ -451,6 +475,32 @@ def test_fit_kitti_hbm_two_steps_uploads_once(tmp_path):
     assert tr.kitti_store(other) is not store
     bf16 = UPFlowTrainer(_narrow_cfg(tmp_path, "hbm16", bfloat16=True), device="cpu")
     assert bf16.kitti_store(cache).dtype == torch.bfloat16
+
+
+def test_fit_kitti_hbm_trains_on_kitti_batch_s_batches(tmp_path, monkeypatch):
+    """Three steps of ``fit_kitti_hbm``: each batch ``train_step`` gets is
+    the one ``kitti_batch`` returned, and equals the draw of
+    ``default_rng(cfg.seed + 2)`` cut out of the store by ``device_batch``,
+    step by step."""
+    d = _make_kitti_multiview(tmp_path)
+    cache = kitti.KittiHBMCache(d, max_pairs=None, crop=(64, 64), rho=8)
+    cfg = _narrow_cfg(tmp_path, "kb")
+    tr = UPFlowTrainer(cfg, device="cpu")
+    cut, trained = [], []
+    batch_of = UPFlowTrainer.kitti_batch
+    monkeypatch.setattr(UPFlowTrainer, "kitti_batch",
+                        lambda self, *a: cut.append(batch_of(self, *a)) or cut[-1])
+    monkeypatch.setattr(UPFlowTrainer, "train_step",
+                        lambda self, b: trained.append(b) or {"loss_total": torch.zeros(())})
+    tr.fit_kitti_hbm(cache, steps_per_epoch=3, epochs=1, log_every=0)
+    assert len(trained) == 3 and all(a is b for a, b in zip(cut, trained))
+    rng, store = np.random.default_rng(cfg.seed + 2), tr.kitti_store(cache)
+    for got in trained:
+        drawn = [torch.from_numpy(np.asarray(a)) for a in cache.draw(rng, cfg.batch_size)]
+        want = kitti.device_batch(store, *drawn, cache.crop, cache.rho)
+        assert set(got) == set(want)
+        for k, v in want.items():
+            torch.testing.assert_close(got[k], v, rtol=0, atol=0)
 
 
 # -- the CLI ---------------------------------------------------------------------------

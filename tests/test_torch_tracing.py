@@ -4,6 +4,9 @@ Spans off: one shared no-op, and a profile holds none of them.  Under
 ``trace`` one tiny CPU train step (2-D, a few channels a block, 32x32,
 batch 2) and one tiny series call give the spans nested as the layers are:
 each span's parent is the innermost span that encloses it on its thread.
+So do a narrow UPFlow step with SGU, census and distillation on a batch cut
+by ``kitti_batch`` (``ofs.kitti_batch`` before ``ofs.train_step``), and with
+the spans off it records none.
 """
 
 import json
@@ -111,3 +114,56 @@ def test_a_series_call_and_a_request_under_trace_nest_their_spans(trainer, tmp_p
     with trace(str(tmp_path / "pair")) as path:
         interp.forward(x[:1], x[1:], 0.5)
     assert _span_tree(path)[:2] == [("ofs.interpolate", None), ("ofs.ifnet", "ofs.interpolate")]
+
+
+# -- UPFlow ------------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def upflow(tmp_path_factory):
+    """A narrow UPFlow trainer with SGU, census and distillation, and a frame
+    store of 2 sequences of 3 frames for ``kitti_batch`` (64 x 64 crops)."""
+    from opticalflowscivis_tpu_torch.data.kitti import KittiHBMCache
+    from opticalflowscivis_tpu_torch.losses import UPFlowLossConfig
+    from opticalflowscivis_tpu_torch.models import UPFlowConfig
+    from opticalflowscivis_tpu_torch.training import UPFlowTrainConfig, UPFlowTrainer
+
+    model = UPFlowConfig(num_chs=(3, 4, 8, 8, 12, 16, 16), estimator_f_channels=(8, 8, 8, 8, 8),
+                         context_f_channels=(8, 8, 8, 8, 8, 8, 2), search_range=2,
+                         if_norm_before_cost_volume=True, if_sgu_upsample=True)
+    loss = UPFlowLossConfig(census_weight=1.0, msd_weight=0.01)
+    tr = UPFlowTrainer(UPFlowTrainConfig(batch_size=2, bfloat16=False, model=model, loss=loss,
+                                         exp_dir=str(tmp_path_factory.mktemp("upflow"))),
+                       device="cpu")
+    tr.init_state()
+    frames = list(np.random.default_rng(2).uniform(-0.5, 0.5, (6, 80, 80, 3)).astype(np.float32))
+    cache = KittiHBMCache.from_frames(frames, [(0, 1), (1, 2), (3, 4), (4, 5)], (64, 64), 8)
+    return tr, cache, torch.from_numpy(cache.frames)
+
+
+UPFLOW_STEP = (
+    [("ofs.train_step", None), ("ofs.upflow", "ofs.train_step"),
+     ("ofs.upflow.features", "ofs.upflow"),
+     ("ofs.upflow.level0", "ofs.upflow"), ("ofs.upflow.corr", "ofs.upflow.level0")]
+    + [span for level in range(1, 5) for span in (
+        (f"ofs.upflow.level{level}", "ofs.upflow"), ("ofs.upflow.sgu", f"ofs.upflow.level{level}"),
+        ("ofs.upflow.corr", f"ofs.upflow.level{level}"))]
+    + [("ofs.upflow.sgu", "ofs.upflow"), ("ofs.losses", "ofs.train_step")]
+    + [(f"ofs.losses.{p}", "ofs.losses") for p in ("occ", "smooth", "photo", "census", "msd")]
+    + [("ofs.backward", "ofs.train_step"), ("ofs.optimizer", "ofs.train_step")])
+
+
+def test_an_upflow_kitti_step_under_trace_nests_its_spans(upflow, tmp_path):
+    tr, cache, store = upflow
+    rng = np.random.default_rng(0)
+    with trace(str(tmp_path / "upflow")) as path:
+        tr.train_step(tr.kitti_batch(cache, store, rng))
+    assert _span_tree(path) == [("ofs.kitti_batch", None)] + UPFLOW_STEP
+
+
+def test_upflow_spans_off_record_nothing(upflow, tmp_path):
+    tr, cache, store = upflow
+    rng = np.random.default_rng(1)
+    with trace(str(tmp_path / "off")) as path, spans(False):
+        tr.train_step(tr.kitti_batch(cache, store, rng))
+    assert _span_tree(path) == []
